@@ -13,22 +13,21 @@ Behavioral contracts match the reference (``models/vanilla_nerf/helper.py``):
 * ``sample_pdf`` (helper.py:246-252): sorted union of coarse and fine
   t-values, recast into sample coordinates.
 
-Only the deterministic (eval) branches are ported; the randomized ones come
-with vanilla training (ROADMAP.md Queue 1 item 4) and raise until then.
+Randomness comes from an explicit ``torch.Generator`` (the JAX package's
+keys), and every randomized function also takes the uniforms themselves
+(``t_rand=``, ``u=``): torch and JAX streams differ, so a test that compares
+the two injects one set of draws into both.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
 
-RANDOMIZED_NOT_PORTED = (
-    "randomized sampling arrives with vanilla training "
-    "(ROADMAP.md Queue 1 item 4, slice 2); only the deterministic eval path is ported"
-)
+NEEDS_GENERATOR = "randomized sampling requires a torch.Generator or the draws themselves"
 
 
 def unit_linspace(num: int, device=None) -> torch.Tensor:
@@ -52,6 +51,51 @@ def cast_rays(
     return origins[..., None, :] + t_vals[..., None] * directions[..., None, :]
 
 
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """A 32-bit integer hash (two multiply-xorshift rounds) on int64 tensors
+    that hold 32-bit values."""
+    m = 0xFFFFFFFF
+    x = ((x ^ (x >> 16)) * 0x7FEB352D) & m
+    x = ((x ^ (x >> 15)) * 0x846CA68B) & m
+    return x ^ (x >> 16)
+
+
+def per_ray_uniform(
+    generator: torch.Generator, ray_ids: torch.Tensor, n: int, dtype: torch.dtype = torch.float32
+) -> torch.Tensor:
+    """(B, n) uniforms in [0, 1) where row i depends only on the generator's
+    state and ``ray_ids[i]``: independent of batch size and microbatching.
+
+    The JAX package folds the key with the global ray index; here one seed is
+    drawn from ``generator`` (so the generator advances by the same amount
+    whatever the batch) and hashed with the ray index and the column.
+    """
+    if generator is None:
+        raise ValueError(NEEDS_GENERATOR)
+    device = ray_ids.device
+    seed = torch.randint(0, 2**31 - 1, (2,), generator=generator, device=generator.device).to(device)
+    row = _mix32((ray_ids.to(torch.int64) & 0xFFFFFFFF) ^ seed[0])[:, None]
+    col = torch.arange(n, device=device, dtype=torch.int64)[None, :]
+    bits = _mix32(((row + col * 0x9E3779B1) & 0xFFFFFFFF) ^ seed[1])
+    return ((bits >> 8).to(torch.float32) * 2.0**-24).to(dtype)
+
+
+def draw_uniform(
+    shape: Tuple[int, ...],
+    generator: Optional[torch.Generator],
+    device: torch.device,
+    dtype: torch.dtype = torch.float32,
+    ray_ids: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """``shape`` (B, n) uniforms from ``generator``: per ray where ``ray_ids``
+    is given, one block draw otherwise."""
+    if ray_ids is not None:
+        return per_ray_uniform(generator, ray_ids, shape[-1], dtype)
+    if generator is None:
+        raise ValueError(NEEDS_GENERATOR)
+    return torch.rand(shape, generator=generator, device=generator.device, dtype=dtype).to(device)
+
+
 def sample_along_rays(
     rays_o: torch.Tensor,
     rays_d: torch.Tensor,
@@ -60,13 +104,17 @@ def sample_along_rays(
     far: Union[float, torch.Tensor],
     randomized: bool = False,
     lindisp: bool = False,
+    generator: Optional[torch.Generator] = None,
+    ray_ids: Optional[torch.Tensor] = None,
+    t_rand: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Coarse sampling along rays: ``(t_vals (B, S+1), coords (B, S+1, 3))``.
+    """Stratified coarse sampling along rays: ``(t_vals (B, S+1), coords (B, S+1, 3))``.
 
-    ``near`` / ``far`` may be scalars or per-ray ``(B,)`` tensors.
+    ``near`` / ``far`` may be scalars or per-ray ``(B,)`` tensors.  When
+    ``randomized``, each of the S+1 points is jittered uniformly within its
+    midpoint-bounded bin (reference helper.py:122-127) by ``t_rand`` (B, S+1)
+    in [0, 1), drawn from ``generator`` unless given.
     """
-    if randomized:
-        raise NotImplementedError(RANDOMIZED_NOT_PORTED)
     bsz = rays_o.shape[0]
     dtype, device = rays_o.dtype, rays_o.device
     near = torch.as_tensor(near, dtype=dtype, device=device)
@@ -80,7 +128,16 @@ def sample_along_rays(
         t_vals = 1.0 / (1.0 / near * (1.0 - t_vals) + 1.0 / far * t_vals)
     else:
         t_vals = near * (1.0 - t_vals) + far * t_vals
-    t_vals = t_vals.expand(bsz, num_samples + 1).contiguous()
+    if randomized:
+        if t_rand is None:
+            t_rand = draw_uniform((bsz, num_samples + 1), generator, device, dtype, ray_ids)
+        mids = 0.5 * (t_vals[..., 1:] + t_vals[..., :-1])
+        upper = torch.cat([mids, t_vals[..., -1:]], dim=-1)
+        lower = torch.cat([t_vals[..., :1], mids], dim=-1)
+        t_vals = (lower + (upper - lower) * t_rand).contiguous()
+    else:
+        t_vals = t_vals.expand(bsz, num_samples + 1).contiguous()
+    t_vals = t_vals.detach()  # sample positions carry no parameter gradients
     return t_vals, cast_rays(t_vals, rays_o, rays_d)
 
 
@@ -146,16 +203,22 @@ def sorted_piecewise_constant_pdf(
     weights: torch.Tensor,
     num_samples: int,
     randomized: bool = False,
+    generator: Optional[torch.Generator] = None,
+    ray_ids: Optional[torch.Tensor] = None,
+    u: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Inverse-CDF samples ``(B, num_samples)`` from a piecewise-constant pdf.
 
-    bins: (B, N) sorted positions; weights: (B, N - 1) bin masses.
+    bins: (B, N) sorted positions; weights: (B, N - 1) bin masses.  When
+    ``randomized`` the quantiles are iid uniforms ``u`` (B, num_samples),
+    drawn from ``generator`` unless given; otherwise the eval quantiles.
     """
-    if randomized:
-        raise NotImplementedError(RANDOMIZED_NOT_PORTED)
     cdf = pdf_cdf(weights)
-    u = eval_quantiles(num_samples, cdf.device).to(cdf.dtype)
-    u = u.expand(*cdf.shape[:-1], num_samples)
+    if not randomized:
+        u = eval_quantiles(num_samples, cdf.device).to(cdf.dtype)
+        u = u.expand(*cdf.shape[:-1], num_samples)
+    elif u is None:
+        u = draw_uniform((*cdf.shape[:-1], num_samples), generator, cdf.device, cdf.dtype, ray_ids)
     return invert_cdf(bins, cdf, u)
 
 
@@ -167,8 +230,13 @@ def sample_pdf(
     t_vals: torch.Tensor,
     num_samples: int,
     randomized: bool = False,
+    generator: Optional[torch.Generator] = None,
+    ray_ids: Optional[torch.Tensor] = None,
+    u: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fine resampling: ``(t_union_sorted (B, T + n), coords (B, T + n, 3))``."""
-    t_samples = sorted_piecewise_constant_pdf(bins, weights, num_samples, randomized).detach()
+    t_samples = sorted_piecewise_constant_pdf(
+        bins, weights, num_samples, randomized, generator=generator, ray_ids=ray_ids, u=u
+    ).detach()
     t_vals = torch.sort(torch.cat([t_vals, t_samples], dim=-1), dim=-1).values.detach()
     return t_vals, cast_rays(t_vals, origins, directions)

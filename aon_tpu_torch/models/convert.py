@@ -1,8 +1,11 @@
-"""Weight carry-over from the JAX package's flax params.
+"""Carry-over of weights and train state from the JAX package's flax trees.
 
 A flax ``Dense`` stores ``kernel`` as (in, out); ``nn.Linear`` stores
 ``weight`` as (out, in), so ``weight = kernel.T``.  Param paths map one to
-one: ``coarse_mlp/pts_0/kernel`` -> ``coarse_mlp.pts_0.weight``.
+one: ``coarse_mlp/pts_0/kernel`` -> ``coarse_mlp.pts_0.weight``.  The
+transpose that carries a kernel carries its gradient and its Adam moments
+too, so ``params_from_flax`` and ``tree_to_flax`` serve any tree of the
+params' structure (params, gradients, ``mu``, ``nu``).
 """
 
 from __future__ import annotations
@@ -16,7 +19,8 @@ _LEAF = {"kernel": "weight", "bias": "bias"}
 
 
 def params_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """Nested dicts of numpy arrays (flax params) -> a torch state dict."""
+    """Nested dicts of numpy arrays in the flax layout (params, or gradients
+    or Adam moments of the same structure) -> a torch state dict."""
     out: Dict[str, torch.Tensor] = {}
 
     def walk(node: Mapping[str, Any], prefix: str) -> None:
@@ -46,3 +50,18 @@ def load_npz(path: str) -> Dict[str, torch.Tensor]:
                 node = node.setdefault(p, {})
             node[leaf] = data[key]
     return params_from_flax(tree)
+
+
+def tree_to_flax(flat: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """The inverse of ``params_from_flax``: a ``{name: tensor}`` tree (params,
+    gradients, moments) -> nested dicts of numpy arrays in the flax layout."""
+    names = {v: k for k, v in _LEAF.items()}
+    tree: Dict[str, Any] = {}
+    for key, value in flat.items():
+        *parents, leaf = key.split(".")
+        node = tree
+        for p in parents:
+            node = node.setdefault(p, {})
+        arr = value.detach().cpu().numpy()
+        node[names[leaf]] = np.array(arr.T if leaf == "weight" else arr, order="C")
+    return tree

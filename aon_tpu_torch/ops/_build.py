@@ -5,7 +5,7 @@ a plain C interface (``extern "C"`` launchers that take the CUDA stream and
 return ``cudaGetLastError()``), loaded with ``ctypes``.  No PyTorch headers
 are compiled, so a build takes seconds.  Libraries land in
 ``build/aon_tpu_torch/`` at the repository root, named by a hash of their
-source and flags, and are built at first use.
+source, the headers beside it and the flags, and are built at first use.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "aon_tpu_torch"
-KERNEL_SOURCES = ("fused_mlp_eval", "resample")
+KERNEL_SOURCES = ("fused_mlp_eval", "resample", "level_train")
 
 # No --use_fast_math: the positional encoding needs the accurate sinf and
 # IEEE division (ops/csrc/fused_mlp_eval.cu).
@@ -43,6 +43,10 @@ _SIGNATURES = {
     "resample": {
         "aon_resample_launch": [_VOID_P] * 4 + [_LL, _VOID_P, _LL, _INT, _INT, _INT, _VOID_P],
     },
+    "level_train": {
+        "aon_level_train_launch": [_VOID_P] * 19 + [_INT, _INT, _INT, _VOID_P],
+        "aon_mlp_bwd_launch": [_VOID_P] * 14 + [_LL, _INT, _VOID_P],
+    },
 }
 
 
@@ -58,6 +62,8 @@ def nvcc() -> str:
 
 def library_path(name: str) -> Path:
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):  # every source may include them
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 

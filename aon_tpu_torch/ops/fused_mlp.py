@@ -1,5 +1,5 @@
-"""Packing of the vanilla NeRF MLP for the fused kernel (port of the parts of
-``aon_tpu/ops/fused_mlp.py`` that the render path uses).
+"""Packing of the vanilla NeRF MLP for the fused kernels (port of the packing
+in ``aon_tpu/ops/fused_mlp.py`` and ``aon_tpu/ops/fused_mlp_train.py``).
 
 The skip concat is algebraized: layer 5's (319, 256) kernel splits into a
 (256, 256) part on the activation and a (64, 256) zero-padded part on the
@@ -43,6 +43,11 @@ PACKED_SHAPES = {
     **{f"b{i}": (WIDTH,) for i in range(8)},
     "bb": (WIDTH,), "bd": (1,), "bv": (COND_WIDTH,), "brgb": (3,),
 }
+# (rows, cols) of every float32-packed tensor and of every gradient the training
+# kernels return, biases as (1, C) (``_SHAPES`` of the JAX package)
+SHAPES = {k: (v if len(v) == 2 else (1, v[0])) for k, v in PACKED_SHAPES.items()}
+N_KERNEL_WEIGHTS = sum(PACKED_SHAPES[k][0] * PACKED_SHAPES[k][1] for k in _KERNEL_WEIGHTS)
+N_KERNEL_BIASES = sum(PACKED_SHAPES[k][0] for k in _KERNEL_BIASES)
 
 
 def pack_vanilla_mlp_params(
@@ -82,6 +87,42 @@ def pack_vanilla_mlp_params(
     return {
         k: (v.to(dtype).contiguous() if k.startswith("w") else v) for k, v in out.items()
     }
+
+
+def pack_vanilla_mlp_params_f32(params: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """float32 packing of the training path: float32 (in, out) matrices and
+    (1, C) biases, the layout of the kernels' gradients (``SHAPES``)."""
+    packed = pack_vanilla_mlp_params(params, dtype=torch.float32)
+    return {k: v.reshape(1, -1) if v.ndim == 1 else v for k, v in packed.items()}
+
+
+def unpack_vanilla_mlp_grads(
+    d: Mapping[str, torch.Tensor], pos_dim: int = 63, view_dim: int = 27
+) -> Dict[str, torch.Tensor]:
+    """Packed-layout gradients -> the ``NeRFMLP`` state-dict layout
+    (``pts_0.weight`` (out, in), ``pts_0.bias`` ...).
+
+    Inverse of the pad and split of ``pack_vanilla_mlp_params``: the
+    zero-padded K rows carry zero gradient, so slicing them off is exact.
+    """
+    kernels = {
+        "pts_0": d["w0"][:pos_dim],
+        "bottleneck": d["wb"],
+        "density": d["wd"],
+        "views_0": torch.cat([d["wva"], d["wvb"][:view_dim]], dim=0),
+        "rgb": d["wrgb"],
+    }
+    biases = {"pts_0": d["b0"], "bottleneck": d["bb"], "density": d["bd"], "views_0": d["bv"],
+              "rgb": d["brgb"]}
+    for i in range(1, 8):
+        kernels[f"pts_{i}"] = (torch.cat([d["w5a"], d["w5b"][:pos_dim]], dim=0) if i == 5
+                               else d[f"w{i}"])
+        biases[f"pts_{i}"] = d[f"b{i}"]
+    out = {}
+    for name, kernel in kernels.items():
+        out[f"{name}.weight"] = kernel.t().contiguous()
+        out[f"{name}.bias"] = biases[name].reshape(-1)
+    return out
 
 
 def make_posenc_constants(
@@ -126,3 +167,31 @@ def kernel_blobs(packed: Mapping[str, torch.Tensor]) -> Tuple[torch.Tensor, torc
     wblob = torch.cat([packed[k].reshape(-1) for k in _KERNEL_WEIGHTS])
     bblob = torch.cat([packed[k].reshape(-1) for k in _KERNEL_BIASES])
     return wblob, bblob
+
+
+def round_packed(packed: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """float32-packed training weights in the eval kernel's packing: matrices
+    rounded to bf16, biases flat float32.
+
+    The rounding is what every product of the training kernels does with the
+    matrices (and what the TPU's matrix unit does with float32 operands at
+    default precision)."""
+    return {k: (v.to(torch.bfloat16) if k.startswith("w") else v.reshape(-1))
+            for k, v in packed.items()}
+
+
+def train_blobs(packed: Mapping[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The two blobs of ``kernel_blobs`` from float32-packed training weights,
+    rounded once (``round_packed``)."""
+    return kernel_blobs(round_packed(packed))
+
+
+def grads_from_blob(blob: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The training kernels' float32 gradient blob (weights in the order of
+    the weight blob, then the biases) as views in the ``SHAPES`` layout."""
+    out, offset = {}, 0
+    for k in _KERNEL_WEIGHTS + _KERNEL_BIASES:
+        rows, cols = SHAPES[k]
+        out[k] = blob[offset:offset + rows * cols].view(rows, cols)
+        offset += rows * cols
+    return out

@@ -4,19 +4,25 @@
 tensors and runs its plain twin, ``resample_union_plain`` (the
 ``sample_pdf`` formulation with ``torch.sort`` of the union), on CPU tensors.
 The CDF is built in PyTorch before the kernel, as the JAX wrapper builds it
-in XLA.  Only the deterministic eval quantiles are ported; the sorted random
-quantiles come with training (ROADMAP.md slice 2).
+in XLA.
+
+Randomized draws: the reference draws iid uniforms and relies on the final
+union sort; the merge needs sorted u.  ``sorted_uniform`` builds sorted iid
+uniforms directly from the order-statistics identity u_(k) = S_k / S_{n+1},
+S the partial sums of iid Exp(1) draws, so the sorted sample set has the
+distribution of sorted iid draws.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from aon_tpu_torch.core.sampling import (
-    RANDOMIZED_NOT_PORTED,
     cast_rays,
+    draw_uniform,
+    per_ray_uniform,
     eval_quantiles,
     invert_cdf,
     pdf_cdf,
@@ -73,6 +79,21 @@ def resample_union(
 resample_union.launches = 0
 
 
+def sorted_uniform(uniforms: torch.Tensor) -> torch.Tensor:
+    """Sorted iid-uniform order statistics without a sort: (..., n + 1)
+    uniforms in [0, 1) -> (..., n) ascending, by a cumsum of the exponentials
+    ``-log1p(-uniforms)``."""
+    s = torch.cumsum(-torch.log1p(-uniforms), dim=-1)
+    return s[..., :-1] / s[..., -1:]
+
+
+def sorted_per_ray_uniform(generator: torch.Generator, ray_ids: torch.Tensor, n: int,
+                           dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Per-ray-seeded sorted uniforms (B, n): independent of batch layout, like
+    ``core.sampling.per_ray_uniform``."""
+    return sorted_uniform(per_ray_uniform(generator, ray_ids, n + 1, dtype))
+
+
 def fused_resample(
     t_vals: torch.Tensor, bins: torch.Tensor, weights: torch.Tensor, u: torch.Tensor
 ) -> torch.Tensor:
@@ -93,11 +114,26 @@ def sample_pdf_fused(
     t_vals: torch.Tensor,
     num_samples: int,
     randomized: bool = False,
+    generator: Optional[torch.Generator] = None,
+    ray_ids: Optional[torch.Tensor] = None,
+    u: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Drop-in for ``core.sampling.sample_pdf`` on the fused path: the sorted
-    coarse/fine union and its recast coordinates."""
-    if randomized:
-        raise NotImplementedError(RANDOMIZED_NOT_PORTED)
-    u = eval_quantiles(num_samples, device=bins.device).expand(bins.shape[0], num_samples)
+    """Drop-in for ``core.sampling.sample_pdf`` on the fused paths: the sorted
+    coarse/fine union and its recast coordinates.
+
+    Randomized quantiles are order statistics, sorted by construction
+    (``sorted_uniform``), seeded per ray where ``ray_ids`` is given; a caller
+    may pass them as ``u`` (B, num_samples), each row ascending.
+    """
+    if not randomized:
+        u = eval_quantiles(num_samples, device=bins.device).expand(bins.shape[0], num_samples)
+    elif u is None and ray_ids is not None:
+        u = sorted_per_ray_uniform(generator, ray_ids, num_samples, bins.dtype)
+    elif u is None:
+        u = sorted_uniform(draw_uniform((bins.shape[0], num_samples + 1), generator, bins.device,
+                                        bins.dtype))
+    u = u.detach()
+    if u.stride(0) != 0:
+        u = u.contiguous()
     t_union = fused_resample(t_vals.detach(), bins.detach(), weights.detach(), u)
     return t_union, cast_rays(t_union, origins, directions)

@@ -1,23 +1,57 @@
-"""Systems per exp_type (port of the render half of ``aon_tpu/train/systems.py``).
+"""Training systems per exp_type (port of the vanilla system of
+``aon_tpu/train/systems.py``).
 
-``VanillaSystem.render_chunk(params, rays)`` is the deterministic renderer of
-eval: the fused path (``ops/render_fused.py``, CUDA kernels) when
-``cfg.use_pallas`` is set and the system runs on CUDA, the plain
-``VanillaNeRF`` module otherwise, as the JAX system picks its Pallas path only
-on a TPU.  Training comes with ROADMAP.md slice 2.
+Each system exposes
+
+  * ``init_state(generator)`` -> ``TrainState`` (params, Adam moments, step)
+  * ``train_step(state, batch, generator)`` -> ``(state, metrics)``
+  * ``train_many(state, superbatch, generator)`` -> T steps from one call
+  * ``render_chunk(params, rays)`` -> deterministic renderer of eval
+
+With ``cfg.use_pallas`` on a CUDA device both the step and the renderer go
+through the CUDA kernels: the v3 step (``ops/train_fused_level.py``, one
+launch per level) when ``cfg.fused_train == "v3"`` and ``cfg.noise_std ==
+0``, else the two-kernel v2 loss (``ops/train_pallas.py``) under autograd.
+On a CPU device, or with ``use_pallas`` off, the plain ``VanillaNeRF`` module
+runs under autograd, as the JAX system falls back off the TPU.
+
+Loss and metrics (reference model.py:256-282): MSE(coarse) + MSE(fine);
+``train/loss``, ``train/psnr0``, ``train/psnr1``.  Metrics stay tensors on
+the system's device: ``train_step`` never waits for the device.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Mapping, Optional
 
 import torch
 
+from aon_tpu_torch.core.rendering import img2mse, mse2psnr
 from aon_tpu_torch.models.mlp import xavier_init_
 from aon_tpu_torch.models.nerf import VanillaNeRF
 from aon_tpu_torch.ops.render_fused import make_fused_render_fn
+from aon_tpu_torch.train.microbatch import accumulated_grads, make_train_many
+from aon_tpu_torch.train.optim import Adam, make_optimizer
 from aon_tpu_torch.utils.config import Config
 from aon_tpu_torch.utils.device import DeviceLike, resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainState:
+    """Params, Adam moments and the host-side step count (the flax
+    ``TrainState`` of the JAX package).  Immutable: ``apply_gradients``
+    returns the next state."""
+
+    step: int
+    params: Dict[str, torch.Tensor]
+    mu: Dict[str, torch.Tensor]
+    nu: Dict[str, torch.Tensor]
+    tx: Adam
+
+    def apply_gradients(self, grads: Mapping[str, torch.Tensor]) -> "TrainState":
+        params, mu, nu = self.tx.update(self.params, grads, self.mu, self.nu, self.step)
+        return dataclasses.replace(self, step=self.step + 1, params=params, mu=mu, nu=nu)
 
 
 def _dtype(cfg: Config) -> torch.dtype:
@@ -38,23 +72,71 @@ class VanillaSystem:
             min_deg_point=0,
             max_deg_point=cfg.N_emb_xyz,
             deg_view=cfg.N_emb_dir,
+            noise_std=cfg.noise_std,
             lindisp=cfg.lindisp,
             dtype=_dtype(cfg),
             device=self.device,
         )
+        self.tx, self.lr_schedule = make_optimizer(cfg)
         self._fused = None
-        if cfg.use_pallas and self.device.type == "cuda":
-            self._fused = make_fused_render_fn(
-                self.near, self.far, self.white_bkgd,
-                num_coarse=cfg.N_samples, num_fine=cfg.N_importance,
-                max_deg=cfg.N_emb_xyz, deg_view=cfg.N_emb_dir, lindisp=cfg.lindisp,
-            )
+        levels = dict(num_coarse=cfg.N_samples, num_fine=cfg.N_importance,
+                      max_deg=cfg.N_emb_xyz, deg_view=cfg.N_emb_dir, lindisp=cfg.lindisp)
+        use_fused = cfg.use_pallas and self.device.type == "cuda"
+        if use_fused:
+            self._fused = make_fused_render_fn(self.near, self.far, self.white_bkgd, **levels)
+        if use_fused and cfg.fused_train == "v3" and cfg.noise_std == 0:
+            # one kernel launch per level (forward, compositing, loss and
+            # backward); the gradients come back from the kernels
+            from aon_tpu_torch.ops.train_fused_level import make_fused_step_fn
+
+            self.loss_fn = make_fused_step_fn(self.near, self.far, self.white_bkgd, **levels)
+        elif use_fused:
+            from aon_tpu_torch.ops.train_pallas import make_fused_loss_fn
+
+            self.loss_fn = make_fused_loss_fn(self.near, self.far, self.white_bkgd,
+                                              noise_std=cfg.noise_std, **levels)
+        else:
+            self.loss_fn = self._plain_loss_fn
+        self.train_many = make_train_many(self.loss_fn, self._metrics)
+
+    def _plain_loss_fn(self, params, batch, generator=None, draws=None):
+        rays = {k: batch[k] for k in ("rays_o", "rays_d", "viewdirs")}
+        out = torch.func.functional_call(
+            self.model, dict(params),
+            (rays, self.white_bkgd, batch.get("t_near", self.near), batch.get("t_far", self.far)),
+            dict(randomized=True, generator=generator, draws=draws),
+        )
+        loss0 = img2mse(out[0][0], batch["target"])
+        loss1 = img2mse(out[1][0], batch["target"])
+        return loss0 + loss1, {"loss0": loss0, "loss1": loss1}
+
+    @staticmethod
+    def _metrics(loss: torch.Tensor, aux: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        return {"train/loss": loss, "train/psnr0": mse2psnr(aux["loss0"]),
+                "train/psnr1": mse2psnr(aux["loss1"])}
 
     def init_params(self, generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
         """Fresh xavier-uniform weights and zero biases drawn from ``generator``,
         as a ``VanillaNeRF`` state dict on the system's device."""
         xavier_init_(self.model, generator)
         return {k: v.detach().clone() for k, v in self.model.state_dict().items()}
+
+    def init_state(self, generator: Optional[torch.Generator] = None) -> TrainState:
+        """Fresh parameters from ``generator``, zero Adam moments, step 0."""
+        params = self.init_params(generator)
+        mu, nu = self.tx.init(params)
+        return TrainState(step=0, params=params, mu=mu, nu=nu, tx=self.tx)
+
+    def train_step(self, state: TrainState, batch: Mapping[str, torch.Tensor],
+                   generator: Optional[torch.Generator] = None,
+                   draws: Optional[Mapping[str, torch.Tensor]] = None):
+        """One optimizer step: ``(state, metrics)``.  ``batch`` holds rays_o,
+        rays_d, viewdirs, target as (B, 3) or stacked (k, m, 3) microbatches;
+        the sampling uniforms come from ``generator``, or from ``draws``
+        (``core.sampling`` names them) where a caller injects them."""
+        batch = {k: torch.as_tensor(v, device=self.device) for k, v in batch.items()}
+        loss, aux, grads = accumulated_grads(self.loss_fn, state.params, batch, generator, draws)
+        return state.apply_gradients(grads), self._metrics(loss, aux)
 
     @torch.no_grad()
     def render_chunk(self, params: Mapping[str, torch.Tensor],

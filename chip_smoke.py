@@ -1,17 +1,22 @@
 #!/usr/bin/env python3
 """Quickest proof that the PyTorch/CUDA port runs on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--profile]
 
 Phases, each printed as one JSON line on stdout (nothing else goes there):
 
   device   the card (torch, and `nvidia-smi --query-gpu=name,power.limit`);
   build    nvcc builds every kernel of aon_tpu_torch/ops/csrc for sm_90a;
-  kernel   each kernel on the card at the render path's shapes (61,440 rays x
-           65 and x 193 samples for the MLP, a 61,440-ray resample), held
-           against its plain PyTorch twin on the same inputs, timed with CUDA
-           events (median) beside the twin and a one-call library yardstick
-           that the port never calls, and beside its bound on the H100;
+  kernel   each kernel on the card at its paths' shapes (render: 61,440 rays
+           x 65 and x 193 samples for the eval MLP, a 61,440-ray resample with
+           the one shared row of eval quantiles; training: 2,048 rays x 65 and
+           x 193 for the level, the MLP backward and the eval MLP with the
+           bf16-rounded float32 packing of the v2 forward, and a 2,048-ray
+           resample with per-ray sorted random quantiles), held against its
+           plain PyTorch twin on the same inputs, timed with CUDA events
+           (median) beside the twin and a library yardstick (the same function
+           as bf16 torch calls, under autograd for the training kernels) that
+           the port never calls, and beside its bound on the H100;
   posenc   the in-kernel encoding's range reduction at the 2^9 frequency;
   path     build_system on configs/quality_laptop_vanilla_refsched.json at
            full width with seeded random weights, one cold frame and then two
@@ -19,7 +24,19 @@ Phases, each printed as one JSON line on stdout (nothing else goes there):
            counts per frame, output
            checks, and a strided subset of rays against the plain float32
            VanillaNeRF path on the card;
-  kernels  every kernel of the path with its launches, error, times and bound;
+  train    the same config on an in-memory analytic scene (8 views of
+           160x120): TRAIN_STEPS_V3 steps of 2,048 rays through
+           system.train_step on the v3 route, TRAIN_STEPS_V2 on the v2 route
+           from the same start; ms per step, rays/s, launches per step, the
+           loss curve, and the first step's loss and gradients of both routes
+           against the plain float32 route with the same injected draws; then
+           MANY_STEPS x MANY_MICRO stacked microbatches through
+           system.train_many on both routes, held against train_step on the
+           same rays, ray ids and generator state;
+  kernels  every kernel of the two paths with its launches, error, times and bound;
+
+with --profile, a ``profile`` line as well: torch.profiler over five warm v3
+steps, device time by kernel name and the device's idle share of the window;
 
 and last {"ok": true, "device": {...}}.  Any failing phase prints its error
 and exits 1.  Needs one CUDA device; exits 1 without one.
@@ -64,6 +81,30 @@ TOL_POSENC_EXACT = 2e-3  # float32 range reduction at ~3000 rad (the TPU suite's
 # the coarse weights and so the fine samples
 TOL_PATH = {"comp_rgb": 3e-2, "acc": 3e-2, "depth": 2.5e-1}
 TOL_ACC = 1e-5  # acc = sum of weights <= 1 up to float32 rounding
+
+TRAIN_RAYS = 2048  # the config's batch_size
+TRAIN_STEPS_V3, TRAIN_STEPS_V2 = 60, 6
+SCENE_VIEWS, SCENE_WH = 8, (160, 120)
+# the loss after the v3 steps against the loss at step 0, on the schedule's
+# warmup (lr 5e-6 rising to ~2e-5)
+TRAIN_LOSS_FALL = 0.6
+# the kernel routes' first-step loss and gradients against the plain float32
+# module with the same draws: bf16 operands in every product, and the bf16
+# coarse weights move the fine samples (max and mean measures of
+# fused_mlp_train.grad_errors, per parameter tensor)
+TOL_STEP_LOSS = 2e-2  # relative; the JAX suite's rtol on the fused loss
+TOL_STEP_GRAD_MAX, TOL_STEP_GRAD_MEAN = 0.1, 0.2  # seen on an H100: 0.040 and 0.099
+# the two kernel routes against each other: the same bf16 roundings, but v2's
+# compositing backward is autograd's and its sums run in another order
+TOL_ROUTES_GRAD_MAX, TOL_ROUTES_GRAD_MEAN = 0.1, 0.02  # seen: 0.0012 and 0.0034
+# train_many: steps per call and stacked microbatches per step (of
+# TRAIN_RAYS / MANY_MICRO rays each).  Against train_step on the same rays,
+# ray ids and generator state only the atomicAdd order of the kernels differs;
+# Adam turns that into at most a fraction of the lr (~5e-6) where a gradient
+# entry is as small as its eps
+MANY_STEPS, MANY_MICRO = 2, 2
+TOL_MANY_LOSS = 1e-4  # relative; seen on an H100: 2.1e-7
+TOL_MANY_PARAMS = 1e-6  # absolute, after MANY_STEPS Adam steps; seen: 1.1e-7
 
 
 def emit(obj) -> None:
@@ -115,6 +156,28 @@ def library_mlp(torch, packed, consts, samples, viewdirs, encode_plain):
     return torch.addmm(w["brgb"], v, w["wrgb"]), sigma
 
 
+def library_level(torch, packed, consts, t_vals, rays_o, rays_d, viewdirs, target, encode_plain,
+                  cotangent=None):
+    """Yardstick only: one training level as bf16 cuBLAS calls under autograd
+    (forward chain, compositing, loss, backward); with ``cotangent`` (B, S, 4)
+    the MLP alone, differentiated against it."""
+    B, S = t_vals.shape
+    samples = rays_o[:, None, :] + t_vals[..., None] * rays_d[:, None, :]
+    w = {k: v.to(torch.bfloat16).requires_grad_(True) for k, v in packed.items()}
+    rgb, sigma = library_mlp(torch, w, consts, samples, viewdirs, encode_plain)
+    rgb, sigma = rgb.float().reshape(B, S, 3), sigma.float().reshape(B, S)
+    if cotangent is not None:
+        loss = (rgb * cotangent[..., :3]).sum() + (sigma * cotangent[..., 3]).sum()
+    else:
+        dist = torch.cat([t_vals[:, 1:] - t_vals[:, :-1], torch.full_like(t_vals[:, :1], 1e10)], -1)
+        alpha = 1.0 - torch.exp(-torch.relu(sigma) * dist)
+        trans = torch.cumprod(torch.clamp_min(1.0 - alpha, 0.0) + 1e-10, -1)
+        wgt = alpha * torch.cat([torch.ones_like(trans[:, :1]), trans[:, :-1]], -1)
+        comp = (wgt[..., None] * torch.sigmoid(rgb)).sum(1) + (1.0 - wgt.sum(-1, keepdim=True))
+        loss = ((comp - target) ** 2).mean()
+    return torch.autograd.grad(loss, list(w.values()))
+
+
 def library_resample(torch, t_vals, bins, cdf, u):
     """Yardstick only: searchsorted inverse CDF + torch.sort of the union."""
     n = cdf.shape[-1]
@@ -130,6 +193,8 @@ def library_resample(torch, t_vals, bins, cdf, u):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--profile", action="store_true",
+                    help="also trace five warm v3 train steps with torch.profiler")
     args = ap.parse_args(argv)
 
     phase = "device"
@@ -145,19 +210,39 @@ def main(argv=None) -> int:
         sys.path.insert(0, str(ROOT))
         from aon_tpu_torch.core.rays import create_spheric_poses, get_ray_directions, get_rays
         from aon_tpu_torch.core.sampling import eval_quantiles, pdf_cdf, sample_along_rays
+        from aon_tpu_torch.data.analytic import analytic_scene
         from aon_tpu_torch.eval.render import render_frame
         from aon_tpu_torch.ops import _build
-        from aon_tpu_torch.ops.fused_mlp import make_posenc_constants, pack_vanilla_mlp_params
+        from aon_tpu_torch.ops.fused_mlp import (
+            make_posenc_constants,
+            pack_vanilla_mlp_params,
+            pack_vanilla_mlp_params_f32,
+            round_packed,
+        )
         from aon_tpu_torch.ops.fused_mlp_train import (
+            GRAD_TOL_MEAN_REL,
+            GRAD_TOL_REL,
             TWIN_TOL_MAX,
             TWIN_TOL_MEAN,
             encode_plain,
+            fused_mlp_bwd_xyz,
+            fused_mlp_bwd_xyz_plain,
             fused_nerf_mlp_xyz_eval,
             fused_nerf_mlp_xyz_eval_plain,
+            grad_errors,
             posenc_in_kernel,
         )
         from aon_tpu_torch.ops.render_fused import mlp_params
-        from aon_tpu_torch.ops.resample import resample_union, resample_union_plain
+        from aon_tpu_torch.ops.resample import (
+            resample_union,
+            resample_union_plain,
+            sorted_uniform,
+        )
+        from aon_tpu_torch.ops.train_fused_level import (
+            fused_level_train_grads,
+            fused_level_train_grads_plain,
+        )
+        from aon_tpu_torch.train.microbatch import accumulated_grads
         from aon_tpu_torch.train.systems import build_system
         from aon_tpu_torch.utils.config import get_config
 
@@ -197,23 +282,23 @@ def main(argv=None) -> int:
         dirs = torch.nn.functional.normalize(
             torch.randn(CHUNK_RAYS, 3, generator=gen, device=dev), dim=-1)
         origins = -4.0 * dirs + 0.3 * torch.randn(CHUNK_RAYS, 3, generator=gen, device=dev)
-        mlp_rows = {}
-        for n_samples in (N_COARSE + 1, N_COARSE + 1 + N_FINE):
-            _, samples = sample_along_rays(origins, dirs, n_samples - 1, 2.0, 6.0)
-            samples = samples.contiguous()
-            rgb, sigma = fused_nerf_mlp_xyz_eval(packed, consts, samples, dirs)
+
+        def mlp_eval_record(packed_bf, samples, vdirs):
+            """One ``kernel`` line of the eval MLP against its twin, checked."""
+            n_rays, n_samples = samples.shape[:2]
+            rgb, sigma = fused_nerf_mlp_xyz_eval(packed_bf, consts, samples, vdirs)
             torch.cuda.synchronize()
-            rgb_p, sigma_p = fused_nerf_mlp_xyz_eval_plain(packed, consts, samples, dirs)
+            rgb_p, sigma_p = fused_nerf_mlp_xyz_eval_plain(packed_bf, consts, samples, vdirs)
             err = torch.cat([(rgb - rgb_p).reshape(-1), (sigma - sigma_p).reshape(-1)]).abs()
-            rows = CHUNK_RAYS * n_samples
+            rows = n_rays * n_samples
             flops = 2.0 * MLP_MACS_PER_SAMPLE * rows
             # xyz in, rgb + sigma out per sample; viewdirs per ray; bf16 weights, f32 biases
-            nbytes = (rows * (12 + 16) + CHUNK_RAYS * 12 + 2 * MLP_MACS_PER_SAMPLE
+            nbytes = (rows * (12 + 16) + n_rays * 12 + 2 * MLP_MACS_PER_SAMPLE
                       + 4 * MLP_BIASES)
-            args_ = (packed, consts, samples, dirs)
+            args_ = (packed_bf, consts, samples, vdirs)
             rec = {
                 "phase": "kernel", "name": "fused_nerf_mlp_xyz_eval",
-                "shape": f"{CHUNK_RAYS}x{n_samples}", "rows": rows,
+                "shape": f"{n_rays}x{n_samples}", "rows": rows,
                 "max_abs_err": err.max().item(), "mean_abs_err": err.mean().item(),
                 "tol_max": TWIN_TOL_MAX, "tol_mean": TWIN_TOL_MEAN,
                 "finite": bool(torch.isfinite(rgb).all() and torch.isfinite(sigma).all()),
@@ -231,8 +316,13 @@ def main(argv=None) -> int:
             require(rec["finite"], "non-finite MLP kernel output")
             require(rec["max_abs_err"] <= TWIN_TOL_MAX and rec["mean_abs_err"] <= TWIN_TOL_MEAN,
                     f"MLP kernel disagrees with its twin at {rec['shape']}")
-            mlp_rows[n_samples] = rec
-            del samples, args_, rgb, sigma, rgb_p, sigma_p, err
+            return rec
+
+        mlp_rows = {}
+        for n_samples in (N_COARSE + 1, N_COARSE + 1 + N_FINE):
+            _, samples = sample_along_rays(origins, dirs, n_samples - 1, 2.0, 6.0)
+            mlp_rows[n_samples] = mlp_eval_record(packed, samples.contiguous(), dirs)
+            del samples
         torch.cuda.empty_cache()
 
         phase = "posenc"
@@ -252,40 +342,146 @@ def main(argv=None) -> int:
                 "in-kernel encoding outside its tolerance")
 
         phase = "kernel:resample_union"
+
+        def resample_record(t_vals, bins, cdf, u):
+            """One ``kernel`` line of the resample against its twin, checked;
+            ``u`` is one shared row expanded over the rays, or a row per ray."""
+            n_rays, n_t = t_vals.shape
+            n_b, n_u = bins.shape[-1], u.shape[-1]
+            got = resample_union(t_vals, bins, cdf, u)
+            torch.cuda.synchronize()
+            want = resample_union_plain(t_vals, bins, cdf, u)
+            u_rows = u.contiguous()  # searchsorted takes per-row quantiles
+            shared = u.stride(0) == 0
+            nbytes = 4 * (n_rays * (n_t + 2 * n_b + n_t + n_u) + (n_u if shared else n_rays * n_u))
+            # comparisons: a binary search per fine sample and per merged element
+            ops = n_rays * (n_u * (math.log2(n_b) + math.log2(n_t) + 8) + n_t * math.log2(n_u))
+            rec = {
+                "phase": "kernel", "name": "resample_union", "shape": f"{n_rays}x{n_t}+{n_u}",
+                "quantiles": "one shared row" if shared else "a sorted random row per ray",
+                "max_abs_err": (got - want).abs().max().item(), "tol": TOL_RESAMPLE,
+                "sorted": bool((got[:, 1:] >= got[:, :-1]).all()),
+                "ms": time_ms(torch, lambda: resample_union(t_vals, bins, cdf, u), 20, warmup=3),
+                "plain_ms": time_ms(torch, lambda: resample_union_plain(t_vals, bins, cdf, u), 5),
+                "library_ms": time_ms(
+                    torch, lambda: library_resample(torch, t_vals, bins, cdf, u_rows), 5),
+                "bytes": nbytes, "ops": ops,
+                "bound_ms": 1e3 * max(nbytes / PEAK_BYTES, ops / PEAK_F32_FLOPS),
+                "bound_by": ("bytes" if nbytes / PEAK_BYTES >= ops / PEAK_F32_FLOPS
+                             else "operations"),
+                "card": card,
+            }
+            rec["gbps"] = nbytes / rec["ms"] / 1e6
+            emit(rec)
+            require(rec["sorted"] and rec["max_abs_err"] <= TOL_RESAMPLE,
+                    f"resample kernel disagrees with its twin at {rec['shape']}")
+            return rec
+
         t_vals, _ = sample_along_rays(origins, dirs, N_COARSE, 2.0, 6.0)
         bins = (0.5 * (t_vals[:, 1:] + t_vals[:, :-1])).contiguous()
         weights = torch.rand(CHUNK_RAYS, N_COARSE - 1, generator=gen, device=dev) ** 4
         weights[::97] = 0.0  # empty rays: the eps padding path
         cdf = pdf_cdf(weights).contiguous()
         u = eval_quantiles(N_FINE, device=dev).expand(CHUNK_RAYS, N_FINE)
-        got = resample_union(t_vals, bins, cdf, u)
-        torch.cuda.synchronize()
-        want = resample_union_plain(t_vals, bins, cdf, u)
-        u_rows = u.contiguous()  # searchsorted takes per-row quantiles
-        n_t, n_b = N_COARSE + 1, N_COARSE
-        nbytes = 4 * (CHUNK_RAYS * (n_t + 2 * n_b + n_t + N_FINE) + N_FINE)
-        # comparisons: a binary search per fine sample and per merged element
-        ops = CHUNK_RAYS * (N_FINE * (math.log2(n_b) + math.log2(n_t) + 8)
-                            + n_t * math.log2(N_FINE))
-        rec = {
-            "phase": "kernel", "name": "resample_union", "shape": f"{CHUNK_RAYS}x{n_t}+{N_FINE}",
-            "max_abs_err": (got - want).abs().max().item(), "tol": TOL_RESAMPLE,
-            "sorted": bool((got[:, 1:] >= got[:, :-1]).all()),
-            "ms": time_ms(torch, lambda: resample_union(t_vals, bins, cdf, u), 20, warmup=3),
-            "plain_ms": time_ms(torch, lambda: resample_union_plain(t_vals, bins, cdf, u), 5),
-            "library_ms": time_ms(
-                torch, lambda: library_resample(torch, t_vals, bins, cdf, u_rows), 5),
-            "bytes": nbytes, "ops": ops,
-            "bound_ms": 1e3 * max(nbytes / PEAK_BYTES, ops / PEAK_F32_FLOPS),
-            "bound_by": "bytes" if nbytes / PEAK_BYTES >= ops / PEAK_F32_FLOPS else "operations",
-            "card": card,
-        }
-        rec["gbps"] = nbytes / rec["ms"] / 1e6
-        emit(rec)
-        require(rec["sorted"] and rec["max_abs_err"] <= TOL_RESAMPLE,
-                "resample kernel disagrees with its twin")
-        resample_rec = rec
-        del t_vals, bins, weights, cdf, u, u_rows, got, want
+        resample_rec = resample_record(t_vals, bins, cdf, u)
+        del t_vals, bins, weights, cdf, u
+        torch.cuda.empty_cache()
+
+        # ------------------------------------------------- training kernels
+        phase = "kernel:training"
+        counters = {"fused_nerf_mlp_xyz_eval": fused_nerf_mlp_xyz_eval,
+                    "resample_union": resample_union,
+                    "fused_level_train_grads": fused_level_train_grads,
+                    "fused_mlp_bwd_xyz": fused_mlp_bwd_xyz}
+        n_params = MLP_MACS_PER_SAMPLE + MLP_BIASES
+        ro, rd = origins[:TRAIN_RAYS].contiguous(), dirs[:TRAIN_RAYS].contiguous()
+        target = torch.rand(TRAIN_RAYS, 3, generator=gen, device=dev)
+        train_rows = {}
+        # sample positions as a step makes them: stratified random coarse
+        # samples, then (below) their union with the resampled fine ones
+        t_lvl, _ = sample_along_rays(ro, rd, N_COARSE, 2.0, 6.0, randomized=True, generator=gen)
+        for level, n_samples in (("coarse_mlp", N_COARSE + 1), ("fine_mlp", N_COARSE + 1 + N_FINE)):
+            packed32 = pack_vanilla_mlp_params_f32(mlp_params(params, level))
+            samples = (ro[:, None, :] + t_lvl[..., None] * rd[:, None, :]).contiguous()
+            rows = TRAIN_RAYS * n_samples
+            cot = torch.randn(TRAIN_RAYS, n_samples, 4, generator=gen, device=dev) / rows
+            # forward and two backward products per layer
+            flops = 3 * 2.0 * MLP_MACS_PER_SAMPLE * rows
+            level_args = (packed32, consts, t_lvl, ro, rd, rd, target, True)
+            bwd_args = (packed32, consts, samples, rd, cot)
+            runs = (
+                # t and weights (B, S), four (B, 3) ray arrays, f32 params in, f32 grads out
+                ("fused_level_train_grads", fused_level_train_grads,
+                 fused_level_train_grads_plain, level_args,
+                 4 * (2 * rows + 4 * 3 * TRAIN_RAYS + 2 * n_params + 1),
+                 lambda: library_level(torch, packed32, consts, t_lvl, ro, rd, rd, target,
+                                       encode_plain)),
+                # xyz and g (B, S, 3 + 4), viewdirs, f32 params in, f32 grads out
+                ("fused_mlp_bwd_xyz", fused_mlp_bwd_xyz, fused_mlp_bwd_xyz_plain, bwd_args,
+                 4 * (7 * rows + 3 * TRAIN_RAYS + 2 * n_params),
+                 lambda: library_level(torch, packed32, consts, t_lvl, ro, rd, rd, target,
+                                       encode_plain, cotangent=cot)),
+            )
+            for kname, fn, fn_plain, fn_args, nbytes, library in runs:
+                got = fn(*fn_args)
+                torch.cuda.synchronize()
+                want = fn_plain(*fn_args)
+                again = fn(*fn_args)
+                rec = {"phase": "kernel", "name": kname, "shape": f"{TRAIN_RAYS}x{n_samples}",
+                       "rows": rows}
+                if kname == "fused_level_train_grads":
+                    (sq, wgt, grads), (sq_p, wgt_p, grads_p), grads2 = got, want, again[2]
+                    rec.update(weights_max_abs_err=(wgt - wgt_p).abs().max().item(),
+                               sq_err_rel_err=abs(sq.item() - sq_p.item()) / sq_p.item(),
+                               tol_forward=TWIN_TOL_MAX)
+                    fwd_ok = (rec["weights_max_abs_err"] <= TWIN_TOL_MAX
+                              and rec["sq_err_rel_err"] <= TWIN_TOL_MAX
+                              and bool(torch.isfinite(wgt).all()))
+                else:
+                    grads, grads_p, grads2, fwd_ok = got, want, again, True
+                max_rel, mean_rel = grad_errors(grads, grads_p)
+                rec.update({
+                    "max_abs_err": max_rel, "mean_rel_err": mean_rel,
+                    "err_is": "per gradient tensor, relative to its max (mean) magnitude; worst",
+                    "tol_max": GRAD_TOL_REL, "tol_mean": GRAD_TOL_MEAN_REL,
+                    "repeat_max_rel": grad_errors(grads2, grads)[0],
+                    "finite": all(bool(torch.isfinite(v).all()) for v in grads.values()),
+                    "ms": time_ms(torch, lambda: fn(*fn_args), 7, warmup=2),
+                    "plain_ms": time_ms(torch, lambda: fn_plain(*fn_args), 3),
+                    "library_ms": time_ms(torch, library, 3),
+                    "flop": flops, "bytes": nbytes,
+                    "bound_ms": 1e3 * max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES),
+                    "bound_by": ("operations" if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_BYTES
+                                 else "bytes"),
+                    "card": card,
+                })
+                rec["tflops"] = flops / rec["ms"] / 1e9
+                emit(rec)
+                require(rec["finite"] and fwd_ok, f"{kname}: forward outputs off at {rec['shape']}")
+                require(max_rel <= GRAD_TOL_REL and mean_rel <= GRAD_TOL_MEAN_REL,
+                        f"{kname} disagrees with its twin at {rec['shape']}")
+                train_rows[kname, n_samples] = rec
+                del got, want, again, grads, grads_p, grads2
+            # the eval MLP as the v2 forward launches it: the float32 packing
+            # of training, rounded to bf16 for the launch
+            train_rows["fused_nerf_mlp_xyz_eval", n_samples] = mlp_eval_record(
+                round_packed(packed32), samples, rd)
+            if level == "coarse_mlp":
+                # the resample as a step calls it: the coarse level's own
+                # weights (a few rays emptied: the eps padding path) and a
+                # sorted random row of quantiles per ray
+                wgt = fused_level_train_grads(*level_args)[1][:, 1:-1].clone()
+                wgt[::97] = 0.0
+                bins = (0.5 * (t_lvl[:, 1:] + t_lvl[:, :-1])).contiguous()
+                cdf = pdf_cdf(wgt).contiguous()
+                u = sorted_uniform(torch.rand(TRAIN_RAYS, N_FINE + 1, generator=gen, device=dev))
+                require(bool((u[:, 1:] >= u[:, :-1]).all()) and u.stride(0) == N_FINE,
+                        "sorted_uniform rows are not ascending per-ray rows")
+                train_rows["resample_union", n_samples] = resample_record(t_lvl, bins, cdf, u)
+                t_next = resample_union(t_lvl, bins, cdf, u)
+                del wgt, bins, cdf, u
+            del samples, cot, level_args, bwd_args, runs
+            t_lvl = t_next
         torch.cuda.empty_cache()
 
         # ------------------------------------------------------------- path
@@ -351,26 +547,231 @@ def main(argv=None) -> int:
             "checks": checks, "card": card,
         })
         require(all(checks.values()), f"path checks failed: {checks}")
+        del outs, frames
+
+        # ------------------------------------------------------------ train
+        phase = "train"
+        scene = {k: torch.from_numpy(v).to(dev)
+                 for k, v in analytic_scene(SCENE_VIEWS, *SCENE_WH, seed=args.seed).items()}
+        n_scene = scene["rays_o"].shape[0]
+
+        def batch_of(generator):
+            idx = torch.randint(n_scene, (TRAIN_RAYS,), generator=generator, device=dev)
+            return {k: v[idx] for k, v in scene.items()}
+
+        def route_system(**overrides):
+            c = get_config(["--config", str(ROOT / CONFIG)])
+            for k, v in overrides.items():
+                setattr(c, k, v)
+            return build_system(c, 2.0, 6.0, c.white_back, device=dev)
+
+        systems = {"v3": system, "v2": route_system(fused_train="v2"),
+                   "plain": route_system(use_pallas=False, compute_dtype="float32")}
+        state0 = system.init_state(torch.Generator(device=dev).manual_seed(args.seed + 1))
+
+        # first step of every route from the same state, batch and draws
+        gen = torch.Generator(device=dev).manual_seed(args.seed + 2)
+        batch0 = batch_of(gen)
+        draws = {"t_rand": torch.rand(TRAIN_RAYS, N_COARSE + 1, generator=gen, device=dev),
+                 "u": sorted_uniform(torch.rand(TRAIN_RAYS, N_FINE + 1, generator=gen, device=dev))}
+        first = {r: accumulated_grads(sy.loss_fn, state0.params, batch0, None, draws)
+                 for r, sy in systems.items()}
+
+        def step_errors(a, b):
+            loss_rel = abs(first[a][0].item() - first[b][0].item()) / abs(first[b][0].item())
+            max_rel, mean_rel = grad_errors(first[a][2], first[b][2])
+            return {"loss_rel": loss_rel, "grad_max_rel": max_rel, "grad_mean_rel": mean_rel}
+
+        first_step = {"loss": {r: first[r][0].item() for r in first},
+                      "v3_vs_plain": step_errors("v3", "plain"),
+                      "v2_vs_plain": step_errors("v2", "plain"),
+                      "v3_vs_v2": step_errors("v3", "v2")}
+        del first
+
+        def run_route(route, steps):
+            sy, state = systems[route], state0
+            g = torch.Generator(device=dev).manual_seed(args.seed + 3)
+            for c in counters.values():
+                c.launches = 0
+            metrics, events = [], [torch.cuda.Event(enable_timing=True)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            events[0].record()
+            for _ in range(steps):
+                state, m = sy.train_step(state, batch_of(g), g)
+                metrics.append(m)
+                events.append(torch.cuda.Event(enable_timing=True))
+                events[-1].record()
+            enqueue_s = time.perf_counter() - t0  # the host never waited for the card
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            launches = {k: c.launches for k, c in counters.items()}
+            step_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+            warm = statistics.median(step_ms[1:])
+            losses = [m["train/loss"].item() for m in metrics]
+            return state, {
+                "route": route, "steps": steps, "first_step_ms": step_ms[0], "ms_per_step": warm,
+                "rays_per_s": TRAIN_RAYS / (warm / 1e3), "wall_s": wall_s, "enqueue_s": enqueue_s,
+                "launches": launches,
+                "launches_per_step": {k: v / steps for k, v in launches.items()},
+                "loss": {str(i): losses[i] for i in range(0, steps, 10)},
+                "loss_last": losses[-1],
+                "psnr1_first_last": [metrics[0]["train/psnr1"].item(),
+                                     metrics[-1]["train/psnr1"].item()],
+                "lr_first_last": [sy.lr_schedule(0), sy.lr_schedule(steps - 1)],
+                "final_step": state.step,
+                "finite": all(math.isfinite(x) for x in losses),
+            }
+
+        state_v3, v3 = run_route("v3", TRAIN_STEPS_V3)
+        _, v2 = run_route("v2", TRAIN_STEPS_V2)
+
+        def run_many(route):
+            """MANY_STEPS steps of MANY_MICRO stacked microbatches through
+            train_many, then the same rays through train_step with the ray
+            ids train_many attaches and the generator at the same state."""
+            sy, m = systems[route], TRAIN_RAYS // MANY_MICRO
+            g = torch.Generator(device=dev).manual_seed(args.seed + 5)
+            idx = torch.randint(n_scene, (MANY_STEPS, MANY_MICRO, m), generator=g, device=dev)
+            superbatch = {k: v[idx] for k, v in scene.items()}
+            for c in counters.values():
+                c.launches = 0
+            g = torch.Generator(device=dev).manual_seed(args.seed + 6)
+            state, metrics = sy.train_many(state0, superbatch, g)
+            torch.cuda.synchronize()
+            launches = {k: c.launches for k, c in counters.items()}  # read before the comparison
+            g = torch.Generator(device=dev).manual_seed(args.seed + 6)
+            ray_ids = torch.arange(TRAIN_RAYS, device=dev).reshape(MANY_MICRO, m)
+            ref, losses = state0, []
+            for t in range(MANY_STEPS):
+                batch = dict({k: v[t] for k, v in superbatch.items()}, ray_ids=ray_ids)
+                ref, step_metrics = sy.train_step(ref, batch, g)
+                losses.append(step_metrics["train/loss"].item())
+            mean_loss, last_loss = metrics["train/loss"].item(), metrics["train/loss_last"].item()
+            want_mean = sum(losses) / len(losses)
+            return {
+                "route": route, "steps": MANY_STEPS, "microbatches": MANY_MICRO,
+                "rays_per_microbatch": m, "launches": launches,
+                "loss_mean": mean_loss, "loss_last": last_loss, "psnr1": metrics["train/psnr1"].item(),
+                "train_step_losses": losses,
+                "loss_mean_rel_err": abs(mean_loss - want_mean) / want_mean,
+                "loss_last_rel_err": abs(last_loss - losses[-1]) / losses[-1],
+                "params_max_abs_diff": max((state.params[k] - ref.params[k]).abs().max().item()
+                                           for k in ref.params),
+                "final_step": state.step,
+            }
+
+        many = {route: run_many(route) for route in ("v3", "v2")}
+        levels = 2 * MANY_STEPS * MANY_MICRO
+        params_finite = all(bool(torch.isfinite(v).all()) for v in state_v3.params.values())
+        checks = {
+            "finite": v3["finite"] and v2["finite"] and params_finite,
+            "loss_falls": v3["loss_last"] < TRAIN_LOSS_FALL * v3["loss"]["0"],
+            "v3_launches": v3["launches"] == {
+                "fused_level_train_grads": 2 * TRAIN_STEPS_V3, "resample_union": TRAIN_STEPS_V3,
+                "fused_nerf_mlp_xyz_eval": 0, "fused_mlp_bwd_xyz": 0},
+            "v2_launches": v2["launches"] == {
+                "fused_nerf_mlp_xyz_eval": 2 * TRAIN_STEPS_V2, "fused_mlp_bwd_xyz": 2 * TRAIN_STEPS_V2,
+                "resample_union": TRAIN_STEPS_V2, "fused_level_train_grads": 0},
+            "steps_counted": v3["final_step"] == TRAIN_STEPS_V3,
+            "many_launches": (
+                many["v3"]["launches"] == {
+                    "fused_level_train_grads": levels, "resample_union": levels // 2,
+                    "fused_nerf_mlp_xyz_eval": 0, "fused_mlp_bwd_xyz": 0}
+                and many["v2"]["launches"] == {
+                    "fused_nerf_mlp_xyz_eval": levels, "fused_mlp_bwd_xyz": levels,
+                    "resample_union": levels // 2, "fused_level_train_grads": 0}),
+            "many_vs_train_step": all(
+                r["loss_mean_rel_err"] <= TOL_MANY_LOSS and r["loss_last_rel_err"] <= TOL_MANY_LOSS
+                and r["params_max_abs_diff"] <= TOL_MANY_PARAMS and r["final_step"] == MANY_STEPS
+                and math.isfinite(r["loss_last"]) for r in many.values()),
+            "same_first_loss": abs(v2["loss"]["0"] - v3["loss"]["0"]) <= TOL_STEP_LOSS * v3["loss"]["0"],
+            "first_step_vs_plain": all(
+                first_step[k]["loss_rel"] <= TOL_STEP_LOSS
+                and first_step[k]["grad_max_rel"] <= TOL_STEP_GRAD_MAX
+                and first_step[k]["grad_mean_rel"] <= TOL_STEP_GRAD_MEAN
+                for k in ("v3_vs_plain", "v2_vs_plain")),
+            "v3_vs_v2": (first_step["v3_vs_v2"]["loss_rel"] <= TOL_STEP_LOSS
+                         and first_step["v3_vs_v2"]["grad_max_rel"] <= TOL_ROUTES_GRAD_MAX
+                         and first_step["v3_vs_v2"]["grad_mean_rel"] <= TOL_ROUTES_GRAD_MEAN),
+        }
+        emit({
+            "phase": "train", "config": CONFIG, "rays_per_step": TRAIN_RAYS,
+            "samples": [cfg.N_samples, cfg.N_importance],
+            "scene": {"views": SCENE_VIEWS, "wh": list(SCENE_WH), "rays": n_scene},
+            "v3": v3, "v2": v2, "first_step": first_step, "train_many": many,
+            "tol": {"many_loss_rel": TOL_MANY_LOSS, "many_params_abs": TOL_MANY_PARAMS,
+                    "loss_rel": TOL_STEP_LOSS, "grad_vs_plain": [TOL_STEP_GRAD_MAX, TOL_STEP_GRAD_MEAN],
+                    "grad_v3_vs_v2": [TOL_ROUTES_GRAD_MAX, TOL_ROUTES_GRAD_MEAN],
+                    "loss_fall": TRAIN_LOSS_FALL},
+            "checks": checks, "card": card,
+        })
+        require(all(checks.values()), f"train checks failed: {checks}")
+        train_launches = {k: v3["launches"][k] + v2["launches"][k]
+                          + sum(r["launches"][k] for r in many.values()) for k in counters}
+
+        if args.profile:
+            phase = "profile"
+            from torch.profiler import ProfilerActivity, profile
+
+            g = torch.Generator(device=dev).manual_seed(args.seed + 4)
+            state, n_steps = state_v3, 5
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(n_steps):
+                    state, _ = system.train_step(state, batch_of(g), g)
+                torch.cuda.synchronize()
+                window_ms = 1e3 * (time.perf_counter() - t0)
+            by_kernel = sorted(((e.key, e.device_time_total / 1e3, e.count)
+                                for e in prof.key_averages()
+                                if e.device_time_total > 0 and e.device_type.name == "CUDA"),
+                               key=lambda r: -r[1])
+            busy_ms = sum(r[1] for r in by_kernel)
+            require(busy_ms > 0, "torch.profiler recorded no device time")
+            emit({"phase": "profile", "route": "v3", "steps": n_steps, "window_ms": window_ms,
+                  "device_busy_ms": busy_ms, "device_idle_share": 1.0 - busy_ms / window_ms,
+                  "ms_per_step_by_kernel": [{"kernel": k[:80], "ms": ms / n_steps,
+                                             "launches_per_step": n / n_steps}
+                                            for k, ms, n in by_kernel[:12]],
+                  "other_kernels_ms_per_step": sum(r[1] for r in by_kernel[12:]) / n_steps,
+                  "card": card})
 
         phase = "kernels"
+        keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
         fine = mlp_rows[N_COARSE + 1 + N_FINE]
+
+        def train_entry(kname, replaces):
+            big, small = (train_rows[kname, n] for n in (N_COARSE + 1 + N_FINE, N_COARSE + 1))
+            return {"name": kname, "route": "cuda",
+                    "source": "aon_tpu_torch/ops/csrc/level_train.cu", "replaces": replaces,
+                    "launches": train_launches[kname], "shape": big["shape"],
+                    **{k: big[k] for k in keys}, "err_is": big["err_is"],
+                    "coarse": {k: small[k] for k in ("shape",) + keys}}
+
         entries = [
             {"name": "fused_nerf_mlp_xyz_eval", "route": "cuda",
              "source": "aon_tpu_torch/ops/csrc/fused_mlp_eval.cu",
              "replaces": "aon_tpu/ops/fused_mlp_train.py:297",
-             "launches": path_launches["fused_nerf_mlp_xyz_eval"],
-             "shape": fine["shape"],
-             **{k: fine[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                                     "library_ms")},
-             "coarse": {k: mlp_rows[N_COARSE + 1][k] for k in
-                        ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms")}},
+             "launches": path_launches["fused_nerf_mlp_xyz_eval"]
+             + train_launches["fused_nerf_mlp_xyz_eval"],
+             "launches_by_path": {"render": path_launches["fused_nerf_mlp_xyz_eval"],
+                                  "train": train_launches["fused_nerf_mlp_xyz_eval"]},
+             "shape": fine["shape"], **{k: fine[k] for k in keys},
+             "coarse": {k: mlp_rows[N_COARSE + 1][k] for k in ("shape",) + keys},
+             "train": [{k: train_rows["fused_nerf_mlp_xyz_eval", n][k] for k in ("shape",) + keys}
+                       for n in (N_COARSE + 1, N_COARSE + 1 + N_FINE)]},
             {"name": "resample_union", "route": "cuda",
              "source": "aon_tpu_torch/ops/csrc/resample.cu",
              "replaces": "aon_tpu/ops/resample_pallas.py:85",
-             "launches": path_launches["resample_union"],
-             "shape": resample_rec["shape"],
-             **{k: resample_rec[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                             "bound_by", "library_ms")}},
+             "launches": path_launches["resample_union"] + train_launches["resample_union"],
+             "launches_by_path": {"render": path_launches["resample_union"],
+                                  "train": train_launches["resample_union"]},
+             "shape": resample_rec["shape"], **{k: resample_rec[k] for k in keys},
+             "train": {k: train_rows["resample_union", N_COARSE + 1][k]
+                       for k in ("shape", "quantiles") + keys}},
+            train_entry("fused_level_train_grads", "aon_tpu/ops/train_fused_level.py:79"),
+            train_entry("fused_mlp_bwd_xyz", "aon_tpu/ops/fused_mlp_train.py:320"),
         ]
         require(all(e["launches"] > 0 for e in entries), "a kernel of the path never launched")
         emit({"kernels": entries, "card": card})

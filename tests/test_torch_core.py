@@ -96,9 +96,17 @@ def test_sample_along_rays(rng, lindisp):
 
 
 def test_randomized_sampling_not_ported_yet(rng):
+    # ported since (tests/test_torch_train_sampling.py holds it against JAX);
+    # what still raises is a randomized call with nothing to draw from, as the
+    # JAX function raises without a key
     o, d = _rays(rng, 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="Generator"):
         tsamp.sample_along_rays(_t(o), _t(d), 8, 2.0, 6.0, randomized=True)
+    with pytest.raises(ValueError, match="PRNG key"):
+        jsamp.sample_along_rays(None, jnp.asarray(o), jnp.asarray(d), 8, 2.0, 6.0, randomized=True)
+    t, _ = tsamp.sample_along_rays(_t(o), _t(d), 8, 2.0, 6.0, randomized=True,
+                                   generator=torch.Generator().manual_seed(0))
+    assert t.shape == (4, 9) and bool((t[:, 1:] >= t[:, :-1]).all())
 
 
 @pytest.mark.parametrize("deg", [4, 10])

@@ -12,7 +12,14 @@ Tolerances, and why:
   * the in-kernel encoding against encode_plain: 1e-6 (an ulp of the sine);
     against the exact sine at the 2^9 frequency: 2e-3, the TPU suite's bound;
   * kernel 2 against its twin: 1e-6; the same f32 operations in the same
-    order, so the union is expected to be bit-identical.
+    order, so the union is expected to be bit-identical;
+  * the training kernels (one fused level, the MLP backward) against their
+    twins: every gradient tensor's largest error within GRAD_TOL_REL of its
+    own largest magnitude and its mean error within GRAD_TOL_MEAN_REL of its
+    mean magnitude, and the same launch twice within GRAD_TOL_REPEAT (only
+    the atomicAdd order differs); their reasons stand beside them in
+    aon_tpu_torch/ops/fused_mlp_train.py.  The level's compositing weights
+    and squared error: TWIN_TOL_MAX, as the raw outputs they are made from.
 """
 
 import numpy as np
@@ -21,17 +28,33 @@ import torch
 
 from aon_tpu_torch.core.sampling import eval_quantiles, pdf_cdf
 from aon_tpu_torch.eval.render import render_frame
-from aon_tpu_torch.ops.fused_mlp import make_posenc_constants, pack_vanilla_mlp_params
+from aon_tpu_torch.ops.fused_mlp import (
+    SHAPES,
+    make_posenc_constants,
+    pack_vanilla_mlp_params,
+    pack_vanilla_mlp_params_f32,
+)
 from aon_tpu_torch.ops.fused_mlp_train import (
+    GRAD_TOL_MEAN_REL,
+    GRAD_TOL_REL,
+    GRAD_TOL_REPEAT,
     TWIN_TOL_MAX,
     TWIN_TOL_MEAN,
     encode_plain,
+    fused_mlp_bwd_xyz,
+    fused_mlp_bwd_xyz_plain,
+    fused_mlp_train_xyz,
     fused_nerf_mlp_xyz_eval,
     fused_nerf_mlp_xyz_eval_plain,
+    grad_errors,
     posenc_in_kernel,
 )
 from aon_tpu_torch.ops.render_fused import mlp_params
-from aon_tpu_torch.ops.resample import resample_union, resample_union_plain
+from aon_tpu_torch.ops.resample import resample_union, resample_union_plain, sorted_uniform
+from aon_tpu_torch.ops.train_fused_level import (
+    fused_level_train_grads,
+    fused_level_train_grads_plain,
+)
 from aon_tpu_torch.train.systems import build_system
 from aon_tpu_torch.utils.config import Config
 
@@ -82,9 +105,9 @@ def test_posenc_range_reduction(cuda):
         assert np.abs(got.cpu().numpy() - exact).max() <= 2e-3
 
 
-def test_resample_kernel_matches_plain_twin(cuda):
+@pytest.mark.parametrize("B", [1001, 2048])  # ragged against the 8-ray blocks; a train batch
+def test_resample_kernel_matches_plain_twin(cuda, B):
     g = torch.Generator(device=cuda).manual_seed(2)
-    B = 1001  # ragged against the 8-ray blocks
     t_vals = torch.sort(torch.rand(B, 65, generator=g, device=cuda) * 4 + 2, dim=-1).values
     bins = 0.5 * (t_vals[:, 1:] + t_vals[:, :-1])
     weights = torch.rand(B, 63, generator=g, device=cuda)
@@ -92,7 +115,9 @@ def test_resample_kernel_matches_plain_twin(cuda):
     weights[1, :60] = 0.0
     cdf = pdf_cdf(weights).contiguous()
     for u in (eval_quantiles(128, device=cuda).expand(B, 128),  # shared row, last u = 1
-              torch.sort(torch.rand(B, 128, generator=g, device=cuda), dim=-1).values):
+              torch.sort(torch.rand(B, 128, generator=g, device=cuda), dim=-1).values,
+              # training's per-ray order statistics: unshared rows, sorted by construction
+              sorted_uniform(torch.rand(B, 129, generator=g, device=cuda))):
         before = resample_union.launches
         got = resample_union(t_vals, bins, cdf, u)
         torch.cuda.synchronize()
@@ -114,3 +139,95 @@ def test_render_frame_goes_through_both_kernels(cuda):
     assert resample_union.launches - res0 == 3
     assert out["comp_rgb"].shape == (150, 3) and np.isfinite(out["comp_rgb"]).all()
     assert (out["acc"] >= 0).all() and (out["acc"] <= 1 + 1e-5).all()
+
+
+def assert_grads_close(got, want):
+    for k, shape in SHAPES.items():
+        assert tuple(got[k].shape) == shape and torch.isfinite(got[k]).all(), k
+    max_rel, mean_rel = grad_errors(got, want)
+    assert max_rel <= GRAD_TOL_REL and mean_rel <= GRAD_TOL_MEAN_REL, (max_rel, mean_rel)
+
+
+def _level_inputs(cuda, B, S, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    packed = pack_vanilla_mlp_params_f32(mlp_params(_params(cuda), "coarse_mlp"))
+    # positive density bias so that rays are partly opaque, as a trained scene's are
+    packed["bd"] = packed["bd"] + 0.3
+    consts = make_posenc_constants(device=cuda)
+    d = torch.nn.functional.normalize(torch.randn(B, 3, generator=g, device=cuda), dim=-1)
+    o = -4.0 * d + 0.3 * torch.randn(B, 3, generator=g, device=cuda)
+    t = torch.sort(torch.rand(B, S, generator=g, device=cuda) * 4 + 2, dim=-1).values.contiguous()
+    target = torch.rand(B, 3, generator=g, device=cuda)
+    return packed, consts, t, o, d, target
+
+
+@pytest.mark.parametrize("B,S,white", [(37, 65, True), (5, 17, False), (2048, 193, True)])
+def test_level_kernel_matches_plain_twin(cuda, B, S, white):
+    packed, consts, t, o, d, target = _level_inputs(cuda, B, S, seed=4)
+    before = fused_level_train_grads.launches
+    sq, wgt, grads = fused_level_train_grads(packed, consts, t, o, d, d, target, white)
+    torch.cuda.synchronize()
+    assert fused_level_train_grads.launches == before + 1
+    sq_p, wgt_p, grads_p = fused_level_train_grads_plain(packed, consts, t, o, d, d, target, white)
+    assert wgt.shape == (B, S) and torch.isfinite(wgt).all()
+    assert (wgt - wgt_p).abs().max().item() <= TWIN_TOL_MAX
+    assert abs(sq.item() - sq_p.item()) <= TWIN_TOL_MAX * sq_p.item()
+    assert_grads_close(grads, grads_p)
+    # the same launch again: only the order of the atomic sums differs
+    sq2, wgt2, grads2 = fused_level_train_grads(packed, consts, t, o, d, d, target, white)
+    assert torch.equal(wgt, wgt2)
+    assert grad_errors(grads2, grads)[0] <= GRAD_TOL_REPEAT
+
+
+@pytest.mark.parametrize("B,S", [(37, 65), (2048, 193)])
+def test_mlp_bwd_kernel_matches_plain_twin(cuda, B, S):
+    packed, consts, t, o, d, _ = _level_inputs(cuda, B, S, seed=5)
+    g = torch.Generator(device=cuda).manual_seed(6)
+    samples = (o[:, None, :] + t[..., None] * d[:, None, :]).contiguous()
+    cot = torch.randn(B, S, 4, generator=g, device=cuda) / (B * S)
+    cot[:, ::3] = 0.0  # rows without a cotangent
+    before = fused_mlp_bwd_xyz.launches
+    grads = fused_mlp_bwd_xyz(packed, consts, samples, d, cot)
+    torch.cuda.synchronize()
+    assert fused_mlp_bwd_xyz.launches == before + 1
+    assert_grads_close(grads, fused_mlp_bwd_xyz_plain(packed, consts, samples, d, cot))
+    again = fused_mlp_bwd_xyz(packed, consts, samples, d, cot)
+    assert grad_errors(again, grads)[0] <= GRAD_TOL_REPEAT
+
+
+def test_fused_mlp_train_xyz_backward_launches_the_kernel(cuda):
+    params = {k: v.requires_grad_(True) for k, v in mlp_params(_params(cuda), "fine_mlp").items()}
+    consts = make_posenc_constants(device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(7)
+    samples = torch.rand(9, 33, 3, generator=g, device=cuda) * 4 - 2
+    vd = torch.nn.functional.normalize(torch.randn(9, 3, generator=g, device=cuda), dim=-1)
+    fwd0, bwd0 = fused_nerf_mlp_xyz_eval.launches, fused_mlp_bwd_xyz.launches
+    rgb, sigma = fused_mlp_train_xyz(params, consts, samples, vd)
+    (rgb.sum() + 2 * sigma.sum()).backward()
+    assert (fused_nerf_mlp_xyz_eval.launches, fused_mlp_bwd_xyz.launches) == (fwd0 + 1, bwd0 + 1)
+    cot = torch.cat([torch.ones_like(rgb), 2 * torch.ones_like(sigma)], dim=-1)
+    want = fused_mlp_bwd_xyz_plain(
+        pack_vanilla_mlp_params_f32({k: v.detach() for k, v in params.items()}), consts, samples,
+        vd, cot)
+    got = params["pts_3.weight"].grad.t()
+    assert (got - want["w3"]).abs().max() <= GRAD_TOL_REL * want["w3"].abs().max()
+    assert samples.grad is None
+
+
+def test_train_many_runs_the_v3_route_with_per_ray_streams(cuda):
+    cfg = Config(N_samples=16, N_importance=16)
+    system = build_system(cfg, 2.0, 6.0, True, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    state = system.init_state(gen)
+    T, k, m = 2, 2, 48
+    d = torch.nn.functional.normalize(torch.randn(T, k, m, 3, generator=gen, device=cuda), dim=-1)
+    superbatch = {"rays_o": -4.0 * d, "rays_d": d, "viewdirs": d,
+                  "target": torch.rand(T, k, m, 3, generator=gen, device=cuda)}
+    level0, res0 = fused_level_train_grads.launches, resample_union.launches
+    state, metrics = system.train_many(state, superbatch, gen)
+    torch.cuda.synchronize()
+    assert state.step == T
+    assert fused_level_train_grads.launches - level0 == 2 * T * k  # two levels per microbatch
+    assert resample_union.launches - res0 == T * k
+    assert all(torch.isfinite(v).all() for v in metrics.values())
+    assert all(torch.isfinite(v).all() for v in state.params.values())

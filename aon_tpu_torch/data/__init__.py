@@ -1,2 +1,3 @@
 """Scene data of the port.  The SAPIEN loaders are not ported yet (ROADMAP.md
-slice 3); ``analytic`` builds a small in-memory scene for smoke runs and tests."""
+slice 4); ``analytic`` builds small in-memory scenes, one of them articulated,
+for smoke runs and tests."""

@@ -75,6 +75,9 @@ def render_frame(
       miss_fill: per-output fill value for rays with ``frame["hit"] == False``;
         enables the AABB compaction path (only hit rays are rendered).
       device: where the chunks are rendered.
+      extra: per-frame arguments handed to every ``render_chunk`` call as they
+        are (the auto-decoder's ``instance_id``, ``articulation_id`` and
+        ``is_test``).
 
     Returns host numpy arrays.
     """

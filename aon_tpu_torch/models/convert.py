@@ -2,8 +2,15 @@
 
 A flax ``Dense`` stores ``kernel`` as (in, out); ``nn.Linear`` stores
 ``weight`` as (out, in), so ``weight = kernel.T``.  Param paths map one to
-one: ``coarse_mlp/pts_0/kernel`` -> ``coarse_mlp.pts_0.weight``.  The
-transpose that carries a kernel carries its gradient and its Adam moments
+one: ``coarse_mlp/pts_0/kernel`` -> ``coarse_mlp.pts_0.weight``.  A flax
+``Embed`` stores ``embedding`` as (rows, features), as ``nn.Embedding.weight``
+does, so the code tables of the auto-decoder carry over untransposed:
+``code_library/embedding_instance_shape/embedding`` ->
+``code_library.embedding_instance_shape.weight``.  The auto-decoder's tree
+``{"model": {"coarse_mlp", "fine_mlp"}, "code_library": {...}}`` becomes the
+flat ``model.*`` / ``code_library.*`` state dict of ``AutoDecoderSystem``.
+
+The transpose that carries a kernel carries its gradient and its Adam moments
 too, so ``params_from_flax`` and ``tree_to_flax`` serve any tree of the
 params' structure (params, gradients, ``mu``, ``nu``).
 """
@@ -15,7 +22,9 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
-_LEAF = {"kernel": "weight", "bias": "bias"}
+_LEAF = {"kernel": "weight", "bias": "bias", "embedding": "weight"}
+# modules whose ``weight`` is a flax ``embedding`` (the code library's tables)
+_EMBED_PREFIX = "embedding_"
 
 
 def params_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
@@ -55,7 +64,6 @@ def load_npz(path: str) -> Dict[str, torch.Tensor]:
 def tree_to_flax(flat: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
     """The inverse of ``params_from_flax``: a ``{name: tensor}`` tree (params,
     gradients, moments) -> nested dicts of numpy arrays in the flax layout."""
-    names = {v: k for k, v in _LEAF.items()}
     tree: Dict[str, Any] = {}
     for key, value in flat.items():
         *parents, leaf = key.split(".")
@@ -63,5 +71,10 @@ def tree_to_flax(flat: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
         for p in parents:
             node = node.setdefault(p, {})
         arr = value.detach().cpu().numpy()
-        node[names[leaf]] = np.array(arr.T if leaf == "weight" else arr, order="C")
+        if leaf == "weight" and parents and parents[-1].startswith(_EMBED_PREFIX):
+            node["embedding"] = np.array(arr, order="C")
+        elif leaf == "weight":
+            node["kernel"] = np.array(arr.T, order="C")
+        else:
+            node[leaf] = np.array(arr, order="C")
     return tree

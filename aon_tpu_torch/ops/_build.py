@@ -21,7 +21,7 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "aon_tpu_torch"
-KERNEL_SOURCES = ("fused_mlp_eval", "resample", "level_train")
+KERNEL_SOURCES = ("fused_mlp_eval", "resample", "level_train", "art")
 
 # No --use_fast_math: the positional encoding needs the accurate sinf and
 # IEEE division (ops/csrc/fused_mlp_eval.cu).
@@ -33,6 +33,7 @@ NVCC_FLAGS = (
 _VOID_P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _INT = ctypes.c_int
+_FLOAT = ctypes.c_float
 # argtypes of every launcher: each pointer and the stream as c_void_p, or
 # ctypes would pass them as 32-bit ints.
 _SIGNATURES = {
@@ -46,6 +47,12 @@ _SIGNATURES = {
     "level_train": {
         "aon_level_train_launch": [_VOID_P] * 19 + [_INT, _INT, _INT, _VOID_P],
         "aon_mlp_bwd_launch": [_VOID_P] * 14 + [_LL, _INT, _VOID_P],
+    },
+    "art": {
+        "aon_art_fwd_launch": [_VOID_P] * 10 + [_LL, _INT, _VOID_P],
+        "aon_art_bwd_launch": [_VOID_P] * 15 + [_LL, _INT, _VOID_P],
+        "aon_art_level_launch": ([_VOID_P] * 23 + [_INT, _INT, _INT]
+                                 + [_FLOAT, _FLOAT, _FLOAT, _INT, _VOID_P]),
     },
 }
 

@@ -39,6 +39,9 @@
 //                         tiles of up to 128x128, partial sums added by
 //                         atomicAdd.
 //
+// Kernels 3 and 4 are built from train_common.cuh, which the articulated
+// kernels (art.cu) share.
+//
 // The gradient blob must be zeroed on the same stream before every launch.
 // float atomicAdd makes the gradients (and sq_err_sum) differ in the last
 // bits from run to run.  Rows past n_rows in the last tile carry g = 0, so
@@ -49,27 +52,13 @@
 // `dot_tn`/`dot_nt` cast to bf16; bias gradients are sums of the unrounded
 // f32 values.  IEEE division and accurate expf/sinf: no --use_fast_math.
 
-#include "mlp_common.cuh"
+#include "train_common.cuh"
 
 using namespace aon;
 
 namespace {
 
-// bf16 gradient workspace, one row per sample: [D0..D7 | dbott | dv], D_i the
-// gradient of layer i's pre-activation.
-constexpr int GR_BOTT = 8 * WIDTH;
-constexpr int GR_V = GR_BOTT + WIDTH;
-constexpr int LDG = GR_V + COND;
-static_assert(LDG == 2432, "gradient workspace layout");
-
 constexpr int MAX_SAMPLES_PER_LANE = 8;  // composite_kernel: S <= 256
-
-using FragBT = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
-using FragAT = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major>;
-
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
 
 // ---------------------------------------------------------------- 1. forward
 
@@ -239,91 +228,15 @@ __global__ void composite_kernel(const float* __restrict__ raw_rgb,
 
 // ------------------------------------------------------ 3. backward, data path
 
-struct SmemBwd {
-  bf16 h[2][TILE * LDH];
-  float g[TILE * 4];
-  float scratch[WARPS][16 * 16];
-};
-
-// acc[r][j] += A[16r:16r+16, :K] @ W[col0+16j : col0+16j+16, :K]^T, W (n, K)
-// row-major: the backward product through a forward weight.
-template <int NT>
-__device__ __forceinline__ void mma_tile_t(FragC (&acc)[RT][NT], const bf16* A, int lda, int K,
-                                           const bf16* __restrict__ W, int ldw, int col0) {
-#pragma unroll 2
-  for (int k = 0; k < K; k += 16) {
-    FragBT b[NT];
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-      wmma::load_matrix_sync(b[j], W + static_cast<size_t>(col0 + 16 * j) * ldw + k, ldw);
-#pragma unroll
-    for (int r = 0; r < RT; ++r) {
-      FragA a;
-      wmma::load_matrix_sync(a, A + r * 16 * lda + k, lda);
-#pragma unroll
-      for (int j = 0; j < NT; ++j) wmma::mma_sync(acc[r][j], a, b[j], acc[r][j]);
-    }
-  }
-}
-
-// D = relu'(mask) * (acc + bf16(g_sigma) * wd) for this warp's 32 columns:
-// f32 column sums added to bias_grad, D as bf16 to `out` (the next product's
-// A operand) and to `save` (the gradient workspace).  `mask` is the stored
-// activation of the layer (null: no mask), `gs` the tile's g rows where the
-// density head joins (null elsewhere); with wd_grad the head's own gradient
-// a7^T bf16(g_sigma) is summed alongside.
-__device__ __forceinline__ void store_grad(FragC (&acc)[RT][2], const bf16* __restrict__ mask,
-                                           const float* gs, const bf16* __restrict__ wd,
-                                           float* __restrict__ bias_grad,
-                                           float* __restrict__ wd_grad, bf16* out, int col0,
-                                           float* scratch, int lane, bf16* save) {
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    const int col = col0 + 16 * j + (lane & 15);
-    const float wdc = gs != nullptr ? __bfloat162float(wd[col]) : 0.0f;
-    float csum = 0.0f, wsum = 0.0f;
-#pragma unroll
-    for (int r = 0; r < RT; ++r) {
-      wmma::store_matrix_sync(scratch, acc[r][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int row = 16 * r + (e >> 4);
-        float v = scratch[e];
-        float gsig = 0.0f;
-        if (gs != nullptr) {
-          gsig = round_bf16(gs[4 * row + 3]);
-          v += gsig * wdc;
-        }
-        if (mask != nullptr) {
-          const float a = __bfloat162float(mask[static_cast<size_t>(row) * LDA + col]);
-          if (!(a > 0.0f)) v = 0.0f;
-          wsum += a * gsig;
-        }
-        csum += v;
-        const bf16 h = __float2bfloat16_rn(v);
-        out[row * LDH + col] = h;
-        save[static_cast<size_t>(row) * LDG + col] = h;
-      }
-      __syncwarp();
-    }
-    csum += __shfl_xor_sync(0xffffffffu, csum, 16);
-    wsum += __shfl_xor_sync(0xffffffffu, wsum, 16);
-    if (lane < 16) {
-      atomicAdd(bias_grad + col, csum);
-      if (wd_grad != nullptr) atomicAdd(wd_grad + col, wsum);
-    }
-  }
-}
-
 // gw: the f32 gradient blob, weights at the offsets of the weight blob, then
-// the biases at N_WEIGHTS.
+// the biases at N_WEIGHTS.  The chain itself is train_common.cuh's.
 __global__ void __launch_bounds__(THREADS, 2)
 bwd_data_kernel(const float* __restrict__ g, const bf16* __restrict__ W,
                 const bf16* __restrict__ act, bf16* __restrict__ grad, float* __restrict__ gw,
                 long long n_rows) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   SmemBwd& sm = *reinterpret_cast<SmemBwd*>(smem_raw);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tid = threadIdx.x;
   const long long row0 = static_cast<long long>(blockIdx.x) * TILE;
   const bf16* act_tile = act + static_cast<size_t>(row0) * LDA;
   bf16* grad_tile = grad + static_cast<size_t>(row0) * LDG;
@@ -340,159 +253,14 @@ bwd_data_kernel(const float* __restrict__ g, const bf16* __restrict__ W,
     atomicAdd(gb + (tid < 3 ? OFF_BRGB + tid : OFF_BD), s);
   }
 
-  bf16* hin = sm.h[0];
-  bf16* hout = sm.h[1];
-  {  // rgb head and view layer: dv = (bf16(g_rgb) @ wrgb^T) * relu'(v)
-    const int c = tid & (COND - 1), half = tid >> 7;
-    const float w0 = __bfloat162float(W[OFF_WRGB + 3 * c + 0]);
-    const float w1 = __bfloat162float(W[OFF_WRGB + 3 * c + 1]);
-    const float w2 = __bfloat162float(W[OFF_WRGB + 3 * c + 2]);
-    float bsum = 0.0f, wg0 = 0.0f, wg1 = 0.0f, wg2 = 0.0f;
-    for (int r = half * (TILE / 2); r < (half + 1) * (TILE / 2); ++r) {
-      const float g0 = round_bf16(sm.g[4 * r + 0]);
-      const float g1 = round_bf16(sm.g[4 * r + 1]);
-      const float g2 = round_bf16(sm.g[4 * r + 2]);
-      const float v = __bfloat162float(act_tile[static_cast<size_t>(r) * LDA + ACT_V + c]);
-      float dv = fmaf(g2, w2, fmaf(g1, w1, g0 * w0));
-      if (!(v > 0.0f)) dv = 0.0f;
-      bsum += dv;
-      wg0 = fmaf(v, g0, wg0), wg1 = fmaf(v, g1, wg1), wg2 = fmaf(v, g2, wg2);
-      const bf16 h = __float2bfloat16_rn(dv);
-      hin[r * LDH + c] = h;
-      grad_tile[static_cast<size_t>(r) * LDG + GR_V + c] = h;
-    }
-    atomicAdd(gb + OFF_BV + c, bsum);
-    atomicAdd(gw + OFF_WRGB + 3 * c + 0, wg0);
-    atomicAdd(gw + OFF_WRGB + 3 * c + 1, wg1);
-    atomicAdd(gw + OFF_WRGB + 3 * c + 2, wg2);
-  }
+  // rgb head and view layer: dv = (bf16(g_rgb) @ wrgb^T) * relu'(v)
+  head3_bwd(sm.g, W + OFF_WRGB, 3, act_tile + ACT_V, LDA, gb + OFF_BV, gw + OFF_WRGB, sm.h[0],
+            grad_tile + GR_V, LDG);
   __syncthreads();
-
-  float* scratch = sm.scratch[warp];
-  const int col0 = 32 * warp;
-  FragC acc[RT][2];
-
-  // dbott = bf16(dv) @ wva^T
-  zero(acc);
-  mma_tile_t(acc, hin, LDH, COND, W + OFF_WVA, COND, col0);
-  store_grad(acc, nullptr, nullptr, nullptr, gb + OFF_BB, nullptr, hout, col0, scratch, lane,
-             grad_tile + GR_BOTT);
-  __syncthreads();
-  { bf16* t = hin; hin = hout; hout = t; }
-
-  // D7 = (bf16(dbott) @ wb^T + bf16(g_sigma) wd^T) * relu'(a7); wd's gradient alongside
-  zero(acc);
-  mma_tile_t(acc, hin, LDH, WIDTH, W + OFF_WB, WIDTH, col0);
-  store_grad(acc, act_tile + ACT_A0 + 7 * WIDTH, sm.g, W + OFF_WD, gb + 7 * WIDTH, gw + OFF_WD,
-             hout, col0, scratch, lane, grad_tile + 7 * WIDTH);
-  __syncthreads();
-  { bf16* t = hin; hin = hout; hout = t; }
-
-  // D_l = (bf16(D_{l+1}) @ w_{l+1}^T) * relu'(a_l); layer 5 backpropagates
-  // through w5a only (the encoding takes no gradient)
-#pragma unroll 1
-  for (int layer = 6; layer >= 0; --layer) {
-    zero(acc);
-    mma_tile_t(acc, hin, LDH, WIDTH, W + trunk_offset(layer + 1), WIDTH, col0);
-    store_grad(acc, act_tile + ACT_A0 + layer * WIDTH, nullptr, nullptr, gb + layer * WIDTH,
-               nullptr, hout, col0, scratch, lane, grad_tile + layer * WIDTH);
-    __syncthreads();
-    bf16* t = hin; hin = hout; hout = t;
-  }
+  trunk_backward(sm, W, act_tile, LDA, grad_tile, LDG, gw, gb);
 }
 
 // -------------------------------------------------- 4. backward, weight grads
-
-struct WgradJob {
-  int x_col, kx;  // X = act[:, x_col : x_col + kx]
-  int d_col, nd;  // D = grad[:, d_col : d_col + nd]
-  int out;        // dW (kx, nd) at gw + out
-};
-constexpr int N_JOBS = 12;
-struct WgradJobs {
-  WgradJob job[N_JOBS];
-};
-constexpr int WG_WARPS = 8;
-constexpr int WG_WARP_M = 32, WG_WARP_N = 64;  // output tile of one warp
-
-// blockIdx.x: output tile of the job, blockIdx.y: chunk of rows, blockIdx.z:
-// job.  The 8 warps of a block tile the output as (kx / 32, at most 4) x the
-// rest, 32 x 64 each: 128 x 128 for a 256-row dW, 64 x 256 for the two
-// 64-row ones, so each fragment a warp loads feeds 2 or 4 products and
-// the warps of a block share their rows of X and D through L1.  The tiles of
-// one chunk are neighbours in launch order, so the rows they share are read
-// from device memory once and then from L2.
-__global__ void __launch_bounds__(32 * WG_WARPS, 2)
-wgrad_kernel(const bf16* __restrict__ act, const bf16* __restrict__ grad,
-             float* __restrict__ gw, long long n_pad, int rows_per_chunk, WgradJobs jobs) {
-  __shared__ float scratch_all[WG_WARPS][16 * 16];
-  const WgradJob job = jobs.job[blockIdx.z];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int warps_m = min(4, job.kx / WG_WARP_M), warps_n = WG_WARPS / warps_m;
-  const int tile_m = WG_WARP_M * warps_m, tile_n = WG_WARP_N * warps_n;
-  const int tiles_n = (job.nd + tile_n - 1) / tile_n;
-  const int tile = blockIdx.x;
-  if (tile >= (job.kx / tile_m) * tiles_n) return;
-  const int m0 = (tile / tiles_n) * tile_m + WG_WARP_M * (warp % warps_m);
-  const int n0 = (tile % tiles_n) * tile_n + WG_WARP_N * (warp / warps_m);
-  if (n0 >= job.nd) return;
-  const long long k0 = static_cast<long long>(blockIdx.y) * rows_per_chunk;
-  const long long k1 = min(k0 + rows_per_chunk, n_pad);
-
-  FragC acc[2][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-  const bf16* x = act + job.x_col + m0;
-  const bf16* d = grad + job.d_col + n0;
-  for (long long k = k0; k < k1; k += 16) {
-    FragAT a[2];  // X^T[m0 + 16i : m0 + 16i + 16, k : k + 16]
-    FragB b[4];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-      wmma::load_matrix_sync(a[i], x + static_cast<size_t>(k) * LDA + 16 * i, LDA);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      wmma::load_matrix_sync(b[j], d + static_cast<size_t>(k) * LDG + 16 * j, LDG);
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-  }
-  float* scratch = scratch_all[warp];
-  float* out = gw + job.out;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      wmma::store_matrix_sync(scratch, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32)
-        atomicAdd(out + static_cast<size_t>(m0 + 16 * i + (e >> 4)) * job.nd + n0 + 16 * j +
-                      (e & 15),
-                  scratch[e]);
-      __syncwarp();
-    }
-  }
-}
-
-WgradJobs wgrad_jobs() {
-  constexpr int WW = WIDTH * WIDTH;
-  WgradJobs t;
-  int n = 0;
-  t.job[n++] = {ACT_ENC, POS_PAD, 0, WIDTH, OFF_W0};
-  for (int i = 1; i <= 4; ++i)
-    t.job[n++] = {ACT_A0 + (i - 1) * WIDTH, WIDTH, i * WIDTH, WIDTH, OFF_W1 + (i - 1) * WW};
-  t.job[n++] = {ACT_A0 + 4 * WIDTH, WIDTH, 5 * WIDTH, WIDTH, OFF_W1 + 4 * WW};  // w5a
-  t.job[n++] = {ACT_ENC, POS_PAD, 5 * WIDTH, WIDTH, OFF_W5B};
-  t.job[n++] = {ACT_A0 + 5 * WIDTH, WIDTH, 6 * WIDTH, WIDTH, OFF_W6};
-  t.job[n++] = {ACT_A0 + 6 * WIDTH, WIDTH, 7 * WIDTH, WIDTH, OFF_W6 + WW};
-  t.job[n++] = {ACT_A0 + 7 * WIDTH, WIDTH, GR_BOTT, WIDTH, OFF_WB};
-  t.job[n++] = {ACT_BOTT, WIDTH, GR_V, COND, OFF_WVA};
-  t.job[n++] = {ACT_VENC, VIEW_PAD, GR_V, COND, OFF_WVB};
-  return t;
-}
 
 int launch_forward(const float* xyz, const float* t_vals, const float* rays_o,
                    const float* rays_d, const float* vdir, const float* s_pos,
@@ -524,16 +292,10 @@ int launch_backward(const float* g, const void* weights, const void* act, void* 
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  const long long n_pad = blocks * TILE;
-  long long rows_per_chunk = ((n_pad + 47) / 48 + 15) / 16 * 16;
-  if (rows_per_chunk < 256) rows_per_chunk = 256;
-  const long long chunks = (n_pad + rows_per_chunk - 1) / rows_per_chunk;
-  // at most 4 tiles per job: (256 / 128) x (256 / 128)
-  const dim3 grid(4, static_cast<unsigned>(chunks), N_JOBS);
-  wgrad_kernel<<<grid, 32 * WG_WARPS, 0, stream>>>(
-      static_cast<const bf16*>(act), static_cast<const bf16*>(grad), gw, n_pad,
-      static_cast<int>(rows_per_chunk), wgrad_jobs());
-  return static_cast<int>(cudaGetLastError());
+  WgradJobs<N_TRUNK_JOBS> jobs;
+  trunk_wgrad_jobs(jobs.job);
+  return launch_wgrad(static_cast<const bf16*>(act), LDA, static_cast<const bf16*>(grad), LDG, gw,
+                      blocks * TILE, jobs, stream);
 }
 
 }  // namespace

@@ -1,6 +1,8 @@
-// Shared device code of the vanilla NeRF MLP kernels (fused_mlp_eval.cu,
-// level_train.cu): the packed weight layout, the in-kernel positional
-// encoding and the WMMA forward over one tile of TILE sample rows.
+// Shared device code of the NeRF MLP kernels (fused_mlp_eval.cu,
+// level_train.cu, art.cu): the packed weight layout of the vanilla-shaped
+// trunk, the in-kernel positional encoding and the WMMA forward over one tile
+// of TILE sample rows.  The articulated kernels (art.cu) embed this layout as
+// the head of their own blobs and workspaces and run the same trunk.
 //
 // Matmul operands are bf16 with f32 accumulation and activations are rounded
 // to bf16 between layers, as `_mlp_compute` (aon_tpu/ops/fused_mlp.py) and
@@ -86,19 +88,31 @@ using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
 using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
 using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 
-// One channel of the in-kernel positional encoding, the formula of
-// `_encode_in_kernel`: pre = x0*s0 + x1*s1 + x2*s2 + p (s: (4, width),
-// p: (1, width)); channels < 3 pass pre through, the rest are sin(reduced).
-__device__ __forceinline__ float encode(float x0, float x1, float x2,
-                                        const float* __restrict__ s,
-                                        const float* __restrict__ p, int width, int col) {
+// The pre-activation of one channel of the in-kernel positional encoding,
+// the formula of `_encode_in_kernel`: pre = x0*s0 + x1*s1 + x2*s2 + p
+// (s: (4, width), p: (1, width)).
+__device__ __forceinline__ float encode_pre(float x0, float x1, float x2,
+                                            const float* __restrict__ s,
+                                            const float* __restrict__ p, int width, int col) {
   float pre = __fmul_rn(x0, __ldg(s + col));
   pre = __fadd_rn(pre, __fmul_rn(x1, __ldg(s + width + col)));
   pre = __fadd_rn(pre, __fmul_rn(x2, __ldg(s + 2 * width + col)));
-  pre = __fadd_rn(pre, __ldg(p + col));
-  if (col < 3) return pre;
+  return __fadd_rn(pre, __ldg(p + col));
+}
+
+// pre - 2pi * floor(pre / 2pi + 0.5), the subtraction rounded once.
+__device__ __forceinline__ float reduce_arg(float pre) {
   const float k = floorf(__fadd_rn(__fdiv_rn(pre, TWO_PI), 0.5f));
-  return sinf(__fmaf_rn(-TWO_PI, k, pre));
+  return __fmaf_rn(-TWO_PI, k, pre);
+}
+
+// One channel of the encoding: channels < 3 pass pre through, the rest are
+// sin(reduced).
+__device__ __forceinline__ float encode(float x0, float x1, float x2,
+                                        const float* __restrict__ s,
+                                        const float* __restrict__ p, int width, int col) {
+  const float pre = encode_pre(x0, x1, x2, s, p, width, col);
+  return col < 3 ? pre : sinf(reduce_arg(pre));
 }
 
 template <int NT>
@@ -131,12 +145,13 @@ __device__ __forceinline__ void mma_tile(FragC (&acc)[RT][NT], const bf16* A, in
 
 // out[:, col0 + 16j + c] = bf16(act(acc + bias)) through a per-warp f32 tile.
 // With SAVE the same values also go to the tile's rows of the activation
-// workspace, `save` pointing at this layer's first column of the tile's
-// first row.
+// workspace (`lds` columns per row), `save` pointing at this layer's first
+// column of the tile's first row.
 template <bool SAVE, int NT>
 __device__ __forceinline__ void store_bias_act(FragC (&acc)[RT][NT], const float* __restrict__ bias,
                                                bool relu, bf16* out, int ldo, int col0,
-                                               float* scratch, int lane, bf16* save = nullptr) {
+                                               float* scratch, int lane, bf16* save = nullptr,
+                                               int lds = LDA) {
 #pragma unroll
   for (int r = 0; r < RT; ++r) {
 #pragma unroll
@@ -149,7 +164,7 @@ __device__ __forceinline__ void store_bias_act(FragC (&acc)[RT][NT], const float
         if (relu) v = fmaxf(v, 0.0f);
         const bf16 h = __float2bfloat16_rn(v);
         out[row * ldo + col] = h;
-        if (SAVE) save[static_cast<size_t>(row) * LDA + col] = h;
+        if (SAVE) save[static_cast<size_t>(row) * lds + col] = h;
       }
       __syncwarp();
     }
@@ -160,17 +175,19 @@ __device__ __forceinline__ int trunk_offset(int layer) {  // layers 1..7 of the 
   return layer <= 5 ? OFF_W1 + (layer - 1) * WIDTH * WIDTH : OFF_W6 + (layer - 6) * WIDTH * WIDTH;
 }
 
-// The MLP forward over the tile whose encodings are in sm.enc / sm.venc
-// (the caller filled them and synchronised): raw rgb (n_rows, 3) and raw
-// sigma (n_rows, 1) for the rows below n_rows.  With SAVE every activation
-// (a0..a7, bottleneck, v) is also written as bf16 to `act`, the tile's first
-// row of the activation workspace, for all TILE rows.
+// The trunk of the MLP forward over the tile whose encodings are in sm.enc /
+// sm.venc (the caller filled them and synchronised): layers 0..7, the density
+// head (raw sigma (n_rows, 1) for the rows below n_rows), the bottleneck and
+// the first view layer.  Leaves v = relu(view layer) in sm.h[1], all threads
+// synchronised; sm.h[0] is free.  With SAVE every activation (a0..a7,
+// bottleneck, v) is also written as bf16 to `act`, the tile's first row of an
+// activation workspace of `lds` columns whose head has the ACT_* layout, for
+// all TILE rows.
 template <bool SAVE>
-__device__ __forceinline__ void mlp_forward(Smem& sm, const bf16* __restrict__ W,
-                                            const float* __restrict__ bias,
-                                            float* __restrict__ out_rgb,
-                                            float* __restrict__ out_sigma, long long row0,
-                                            long long n_rows, bf16* act) {
+__device__ __forceinline__ void trunk_forward(Smem& sm, const bf16* __restrict__ W,
+                                              const float* __restrict__ bias,
+                                              float* __restrict__ out_sigma, long long row0,
+                                              long long n_rows, bf16* act, int lds = LDA) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   float* scratch = sm.scratch[warp];
   const int col0 = 32 * warp;
@@ -180,7 +197,7 @@ __device__ __forceinline__ void mlp_forward(Smem& sm, const bf16* __restrict__ W
 
   zero(acc);
   mma_tile(acc, sm.enc, LDE, POS_PAD, W + OFF_W0, WIDTH, col0);
-  store_bias_act<SAVE>(acc, bias, true, hin, LDH, col0, scratch, lane, act + ACT_A0);
+  store_bias_act<SAVE>(acc, bias, true, hin, LDH, col0, scratch, lane, act + ACT_A0, lds);
   __syncthreads();
 
 #pragma unroll 1
@@ -190,15 +207,17 @@ __device__ __forceinline__ void mlp_forward(Smem& sm, const bf16* __restrict__ W
     if (layer == 5)  // skip: layer5(cat[h, enc]) == h @ w5a + enc @ w5b
       mma_tile(acc, sm.enc, LDE, POS_PAD, W + OFF_W5B, WIDTH, col0);
     store_bias_act<SAVE>(acc, bias + layer * WIDTH, true, hout, LDH, col0, scratch, lane,
-                         act + ACT_A0 + layer * WIDTH);
+                         act + ACT_A0 + layer * WIDTH, lds);
     __syncthreads();
     bf16* t = hin; hin = hout; hout = t;
   }
 
-  // hin holds h7: the bottleneck goes to hout, then the density head reads h7.
+  // hin (sm.h[1]) holds h7: the bottleneck goes to hout, then the density
+  // head reads h7.
   zero(acc);
   mma_tile(acc, hin, LDH, WIDTH, W + OFF_WB, WIDTH, col0);
-  store_bias_act<SAVE>(acc, bias + OFF_BB, false, hout, LDH, col0, scratch, lane, act + ACT_BOTT);
+  store_bias_act<SAVE>(acc, bias + OFF_BB, false, hout, LDH, col0, scratch, lane, act + ACT_BOTT,
+                       lds);
   {
     const int r = tid >> 2, part = tid & 3;  // 64 rows x 4 partial sums of 64
     const bf16* h = hin + r * LDH + 64 * part;
@@ -219,33 +238,51 @@ __device__ __forceinline__ void mlp_forward(Smem& sm, const bf16* __restrict__ W
   mma_tile(vacc, hin, LDH, WIDTH, W + OFF_WVA, COND, 16 * warp);
   mma_tile(vacc, sm.venc, LDV, VIEW_PAD, W + OFF_WVB, COND, 16 * warp);
   store_bias_act<SAVE>(vacc, bias + OFF_BV, true, hout, LDH, 16 * warp, scratch, lane,
-                       act + ACT_V);
+                       act + ACT_V, lds);
   __syncthreads();
+}
 
-  {  // rgb head: 64 rows x 4 partial sums of 32
-    const int r = tid >> 2, part = tid & 3;
-    const bf16* v = hout + r * LDH + 32 * part;
-    const bf16* w = W + OFF_WRGB + 3 * 32 * part;
-    float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f;
-    for (int k = 0; k < 32; ++k) {
-      const float a = __bfloat162float(v[k]);
-      s0 = fmaf(a, __bfloat162float(w[3 * k + 0]), s0);
-      s1 = fmaf(a, __bfloat162float(w[3 * k + 1]), s1);
-      s2 = fmaf(a, __bfloat162float(w[3 * k + 2]), s2);
-    }
-#pragma unroll
-    for (int m = 1; m <= 2; m <<= 1) {
-      s0 += __shfl_xor_sync(0xffffffffu, s0, m);
-      s1 += __shfl_xor_sync(0xffffffffu, s1, m);
-      s2 += __shfl_xor_sync(0xffffffffu, s2, m);
-    }
-    const long long g = row0 + r;
-    if (part == 0 && g < n_rows) {
-      out_rgb[3 * g + 0] = s0 + bias[OFF_BRGB + 0];
-      out_rgb[3 * g + 1] = s1 + bias[OFF_BRGB + 1];
-      out_rgb[3 * g + 2] = s2 + bias[OFF_BRGB + 2];
-    }
+// The rgb head on v (TILE rows of LDH columns in shared memory, 128 used):
+// raw rgb (n_rows, 3) for the rows below n_rows; 64 rows x 4 partial sums of 32.
+__device__ __forceinline__ void rgb_head(const bf16* v_tile, const bf16* __restrict__ W,
+                                         const float* __restrict__ bias,
+                                         float* __restrict__ out_rgb, long long row0,
+                                         long long n_rows) {
+  const int tid = threadIdx.x;
+  const int r = tid >> 2, part = tid & 3;
+  const bf16* v = v_tile + r * LDH + 32 * part;
+  const bf16* w = W + OFF_WRGB + 3 * 32 * part;
+  float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f;
+  for (int k = 0; k < 32; ++k) {
+    const float a = __bfloat162float(v[k]);
+    s0 = fmaf(a, __bfloat162float(w[3 * k + 0]), s0);
+    s1 = fmaf(a, __bfloat162float(w[3 * k + 1]), s1);
+    s2 = fmaf(a, __bfloat162float(w[3 * k + 2]), s2);
   }
+#pragma unroll
+  for (int m = 1; m <= 2; m <<= 1) {
+    s0 += __shfl_xor_sync(0xffffffffu, s0, m);
+    s1 += __shfl_xor_sync(0xffffffffu, s1, m);
+    s2 += __shfl_xor_sync(0xffffffffu, s2, m);
+  }
+  const long long g = row0 + r;
+  if (part == 0 && g < n_rows) {
+    out_rgb[3 * g + 0] = s0 + bias[OFF_BRGB + 0];
+    out_rgb[3 * g + 1] = s1 + bias[OFF_BRGB + 1];
+    out_rgb[3 * g + 2] = s2 + bias[OFF_BRGB + 2];
+  }
+}
+
+// The whole vanilla MLP forward over the tile: trunk_forward, then the rgb
+// head on its v.
+template <bool SAVE>
+__device__ __forceinline__ void mlp_forward(Smem& sm, const bf16* __restrict__ W,
+                                            const float* __restrict__ bias,
+                                            float* __restrict__ out_rgb,
+                                            float* __restrict__ out_sigma, long long row0,
+                                            long long n_rows, bf16* act) {
+  trunk_forward<SAVE>(sm, W, bias, out_sigma, row0, n_rows, act);
+  rgb_head(sm.h[1], W, bias, out_rgb, row0, n_rows);
 }
 
 }  // namespace aon

@@ -155,6 +155,18 @@ def make_posenc_constants(
     return {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
 
 
+class EncConstsCache:
+    """``make_posenc_constants`` of one (max_deg, view_deg), made once per device."""
+
+    def __init__(self, max_deg: int = 10, view_deg: int = 4):
+        self._degs, self._by_device = (max_deg, view_deg), {}
+
+    def on(self, device: torch.device) -> Dict[str, torch.Tensor]:
+        if device not in self._by_device:
+            self._by_device[device] = make_posenc_constants(*self._degs, device=device)
+        return self._by_device[device]
+
+
 def kernel_blobs(packed: Mapping[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
     """The packed bf16 weights and f32 biases as the two flat blobs the CUDA
     kernel reads, after checking every shape and dtype."""

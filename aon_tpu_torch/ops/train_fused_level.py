@@ -30,8 +30,8 @@ from aon_tpu_torch.ops.fused_mlp import (
     ENC_ORDER,
     N_KERNEL_BIASES,
     N_KERNEL_WEIGHTS,
+    EncConstsCache,
     grads_from_blob,
-    make_posenc_constants,
     pack_vanilla_mlp_params_f32,
     train_blobs,
     unpack_vanilla_mlp_grads,
@@ -184,7 +184,7 @@ def make_fused_step_fn(
     from ``generator``: ``t_rand`` (B, num_coarse + 1) and ``u`` (B,
     num_fine), each row of ``u`` ascending.
     """
-    enc_consts: Dict[str, Dict[str, torch.Tensor]] = {}
+    enc_consts = EncConstsCache(max_deg, deg_view)
 
     @torch.no_grad()
     def step_fn(params, batch, generator: Optional[torch.Generator] = None, draws=None):
@@ -194,9 +194,7 @@ def make_fused_step_fn(
         draws = draws or {}
         B = rays_o.shape[0]
         device = rays_o.device
-        if device not in enc_consts:
-            enc_consts[device] = make_posenc_constants(max_deg, deg_view, device=device)
-        consts = enc_consts[device]
+        consts = enc_consts.on(device)
 
         packed_c = pack_vanilla_mlp_params_f32(mlp_params(params, "coarse_mlp"))
         packed_f = pack_vanilla_mlp_params_f32(mlp_params(params, "fine_mlp"))

@@ -10,13 +10,13 @@ stay plain PyTorch under autograd, and the gradients land on the ordinary
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Mapping, Optional
+from typing import Callable, Mapping, Optional
 
 import torch
 
 from aon_tpu_torch.core import sampling
 from aon_tpu_torch.core.rendering import img2mse, volumetric_rendering
-from aon_tpu_torch.ops.fused_mlp import make_posenc_constants
+from aon_tpu_torch.ops.fused_mlp import EncConstsCache
 from aon_tpu_torch.ops.fused_mlp_train import fused_mlp_train_xyz
 from aon_tpu_torch.ops.render_fused import mlp_params
 from aon_tpu_torch.ops.resample import sample_pdf_fused
@@ -53,7 +53,7 @@ def make_fused_loss_fn(
     path's iid draws).  ``draws``: ``t_rand`` (B, num_coarse + 1), ``u``
     (B, num_fine) with ascending rows, ``noise0`` / ``noise1`` (B, S, 1).
     """
-    enc_consts: Dict[torch.device, Dict[str, torch.Tensor]] = {}
+    enc_consts = EncConstsCache(max_deg, deg_view)
 
     def loss_fn(params: Mapping[str, torch.Tensor], batch: Mapping[str, torch.Tensor],
                 generator: Optional[torch.Generator] = None, draws=None):
@@ -61,9 +61,7 @@ def make_fused_loss_fn(
         ray_ids = batch.get("ray_ids")
         draws = draws or {}
         device = rays["rays_o"].device
-        if device not in enc_consts:
-            enc_consts[device] = make_posenc_constants(max_deg, deg_view, device=device)
-        consts = enc_consts[device]
+        consts = enc_consts.on(device)
 
         def noise(level, shape):
             if not (noise_std > 0 and randomized):

@@ -3,7 +3,10 @@
 
 Gradient accumulation has exact mean semantics: equal-size microbatch MSE
 means average to the full-batch mean.  Ray entries of a stacked batch arrive
-as ``(k, m, ...)``; a flat batch ``(m, ...)`` is one microbatch.
+as ``(k, m, ...)``; a flat batch ``(m, ...)`` is one microbatch.  Every other
+entry is shared: it reaches each microbatch as it is (the auto-decoder's
+``instance_id`` and ``articulation_id``, one per step), and in a superbatch it
+carries one value per step on its leading axis.
 """
 
 from __future__ import annotations

@@ -33,10 +33,28 @@ Phases, each printed as one JSON line on stdout (nothing else goes there):
            MANY_STEPS x MANY_MICRO stacked microbatches through
            system.train_many on both routes, held against train_step on the
            same rays, ray ids and generator state;
-  kernels  every kernel of the two paths with its launches, error, times and bound;
+  art_kernel  the three articulated kernels (forward, MLP backward, fused
+           level) on configs/quality_laptop_autodec.json's MLP with seeded
+           weights and codes, at their paths' shapes (forward: 61,440 rays x 65
+           and x 193 of a render chunk and 2,048 x 65 / x 193 of the v2
+           forward; backward and level: 2,048 x 65 and x 193 with t sampled as
+           a step samples it; the level also with the auto-encoder's arguments
+           and with a white background), each against its plain twin, timed
+           beside the twin, the bf16 library chain and the bound;
+  art_path three 640x480 frames (one cold, two timed) through
+           AutoDecoderSystem.render_chunk at chunk 61440, two (instance,
+           articulation) pairs and one is_test midpoint id, launch counts per
+           frame, and the first chunk against the plain float32 path;
+  art_train  ART_STEPS_V3 + ART_STEPS_V2 steps of 4,096 rays as 2 microbatches
+           of 2,048 on an in-memory articulated analytic scene, one (instance,
+           articulation) pair per step; ms per step, exact launch counts, the
+           loss curve, the first step against the plain float32 route, code
+           rows no step indexed unchanged, and train_many against train_step;
+  kernels  every kernel of the paths with its launches, error, times and bound;
 
-with --profile, a ``profile`` line as well: torch.profiler over five warm v3
-steps, device time by kernel name and the device's idle share of the window;
+with --profile, two ``profile`` lines as well: torch.profiler over five warm v3
+steps of the vanilla and of the auto-decoder system, device time by kernel
+name and the device's idle share of the window;
 
 and last {"ok": true, "device": {...}}.  Any failing phase prints its error
 and exits 1.  Needs one CUDA device; exits 1 without one.
@@ -100,11 +118,48 @@ TOL_ROUTES_GRAD_MAX, TOL_ROUTES_GRAD_MEAN = 0.1, 0.02  # seen: 0.0012 and 0.0034
 # train_many: steps per call and stacked microbatches per step (of
 # TRAIN_RAYS / MANY_MICRO rays each).  Against train_step on the same rays,
 # ray ids and generator state only the atomicAdd order of the kernels differs;
-# Adam turns that into at most a fraction of the lr (~5e-6) where a gradient
-# entry is as small as its eps
+# Adam turns that into up to the lr (~5e-6) where a gradient entry is as small
+# as its eps
 MANY_STEPS, MANY_MICRO = 2, 2
-TOL_MANY_LOSS = 1e-4  # relative; seen on an H100: 2.1e-7
-TOL_MANY_PARAMS = 1e-6  # absolute, after MANY_STEPS Adam steps; seen: 1.1e-7
+TOL_MANY_LOSS = 1e-4  # relative; seen on an H100: 2.1e-7 to 5.1e-6
+# parameters after MANY_STEPS Adam steps.  An early Adam step moves an entry by
+# lr * g / (|g| + 1e-8), so the rare entry whose gradient is within the
+# atomicAdd noise of zero (~1e-8) may go either way by up to lr: the largest
+# difference is held to 2 lr a step (seen: 1.1e-7 in most runs, 6.6e-6 = 1.3 lr
+# in one), and the mean over all entries, which a systematic difference would
+# move, to TOL_MANY_PARAMS_MEAN
+TOL_MANY_PARAMS_LR = 2.0
+TOL_MANY_PARAMS_MEAN = 1e-8
+
+# ---- the auto-decoder (articulated NeRF + code library)
+ART_CONFIG = "configs/quality_laptop_autodec.json"
+ART_IMG_WH = (640, 480)  # the eval frame of the other paths
+# multiply-adds per sample at the function's own widths: the vanilla MLP's, with
+# the 4x128 deformation prefix (3x128 + 3x128x128 + 128x3) and views_1..3
+ART_MACS_PER_SAMPLE = MLP_MACS_PER_SAMPLE + 49920 + 49152  # 692,480
+ART_BIASES = MLP_BIASES + 4 * 128 + 3 + 3 * 128
+ART_MICRO = 2  # ray_batch_size 4096 as microbatches of microbatch_rays 2048
+ART_STEPS_V3, ART_STEPS_V2 = 40, 6
+ART_SCENE = dict(n_instances=2, n_articulations=3, n_views=4)
+# bf16 kernel path against the float32 module on the first chunk of a frame:
+# as TOL_PATH, and the deformation's first layer rounds xyz to bf16, which
+# the encoding amplifies.  acc is 1 up to rounding on every ray: on a black
+# background the 1e10 tail makes the last sample opaque
+TOL_ART_PATH = {"comp_rgb": 2e-2, "acc": 1e-3, "depth": 1e-1}  # seen: 1.5e-3, 1.0e-6, 1.0e-2
+# The loss on one fixed batch with fixed draws (the first-step comparison's)
+# after the v3 steps, against before them.  The steps run on the schedule's
+# warmup (lr 5e-6 rising to 1.7e-5) and each sees another (instance,
+# articulation) pair, so the per-step losses are not comparable with each other
+ART_LOSS_FALL = 0.99
+# first step against the plain float32 route, by direction (cosine over the
+# named group of tensors): with a live deformation two correct implementations
+# do not agree entry by entry (tests/test_fused_art.py of the JAX package holds
+# its own kernels to cosines of 0.95 / 0.8 / 0.5).  Seen on an H100: 0.99999,
+# 0.873, 0.9992
+TOL_ART_STEP_COS = {"trunk": 0.99, "deform": 0.6, "codes": 0.95}
+# the two kernel routes against each other, as TOL_ROUTES_GRAD_*, with the
+# deformation's phase amplification on top: seen 0.012 and 0.011
+TOL_ART_ROUTES_GRAD_MAX, TOL_ART_ROUTES_GRAD_MEAN = 0.1, 0.05
 
 
 def emit(obj) -> None:
@@ -118,6 +173,12 @@ class PhaseFailed(Exception):
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise PhaseFailed(what)
+
+
+def launches_are(launches, **want) -> bool:
+    """Whether a run's launch counts are exactly ``want``, and 0 for every
+    kernel it does not name."""
+    return all(n == want.get(k, 0) for k, n in launches.items())
 
 
 def time_ms(torch, fn, reps: int, warmup: int = 1) -> float:
@@ -178,6 +239,56 @@ def library_level(torch, packed, consts, t_vals, rays_o, rays_d, viewdirs, targe
     return torch.autograd.grad(loss, list(w.values()))
 
 
+def library_art_mlp(torch, packed, consts, samples, viewdirs, encode_plain):
+    """Yardstick only: the articulated MLP's layer chain as bf16 cuBLAS calls
+    (``packed``: effective weights, biases (1, C))."""
+    B, S, _ = samples.shape
+    bf = torch.bfloat16
+    w = {k: (v.to(bf) if k.startswith("w") else v.to(bf).reshape(-1)) for k, v in packed.items()}
+    x = samples.reshape(-1, 3)
+    h = torch.relu(torch.addmm(w["bd0"], x.to(bf), w["wd0x"][:3]))
+    for i in (1, 2, 3):
+        h = torch.relu(torch.addmm(w[f"bd{i}"], h, w[f"wd{i}"]))
+    xp = x + torch.addmm(w["bdo"], h, w["wdo"])[:, :3].float()
+    enc = encode_plain(xp, consts["s_pos"], consts["p_pos"]).to(bf)
+    venc = encode_plain(torch.repeat_interleave(viewdirs, S, 0), consts["s_view"],
+                        consts["p_view"]).to(bf)
+    h = torch.relu(torch.addmm(w["b0"], enc, w["w0"]))
+    for i in (1, 2, 3, 4):
+        h = torch.relu(torch.addmm(w[f"b{i}"], h, w[f"w{i}"]))
+    h = torch.relu(torch.addmm(w["b5"], h, w["w5a"]) + enc @ w["w5b"])
+    for i in (6, 7):
+        h = torch.relu(torch.addmm(w[f"b{i}"], h, w[f"w{i}"]))
+    sigma = torch.addmm(w["bdn"], h, w["wdn"])
+    bott = torch.addmm(w["bb"], h, w["wb"])
+    v = torch.relu(torch.addmm(w["bv"], bott, w["wva"]) + venc @ w["wvb"])
+    for i in (1, 2, 3):
+        v = torch.relu(torch.addmm(w[f"bv{i}"], v, w[f"wv{i}"]))
+    return torch.addmm(w["brgb"], v, w["wrgb"]), sigma
+
+
+def library_art_level(torch, packed, consts, t_vals, rays_o, rays_d, viewdirs, target, loss_w,
+                      encode_plain, cotangent=None):
+    """Yardstick only: one articulated training level as bf16 cuBLAS calls
+    under autograd (the auto-decoder's head activations, compositing, weighted
+    loss, backward); with ``cotangent`` (B, S, 4) the MLP alone."""
+    B, S = t_vals.shape
+    samples = rays_o[:, None, :] + t_vals[..., None] * rays_d[:, None, :]
+    w = {k: v.to(torch.bfloat16).requires_grad_(True) for k, v in packed.items()}
+    rgb, sigma = library_art_mlp(torch, w, consts, samples, viewdirs, encode_plain)
+    rgb, sigma = rgb.float().reshape(B, S, 3), sigma.float().reshape(B, S)
+    if cotangent is not None:
+        loss = (rgb * cotangent[..., :3]).sum() + (sigma * cotangent[..., 3]).sum()
+    else:
+        dist = torch.cat([t_vals[:, 1:] - t_vals[:, :-1], torch.full_like(t_vals[:, :1], 1e10)], -1)
+        alpha = 1.0 - torch.exp(-torch.nn.functional.softplus(sigma - 1.0) * dist)
+        trans = torch.cumprod(torch.clamp_min(1.0 - alpha, 0.0) + 1e-10, -1)
+        wgt = alpha * torch.cat([torch.ones_like(trans[:, :1]), trans[:, :-1]], -1)
+        comp = (wgt[..., None] * (torch.sigmoid(rgb) * 1.002 - 0.001)).sum(1)
+        loss = (loss_w[:, None] * (comp - target) ** 2).sum()
+    return torch.autograd.grad(loss, list(w.values()), allow_unused=True)
+
+
 def library_resample(torch, t_vals, bins, cdf, u):
     """Yardstick only: searchsorted inverse CDF + torch.sort of the union."""
     n = cdf.shape[-1]
@@ -212,7 +323,8 @@ def main(argv=None) -> int:
         from aon_tpu_torch.core.sampling import eval_quantiles, pdf_cdf, sample_along_rays
         from aon_tpu_torch.data.analytic import analytic_scene
         from aon_tpu_torch.eval.render import render_frame
-        from aon_tpu_torch.ops import _build
+        from aon_tpu_torch.data.analytic import articulated_scene
+        from aon_tpu_torch.ops import _build, fused_art
         from aon_tpu_torch.ops.fused_mlp import (
             make_posenc_constants,
             pack_vanilla_mlp_params,
@@ -242,10 +354,16 @@ def main(argv=None) -> int:
             fused_level_train_grads,
             fused_level_train_grads_plain,
         )
+        from aon_tpu_torch.ops.train_fused_level_art import (
+            fused_level_train_art_grads,
+            fused_level_train_art_grads_plain,
+        )
         from aon_tpu_torch.train.microbatch import accumulated_grads
         from aon_tpu_torch.train.systems import build_system
         from aon_tpu_torch.utils.config import get_config
 
+        # what the ``kernels`` line carries of every kernel's record
+        keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
         # the plain twins are float32 references: no TF32 anywhere
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -392,7 +510,10 @@ def main(argv=None) -> int:
         counters = {"fused_nerf_mlp_xyz_eval": fused_nerf_mlp_xyz_eval,
                     "resample_union": resample_union,
                     "fused_level_train_grads": fused_level_train_grads,
-                    "fused_mlp_bwd_xyz": fused_mlp_bwd_xyz}
+                    "fused_mlp_bwd_xyz": fused_mlp_bwd_xyz,
+                    "art_mlp_fwd": fused_art.art_mlp_fwd,
+                    "art_mlp_bwd": fused_art.art_mlp_bwd,
+                    "fused_level_train_art_grads": fused_level_train_art_grads}
         n_params = MLP_MACS_PER_SAMPLE + MLP_BIASES
         ro, rd = origins[:TRAIN_RAYS].contiguous(), dirs[:TRAIN_RAYS].contiguous()
         target = torch.rand(TRAIN_RAYS, 3, generator=gen, device=dev)
@@ -588,8 +709,9 @@ def main(argv=None) -> int:
                       "v3_vs_v2": step_errors("v3", "v2")}
         del first
 
-        def run_route(route, steps):
-            sy, state = systems[route], state0
+        def run_route(sy, state, batch_fn, steps, rays_per_step, route):
+            """``steps`` optimizer steps through ``sy.train_step`` on
+            ``batch_fn(generator, step)``, each timed by CUDA events."""
             g = torch.Generator(device=dev).manual_seed(args.seed + 3)
             for c in counters.values():
                 c.launches = 0
@@ -597,8 +719,8 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             events[0].record()
-            for _ in range(steps):
-                state, m = sy.train_step(state, batch_of(g), g)
+            for i in range(steps):
+                state, m = sy.train_step(state, batch_fn(g, i), g)
                 metrics.append(m)
                 events.append(torch.cuda.Event(enable_timing=True))
                 events[-1].record()
@@ -611,11 +733,14 @@ def main(argv=None) -> int:
             losses = [m["train/loss"].item() for m in metrics]
             return state, {
                 "route": route, "steps": steps, "first_step_ms": step_ms[0], "ms_per_step": warm,
-                "rays_per_s": TRAIN_RAYS / (warm / 1e3), "wall_s": wall_s, "enqueue_s": enqueue_s,
-                "launches": launches,
+                "rays_per_s": rays_per_step / (warm / 1e3), "wall_s": wall_s,
+                "enqueue_s": enqueue_s, "launches": launches,
                 "launches_per_step": {k: v / steps for k, v in launches.items()},
                 "loss": {str(i): losses[i] for i in range(0, steps, 10)},
                 "loss_last": losses[-1],
+                # means over the first and the last six steps (one cycle of the
+                # articulated scene's pairs)
+                "loss_mean_first_last": [statistics.fmean(losses[:6]), statistics.fmean(losses[-6:])],
                 "psnr1_first_last": [metrics[0]["train/psnr1"].item(),
                                      metrics[-1]["train/psnr1"].item()],
                 "lr_first_last": [sy.lr_schedule(0), sy.lr_schedule(steps - 1)],
@@ -623,68 +748,82 @@ def main(argv=None) -> int:
                 "finite": all(math.isfinite(x) for x in losses),
             }
 
-        state_v3, v3 = run_route("v3", TRAIN_STEPS_V3)
-        _, v2 = run_route("v2", TRAIN_STEPS_V2)
+        def vanilla_batch(g, _step):
+            return batch_of(g)
 
-        def run_many(route):
-            """MANY_STEPS steps of MANY_MICRO stacked microbatches through
-            train_many, then the same rays through train_step with the ray
-            ids train_many attaches and the generator at the same state."""
-            sy, m = systems[route], TRAIN_RAYS // MANY_MICRO
-            g = torch.Generator(device=dev).manual_seed(args.seed + 5)
-            idx = torch.randint(n_scene, (MANY_STEPS, MANY_MICRO, m), generator=g, device=dev)
-            superbatch = {k: v[idx] for k, v in scene.items()}
+        state_v3, v3 = run_route(systems["v3"], state0, vanilla_batch, TRAIN_STEPS_V3, TRAIN_RAYS,
+                                 "v3")
+        _, v2 = run_route(systems["v2"], state0, vanilla_batch, TRAIN_STEPS_V2, TRAIN_RAYS, "v2")
+
+        def run_many(sy, state0, superbatch, route):
+            """The superbatch (ray entries (T, k, m, ...), any other entry one
+            per step) through train_many, then the same rays through
+            train_step with the ray ids train_many attaches and the generator
+            at the same state."""
+            t_steps, k, m = superbatch["rays_o"].shape[:3]
             for c in counters.values():
                 c.launches = 0
             g = torch.Generator(device=dev).manual_seed(args.seed + 6)
             state, metrics = sy.train_many(state0, superbatch, g)
             torch.cuda.synchronize()
-            launches = {k: c.launches for k, c in counters.items()}  # read before the comparison
+            launches = {k_: c.launches for k_, c in counters.items()}  # read before the comparison
             g = torch.Generator(device=dev).manual_seed(args.seed + 6)
-            ray_ids = torch.arange(TRAIN_RAYS, device=dev).reshape(MANY_MICRO, m)
+            ray_ids = torch.arange(k * m, device=dev).reshape(k, m)
             ref, losses = state0, []
-            for t in range(MANY_STEPS):
-                batch = dict({k: v[t] for k, v in superbatch.items()}, ray_ids=ray_ids)
+            for t in range(t_steps):
+                batch = dict({k_: v[t] for k_, v in superbatch.items()}, ray_ids=ray_ids)
                 ref, step_metrics = sy.train_step(ref, batch, g)
                 losses.append(step_metrics["train/loss"].item())
             mean_loss, last_loss = metrics["train/loss"].item(), metrics["train/loss_last"].item()
             want_mean = sum(losses) / len(losses)
             return {
-                "route": route, "steps": MANY_STEPS, "microbatches": MANY_MICRO,
+                "route": route, "steps": t_steps, "microbatches": k,
                 "rays_per_microbatch": m, "launches": launches,
                 "loss_mean": mean_loss, "loss_last": last_loss, "psnr1": metrics["train/psnr1"].item(),
                 "train_step_losses": losses,
                 "loss_mean_rel_err": abs(mean_loss - want_mean) / want_mean,
                 "loss_last_rel_err": abs(last_loss - losses[-1]) / losses[-1],
-                "params_max_abs_diff": max((state.params[k] - ref.params[k]).abs().max().item()
-                                           for k in ref.params),
+                "params_max_abs_diff": max((state.params[k_] - ref.params[k_]).abs().max().item()
+                                           for k_ in ref.params),
+                "params_mean_abs_diff": (
+                    sum((state.params[k_] - ref.params[k_]).abs().sum().item() for k_ in ref.params)
+                    / sum(v.numel() for v in ref.params.values())),
+                "params_max_abs_limit": TOL_MANY_PARAMS_LR * sum(
+                    sy.lr_schedule(t) for t in range(t_steps)),
                 "final_step": state.step,
             }
 
-        many = {route: run_many(route) for route in ("v3", "v2")}
+        def many_ok(r):
+            return (r["loss_mean_rel_err"] <= TOL_MANY_LOSS
+                    and r["loss_last_rel_err"] <= TOL_MANY_LOSS
+                    and r["params_max_abs_diff"] <= r["params_max_abs_limit"]
+                    and r["params_mean_abs_diff"] <= TOL_MANY_PARAMS_MEAN
+                    and r["final_step"] == MANY_STEPS and math.isfinite(r["loss_last"]))
+
+        g = torch.Generator(device=dev).manual_seed(args.seed + 5)
+        idx = torch.randint(n_scene, (MANY_STEPS, MANY_MICRO, TRAIN_RAYS // MANY_MICRO),
+                            generator=g, device=dev)
+        superbatch = {k: v[idx] for k, v in scene.items()}
+        many = {route: run_many(systems[route], state0, superbatch, route)
+                for route in ("v3", "v2")}
         levels = 2 * MANY_STEPS * MANY_MICRO
         params_finite = all(bool(torch.isfinite(v).all()) for v in state_v3.params.values())
         checks = {
             "finite": v3["finite"] and v2["finite"] and params_finite,
             "loss_falls": v3["loss_last"] < TRAIN_LOSS_FALL * v3["loss"]["0"],
-            "v3_launches": v3["launches"] == {
-                "fused_level_train_grads": 2 * TRAIN_STEPS_V3, "resample_union": TRAIN_STEPS_V3,
-                "fused_nerf_mlp_xyz_eval": 0, "fused_mlp_bwd_xyz": 0},
-            "v2_launches": v2["launches"] == {
-                "fused_nerf_mlp_xyz_eval": 2 * TRAIN_STEPS_V2, "fused_mlp_bwd_xyz": 2 * TRAIN_STEPS_V2,
-                "resample_union": TRAIN_STEPS_V2, "fused_level_train_grads": 0},
+            "v3_launches": launches_are(
+                v3["launches"], fused_level_train_grads=2 * TRAIN_STEPS_V3,
+                resample_union=TRAIN_STEPS_V3),
+            "v2_launches": launches_are(
+                v2["launches"], fused_nerf_mlp_xyz_eval=2 * TRAIN_STEPS_V2,
+                fused_mlp_bwd_xyz=2 * TRAIN_STEPS_V2, resample_union=TRAIN_STEPS_V2),
             "steps_counted": v3["final_step"] == TRAIN_STEPS_V3,
             "many_launches": (
-                many["v3"]["launches"] == {
-                    "fused_level_train_grads": levels, "resample_union": levels // 2,
-                    "fused_nerf_mlp_xyz_eval": 0, "fused_mlp_bwd_xyz": 0}
-                and many["v2"]["launches"] == {
-                    "fused_nerf_mlp_xyz_eval": levels, "fused_mlp_bwd_xyz": levels,
-                    "resample_union": levels // 2, "fused_level_train_grads": 0}),
-            "many_vs_train_step": all(
-                r["loss_mean_rel_err"] <= TOL_MANY_LOSS and r["loss_last_rel_err"] <= TOL_MANY_LOSS
-                and r["params_max_abs_diff"] <= TOL_MANY_PARAMS and r["final_step"] == MANY_STEPS
-                and math.isfinite(r["loss_last"]) for r in many.values()),
+                launches_are(many["v3"]["launches"], fused_level_train_grads=levels,
+                             resample_union=levels // 2)
+                and launches_are(many["v2"]["launches"], fused_nerf_mlp_xyz_eval=levels,
+                                 fused_mlp_bwd_xyz=levels, resample_union=levels // 2)),
+            "many_vs_train_step": all(many_ok(r) for r in many.values()),
             "same_first_loss": abs(v2["loss"]["0"] - v3["loss"]["0"]) <= TOL_STEP_LOSS * v3["loss"]["0"],
             "first_step_vs_plain": all(
                 first_step[k]["loss_rel"] <= TOL_STEP_LOSS
@@ -700,7 +839,8 @@ def main(argv=None) -> int:
             "samples": [cfg.N_samples, cfg.N_importance],
             "scene": {"views": SCENE_VIEWS, "wh": list(SCENE_WH), "rays": n_scene},
             "v3": v3, "v2": v2, "first_step": first_step, "train_many": many,
-            "tol": {"many_loss_rel": TOL_MANY_LOSS, "many_params_abs": TOL_MANY_PARAMS,
+            "tol": {"many_loss_rel": TOL_MANY_LOSS, "many_params_max_lr": TOL_MANY_PARAMS_LR,
+                    "many_params_mean_abs": TOL_MANY_PARAMS_MEAN,
                     "loss_rel": TOL_STEP_LOSS, "grad_vs_plain": [TOL_STEP_GRAD_MAX, TOL_STEP_GRAD_MEAN],
                     "grad_v3_vs_v2": [TOL_ROUTES_GRAD_MAX, TOL_ROUTES_GRAD_MEAN],
                     "loss_fall": TRAIN_LOSS_FALL},
@@ -710,35 +850,409 @@ def main(argv=None) -> int:
         train_launches = {k: v3["launches"][k] + v2["launches"][k]
                           + sum(r["launches"][k] for r in many.values()) for k in counters}
 
+        del superbatch
+        torch.cuda.empty_cache()
+
+        # ------------------------------------------- articulated kernels
+        phase = "art_kernel"
+        cfg_art = get_config(["--config", str(ROOT / ART_CONFIG)])
+
+        def art_route_system(**overrides):
+            c = get_config(["--config", str(ROOT / ART_CONFIG)])
+            for k, v in overrides.items():
+                setattr(c, k, v)
+            return build_system(c, 2.0, 6.0, c.white_back, device=dev)
+
+        art_systems = {"v3": art_route_system(), "v2": art_route_system(fused_train="v2"),
+                       "plain": art_route_system(use_pallas=False, compute_dtype="float32")}
+        art_system = art_systems["v3"]
+        art_state0 = art_system.init_state(torch.Generator(device=dev).manual_seed(args.seed + 7))
+        art_params = art_state0.params
+        latents = {k: v.detach() for k, v in art_system._latents(
+            art_params, {"instance_id": 1, "articulation_id": 2}).items()}
+        n_art_params = ART_MACS_PER_SAMPLE + ART_BIASES
+
+        def bound_of(flops, nbytes):
+            by_ops = flops / PEAK_BF16_FLOPS >= nbytes / PEAK_BYTES
+            return {"flop": flops, "bytes": nbytes, "bound_by": "operations" if by_ops else "bytes",
+                    "bound_ms": 1e3 * max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES)}
+
+        def art_fwd_record(packed_art, samples, vdirs, path):
+            """One ``kernel`` line of the articulated forward against its twin, checked."""
+            n_rays, n_samples = samples.shape[:2]
+            rows = n_rays * n_samples
+            args_ = (packed_art, consts, samples, vdirs)
+            rgb, sigma = fused_art.art_mlp_fwd(*args_)
+            torch.cuda.synchronize()
+            rgb_p, sigma_p = fused_art.art_mlp_fwd_plain(*args_)
+            err = torch.cat([(rgb - rgb_p).reshape(-1), (sigma - sigma_p).reshape(-1)]).abs()
+            # xyz in, rgb + sigma out per sample; viewdirs per ray; bf16 weights, f32 biases
+            rec = {
+                "phase": "kernel", "name": "art_mlp_fwd", "path": path,
+                "shape": f"{n_rays}x{n_samples}", "rows": rows,
+                "max_abs_err": err.max().item(), "mean_abs_err": err.mean().item(),
+                "tol_max": fused_art.TWIN_TOL_MAX, "tol_mean": fused_art.TWIN_TOL_MEAN,
+                "finite": bool(torch.isfinite(rgb).all() and torch.isfinite(sigma).all()),
+                "ms": time_ms(torch, lambda: fused_art.art_mlp_fwd(*args_), 5),
+                "plain_ms": time_ms(torch, lambda: fused_art.art_mlp_fwd_plain(*args_), 3),
+                "library_ms": time_ms(
+                    torch, lambda: library_art_mlp(torch, *args_, encode_plain), 3),
+                **bound_of(2.0 * ART_MACS_PER_SAMPLE * rows,
+                           rows * (12 + 16) + n_rays * 12 + 2 * ART_MACS_PER_SAMPLE
+                           + 4 * ART_BIASES),
+                "card": card,
+            }
+            rec["tflops"] = rec["flop"] / rec["ms"] / 1e9
+            emit(rec)
+            require(rec["finite"], "non-finite articulated MLP kernel output")
+            require(rec["max_abs_err"] <= fused_art.TWIN_TOL_MAX
+                    and rec["mean_abs_err"] <= fused_art.TWIN_TOL_MEAN,
+                    f"art_mlp_fwd disagrees with its twin at {rec['shape']}")
+            return rec
+
+        art_rows = {}
+        packed_fine = fused_art.fold_latents(mlp_params(art_params, "model.fine_mlp"), latents)
+        for n_samples in (N_COARSE + 1, N_COARSE + 1 + N_FINE):
+            _, samples = sample_along_rays(origins, dirs, n_samples - 1, 2.0, 6.0)
+            art_rows["art_mlp_fwd", "render", n_samples] = art_fwd_record(
+                packed_fine, samples.contiguous(), dirs, "render chunk")
+            del samples
+        torch.cuda.empty_cache()
+
+        art_level_modes = {
+            "autodecoder": dict(white_bkgd=False, rgb_padding=0.001, density_bias=-1.0,
+                                bce_weight=0.0, sigma_act="softplus_bias"),
+            # the auto-encoder's arguments (its slice launches this kernel as it is)
+            "autoencoder": dict(white_bkgd=False, rgb_padding=0.0, density_bias=0.0,
+                                bce_weight=0.5, sigma_act="relu"),
+            "white_bkgd": dict(white_bkgd=True, rgb_padding=0.001, density_bias=-1.0,
+                               bce_weight=0.0, sigma_act="softplus_bias"),
+        }
+        art_target = target * (torch.rand(TRAIN_RAYS, 1, generator=gen, device=dev) > 0.5)
+        art_mask = (art_target.sum(-1) > 0).float()
+        lw_uniform = torch.full((TRAIN_RAYS,), 1.0 / (3.0 * TRAIN_RAYS), device=dev)
+        lw_masked = (art_mask / (3.0 * art_mask.sum()).clamp_min(1.0)).contiguous()
+        t_lvl, _ = sample_along_rays(ro, rd, N_COARSE, 2.0, 6.0, randomized=True, generator=gen)
+        for level, n_samples in (("coarse_mlp", N_COARSE + 1), ("fine_mlp", N_COARSE + 1 + N_FINE)):
+            packed_art = fused_art.fold_latents(mlp_params(art_params, f"model.{level}"), latents)
+            samples = (ro[:, None, :] + t_lvl[..., None] * rd[:, None, :]).contiguous()
+            rows = TRAIN_RAYS * n_samples
+            cot = torch.randn(TRAIN_RAYS, n_samples, 4, generator=gen, device=dev) / rows
+            flops = 3 * 2.0 * ART_MACS_PER_SAMPLE * rows  # forward and two backward products
+            level_args = (packed_art, consts, t_lvl, ro, rd, rd, art_target)
+            bwd_args = (packed_art, consts, samples, rd, cot)
+            runs = [
+                # xyz and g (B, S, 3 + 4), viewdirs, f32 params in, f32 grads out
+                ("art_mlp_bwd", "", fused_art.art_mlp_bwd, fused_art.art_mlp_bwd_plain, bwd_args, {},
+                 4 * (7 * rows + 3 * TRAIN_RAYS + 2 * n_art_params),
+                 lambda: library_art_level(torch, packed_art, consts, t_lvl, ro, rd, rd,
+                                           art_target, lw_uniform, encode_plain, cotangent=cot)),
+            ]
+            for mode, kw in art_level_modes.items():
+                if mode != "autodecoder" and level == "coarse_mlp":
+                    continue  # the other two argument sets once, at the fine shape
+                lw = lw_masked if mode == "autoencoder" else lw_uniform
+                runs.append(
+                    # t and weights (B, S); o, d, viewdirs, target (B, 3); loss_w, mask, acc (B);
+                    # f32 params in, f32 grads out
+                    ("fused_level_train_art_grads", mode, fused_level_train_art_grads,
+                     fused_level_train_art_grads_plain, (*level_args, lw, art_mask), kw,
+                     4 * (2 * rows + (4 * 3 + 3) * TRAIN_RAYS + 2 * n_art_params + 1),
+                     (lambda lw=lw: library_art_level(torch, packed_art, consts, t_lvl, ro, rd, rd,
+                                                      art_target, lw, encode_plain))
+                     if mode == "autodecoder" else None))
+            for kname, mode, fn, fn_plain, fn_args, kw, nbytes, library in runs:
+                got = fn(*fn_args, **kw)
+                torch.cuda.synchronize()
+                want = fn_plain(*fn_args, **kw)
+                again = fn(*fn_args, **kw)
+                rec = {"phase": "kernel", "name": kname, "shape": f"{TRAIN_RAYS}x{n_samples}",
+                       "rows": rows}
+                if kname == "fused_level_train_art_grads":
+                    (ph, wgt, acc, grads), (ph_p, wgt_p, acc_p, grads_p) = got, want
+                    grads2 = again[3]
+                    rec.update(arguments=dict(kw, mode=mode),
+                               weights_max_abs_err=(wgt - wgt_p).abs().max().item(),
+                               acc_max_abs_err=(acc - acc_p).abs().max().item(),
+                               acc_mean=acc_p.mean().item(),
+                               photo_loss_rel_err=abs(ph.item() - ph_p.item()) / ph_p.item(),
+                               tol_forward=fused_art.TWIN_TOL_MAX)
+                    fwd_ok = (rec["weights_max_abs_err"] <= fused_art.TWIN_TOL_MAX
+                              and rec["acc_max_abs_err"] <= fused_art.TWIN_TOL_MAX
+                              and rec["photo_loss_rel_err"] <= fused_art.TWIN_TOL_MAX
+                              and bool(torch.isfinite(wgt).all()))
+                else:
+                    grads, grads_p, grads2, fwd_ok = got, want, again, True
+                max_rel, mean_rel = grad_errors(grads, grads_p)
+                rec.update({
+                    "max_abs_err": max_rel, "mean_rel_err": mean_rel,
+                    "err_is": "per gradient tensor, relative to its max (mean) magnitude; worst",
+                    "tol_max": fused_art.GRAD_TOL_REL, "tol_mean": fused_art.GRAD_TOL_MEAN_REL,
+                    "repeat_max_rel": grad_errors(grads2, grads)[0],
+                    "finite": all(bool(torch.isfinite(v).all()) for v in grads.values()),
+                    "ms": time_ms(torch, lambda: fn(*fn_args, **kw), 7, warmup=2),
+                    "plain_ms": time_ms(torch, lambda: fn_plain(*fn_args, **kw), 3),
+                    "library_ms": time_ms(torch, library, 3) if library is not None else None,
+                    **bound_of(flops, nbytes), "card": card,
+                })
+                rec["tflops"] = flops / rec["ms"] / 1e9
+                emit(rec)
+                require(rec["finite"] and fwd_ok, f"{kname}: forward outputs off at {rec['shape']}")
+                require(max_rel <= fused_art.GRAD_TOL_REL
+                        and mean_rel <= fused_art.GRAD_TOL_MEAN_REL,
+                        f"{kname} ({mode}) disagrees with its twin at {rec['shape']}")
+                art_rows[kname, mode, n_samples] = rec
+                del got, want, again, grads, grads_p, grads2
+            # the forward as the v2 route launches it
+            art_rows["art_mlp_fwd", "train", n_samples] = art_fwd_record(
+                packed_art, samples, rd, "v2 forward")
+            if level == "coarse_mlp":
+                # the fine level's t: the union with the resample of this level's own weights
+                wgt = fused_level_train_art_grads(
+                    *level_args, lw_uniform, art_mask, **art_level_modes["autodecoder"])[1]
+                bins = (0.5 * (t_lvl[:, 1:] + t_lvl[:, :-1])).contiguous()
+                u = sorted_uniform(torch.rand(TRAIN_RAYS, N_FINE + 1, generator=gen, device=dev))
+                t_next = resample_union(t_lvl, bins, pdf_cdf(wgt[:, 1:-1]).contiguous(), u)
+                del wgt, bins, u
+            del samples, cot, level_args, bwd_args, runs, packed_art
+            t_lvl = t_next
+        del packed_fine
+        torch.cuda.empty_cache()
+
+        # --------------------------------------------------------- art path
+        phase = "art_path"
+        W, H = ART_IMG_WH
+        frames = []
+        for pose in (poses[0], poses[10]):
+            o, vd, d = get_rays(directions, pose[:3], output_view_dirs=True)
+            frames.append({"rays_o": o, "rays_d": d, "viewdirs": vd})
+
+        def art_chunk_fn(rays, **ids):
+            return art_system.render_chunk(art_params, rays, **ids)
+
+        # (frame, instance, articulation, is_test): the first is the cold frame;
+        # with is_test, id 3 is the midpoint of the learned codes 1 and 2
+        renders = ((frames[0], 0, 1, False), (frames[0], 0, 1, False), (frames[1], 1, 2, False),
+                   (frames[1], 0, 3, True))
+        for c in counters.values():
+            c.launches = 0
+        outs, frame_ms, per_frame = [], [], []
+        for frame, inst, art_id, is_test in renders:
+            before = {k: c.launches for k, c in counters.items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs.append(render_frame(art_chunk_fn, frame, chunk=cfg_art.chunk, device=dev,
+                                     instance_id=inst, articulation_id=art_id, is_test=is_test))
+            frame_ms.append(1e3 * (time.perf_counter() - t0))
+            per_frame.append({k: c.launches - before[k] for k, c in counters.items()})
+        art_path_launches = {k: c.launches for k, c in counters.items()}
+        cold_ms, frame_ms = frame_ms[0], frame_ms[1:]
+        n_rays = W * H
+        chunks = math.ceil(n_rays / cfg_art.chunk)
+        checks = {
+            "finite": all(bool(np.isfinite(o[k]).all()) for o in outs for k in o),
+            "shapes": all(o["comp_rgb"].shape == (n_rays, 3) and o["acc"].shape == (n_rays,)
+                          and o["depth"].shape == (n_rays,) for o in outs),
+            "acc_in_0_1": all(bool((o["acc"] >= -TOL_ACC).all() and (o["acc"] <= 1 + TOL_ACC).all())
+                              for o in outs),
+            "launches_per_frame": all(
+                launches_are(pf, art_mlp_fwd=2 * chunks, resample_union=chunks)
+                for pf in per_frame),
+            # another instance, articulation or midpoint code renders another image
+            "ids_matter": (float(np.abs(outs[2]["comp_rgb"] - outs[3]["comp_rgb"]).max()) > 1e-4
+                           and float(np.abs(outs[0]["comp_rgb"] - outs[1]["comp_rgb"]).max())
+                           == 0.0),
+        }
+        # the first chunk of the cold frame against the plain float32 module, in pieces
+        first = {k: torch.from_numpy(v[:cfg_art.chunk]).to(dev) for k, v in frames[0].items()}
+        ref = {k: [] for k in TOL_ART_PATH}
+        for i in range(0, cfg_art.chunk, 4096):
+            piece = art_systems["plain"].render_chunk(
+                art_params, {k: v[i:i + 4096] for k, v in first.items()}, 0, 1)
+            for k in ref:
+                ref[k].append(piece[k])
+        ref = {k: torch.cat(v).cpu().numpy() for k, v in ref.items()}
+        path_err = {k: float(np.abs(outs[0][k][:cfg_art.chunk] - ref[k]).max()) for k in ref}
+        path_mean_err = {k: float(np.abs(outs[0][k][:cfg_art.chunk] - ref[k]).mean()) for k in ref}
+        checks["first_chunk_vs_plain"] = all(path_err[k] <= TOL_ART_PATH[k] for k in ref)
+        emit({
+            "phase": "art_path", "config": ART_CONFIG, "frames": len(renders) - 1,
+            "img_wh": [W, H], "chunk": cfg_art.chunk, "chunks_per_frame": chunks,
+            "samples": [cfg_art.N_samples, cfg_art.N_importance],
+            "renders": [{"instance_id": i, "articulation_id": a, "is_test": t}
+                        for _, i, a, t in renders],
+            "launches_per_frame": per_frame, "launches": art_path_launches, "cold_ms": cold_ms,
+            "ms_per_frame": frame_ms, "rays_per_s": [n_rays / (ms / 1e3) for ms in frame_ms],
+            "first_chunk_rays": cfg_art.chunk, "first_chunk_max_abs_err": path_err,
+            "first_chunk_mean_abs_err": path_mean_err, "tol": TOL_ART_PATH,
+            "acc_range": [float(min(o["acc"].min() for o in outs)),
+                          float(max(o["acc"].max() for o in outs))],
+            "mean_rgb": [float(o["comp_rgb"].mean()) for o in outs],
+            "checks": checks, "card": card,
+        })
+        require(all(checks.values()), f"art_path checks failed: {checks}")
+        del outs, frames, first, ref
+        torch.cuda.empty_cache()
+
+        # -------------------------------------------------------- art train
+        phase = "art_train"
+        art_scene = {k: torch.from_numpy(v).to(dev) for k, v in articulated_scene(
+            **ART_SCENE, w=SCENE_WH[0], h=SCENE_WH[1], seed=args.seed).items()}
+        n_pairs, n_pair_rays = art_scene["rays_o"].shape[:2]
+        n_art = ART_SCENE["n_articulations"]
+        micro_rays = cfg_art.microbatch_rays
+        art_rays = ART_MICRO * micro_rays
+        require(art_rays == cfg_art.ray_batch_size, "the step is not the config's ray batch")
+
+        def art_batch(generator, step):
+            """One (instance, articulation) pair per step, cycling through the scene's."""
+            pair = step % n_pairs
+            idx = torch.randint(n_pair_rays, (ART_MICRO, micro_rays), generator=generator,
+                                device=dev)
+            return dict({k: v[pair][idx] for k, v in art_scene.items()},
+                        instance_id=pair // n_art, articulation_id=pair % n_art)
+
+        gen = torch.Generator(device=dev).manual_seed(args.seed + 8)
+        batch0 = {k: torch.as_tensor(v, device=dev) for k, v in art_batch(gen, 4).items()}
+        draws = {"t_rand": torch.rand(ART_MICRO, micro_rays, N_COARSE + 1, generator=gen, device=dev),
+                 "u": sorted_uniform(torch.rand(ART_MICRO, micro_rays, N_FINE + 1, generator=gen,
+                                                device=dev))}
+        first = {r: accumulated_grads(sy.loss_fn, art_params, batch0, None, draws)
+                 for r, sy in art_systems.items()}
+        code_rows = {"code_library.embedding_instance_shape.weight": 4 // n_art,
+                     "code_library.embedding_instance_appearance.weight": 4 // n_art,
+                     "code_library.embedding_instance_articulation.weight": 4 % n_art}
+        groups = {"trunk": [k for k in art_params if k.startswith("model.")
+                            and ".deform_" not in k],
+                  "deform": [k for k in art_params if ".deform_" in k],
+                  "codes": list(code_rows)}
+
+        def cosine(a, b, names):
+            va = torch.cat([a[k].reshape(-1) for k in names])
+            vb = torch.cat([b[k].reshape(-1) for k in names])
+            return (va @ vb / (va.norm() * vb.norm())).item()
+
+        def art_step_errors(a, b):
+            la, lb = first[a][0].item(), first[b][0].item()
+            max_rel, mean_rel = grad_errors(first[a][2], first[b][2])
+            return {"loss_rel": abs(la - lb) / abs(lb), "grad_max_rel": max_rel,
+                    "grad_mean_rel": mean_rel,
+                    "cos": {g: cosine(first[a][2], first[b][2], names)
+                            for g, names in groups.items()}}
+
+        first_step = {"loss": {r: first[r][0].item() for r in first},
+                      "reg": {r: first[r][1]["reg"].item() for r in first},
+                      "v3_vs_plain": art_step_errors("v3", "plain"),
+                      "v2_vs_plain": art_step_errors("v2", "plain"),
+                      "v3_vs_v2": art_step_errors("v3", "v2")}
+        # only the indexed rows of the code tables carry a gradient
+        first_step["unindexed_code_rows_zero"] = all(
+            not first[r][2][name][torch.arange(len(first[r][2][name]), device=dev) != row].any()
+            and bool(first[r][2][name][row].any())
+            for r in first for name, row in code_rows.items())
+        loss_before = first["v3"][0].item()
+        del first
+
+        art_state_v3, art_v3 = run_route(art_systems["v3"], art_state0, art_batch, ART_STEPS_V3,
+                                         art_rays, "v3")
+        _, art_v2 = run_route(art_systems["v2"], art_state0, art_batch, ART_STEPS_V2, art_rays, "v2")
+        loss_after = accumulated_grads(art_systems["v3"].loss_fn, art_state_v3.params, batch0, None,
+                                       draws)[0].item()
+        # rows of the code tables that no step indexed have not moved
+        used = {"code_library.embedding_instance_shape.weight": ART_SCENE["n_instances"],
+                "code_library.embedding_instance_appearance.weight": ART_SCENE["n_instances"],
+                "code_library.embedding_instance_articulation.weight": n_art}
+        rows_kept = all(torch.equal(art_state_v3.params[k][n:], art_state0.params[k][n:])
+                        and bool((art_state_v3.params[k][:n] != art_state0.params[k][:n]).any(1).all())
+                        for k, n in used.items())
+
+        g = torch.Generator(device=dev).manual_seed(args.seed + 9)
+        pair_of_step = torch.tensor([1, 5], device=dev)
+        idx = torch.randint(n_pair_rays, (MANY_STEPS, ART_MICRO, micro_rays), generator=g, device=dev)
+        superbatch = {k: torch.stack([v[int(p)][idx[t]] for t, p in enumerate(pair_of_step)])
+                      for k, v in art_scene.items()}
+        superbatch.update(instance_id=pair_of_step // n_art, articulation_id=pair_of_step % n_art)
+        art_many = {route: run_many(art_systems[route], art_state0, superbatch, route)
+                    for route in ("v3", "v2")}
+        levels = 2 * MANY_STEPS * ART_MICRO
+        per_v3 = 2 * ART_MICRO  # level launches (and forward or backward launches) per step
+        checks = {
+            "finite": art_v3["finite"] and art_v2["finite"] and all(
+                bool(torch.isfinite(v).all()) for v in art_state_v3.params.values()),
+            "loss_falls": (loss_after < ART_LOSS_FALL * loss_before
+                           and art_v3["loss_mean_first_last"][1] < art_v3["loss_mean_first_last"][0]),
+            "v3_launches": launches_are(
+                art_v3["launches"], fused_level_train_art_grads=per_v3 * ART_STEPS_V3,
+                resample_union=ART_MICRO * ART_STEPS_V3),
+            "v2_launches": launches_are(
+                art_v2["launches"], art_mlp_fwd=per_v3 * ART_STEPS_V2,
+                art_mlp_bwd=per_v3 * ART_STEPS_V2, resample_union=ART_MICRO * ART_STEPS_V2),
+            "steps_counted": art_v3["final_step"] == ART_STEPS_V3,
+            "many_launches": (
+                launches_are(art_many["v3"]["launches"], fused_level_train_art_grads=levels,
+                             resample_union=levels // 2)
+                and launches_are(art_many["v2"]["launches"], art_mlp_fwd=levels,
+                                 art_mlp_bwd=levels, resample_union=levels // 2)),
+            "many_vs_train_step": all(many_ok(r) for r in art_many.values()),
+            "first_step_vs_plain": all(
+                first_step[k]["loss_rel"] <= TOL_STEP_LOSS
+                and all(first_step[k]["cos"][g] >= TOL_ART_STEP_COS[g] for g in groups)
+                for k in ("v3_vs_plain", "v2_vs_plain")),
+            "v3_vs_v2": (first_step["v3_vs_v2"]["loss_rel"] <= TOL_STEP_LOSS
+                         and first_step["v3_vs_v2"]["grad_max_rel"] <= TOL_ART_ROUTES_GRAD_MAX
+                         and first_step["v3_vs_v2"]["grad_mean_rel"] <= TOL_ART_ROUTES_GRAD_MEAN),
+            "unindexed_code_rows": first_step["unindexed_code_rows_zero"] and rows_kept,
+        }
+        emit({
+            "phase": "art_train", "config": ART_CONFIG, "rays_per_step": art_rays,
+            "microbatches": ART_MICRO, "rays_per_microbatch": micro_rays,
+            "samples": [cfg_art.N_samples, cfg_art.N_importance],
+            "scene": dict(ART_SCENE, wh=list(SCENE_WH), pairs=n_pairs, rays_per_pair=n_pair_rays),
+            "v3": art_v3, "v2": art_v2, "first_step": first_step, "train_many": art_many,
+            "same_batch_loss_before_after": [loss_before, loss_after],
+            "tol": {"many_loss_rel": TOL_MANY_LOSS, "many_params_max_lr": TOL_MANY_PARAMS_LR,
+                    "many_params_mean_abs": TOL_MANY_PARAMS_MEAN,
+                    "loss_rel": TOL_STEP_LOSS, "cos_vs_plain": TOL_ART_STEP_COS,
+                    "grad_v3_vs_v2": [TOL_ART_ROUTES_GRAD_MAX, TOL_ART_ROUTES_GRAD_MEAN],
+                    "loss_fall": ART_LOSS_FALL},
+            "checks": checks, "card": card,
+        })
+        require(all(checks.values()), f"art_train checks failed: {checks}")
+        art_train_launches = {k: art_v3["launches"][k] + art_v2["launches"][k]
+                              + sum(r["launches"][k] for r in art_many.values()) for k in counters}
+
         if args.profile:
             phase = "profile"
             from torch.profiler import ProfilerActivity, profile
 
-            g = torch.Generator(device=dev).manual_seed(args.seed + 4)
-            state, n_steps = state_v3, 5
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                for _ in range(n_steps):
-                    state, _ = system.train_step(state, batch_of(g), g)
+            def profile_steps(sy, state, batch_fn, label, n_steps=5):
+                g = torch.Generator(device=dev).manual_seed(args.seed + 4)
                 torch.cuda.synchronize()
-                window_ms = 1e3 * (time.perf_counter() - t0)
-            by_kernel = sorted(((e.key, e.device_time_total / 1e3, e.count)
-                                for e in prof.key_averages()
-                                if e.device_time_total > 0 and e.device_type.name == "CUDA"),
-                               key=lambda r: -r[1])
-            busy_ms = sum(r[1] for r in by_kernel)
-            require(busy_ms > 0, "torch.profiler recorded no device time")
-            emit({"phase": "profile", "route": "v3", "steps": n_steps, "window_ms": window_ms,
-                  "device_busy_ms": busy_ms, "device_idle_share": 1.0 - busy_ms / window_ms,
-                  "ms_per_step_by_kernel": [{"kernel": k[:80], "ms": ms / n_steps,
-                                             "launches_per_step": n / n_steps}
-                                            for k, ms, n in by_kernel[:12]],
-                  "other_kernels_ms_per_step": sum(r[1] for r in by_kernel[12:]) / n_steps,
-                  "card": card})
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    for i in range(n_steps):
+                        state, _ = sy.train_step(state, batch_fn(g, i), g)
+                    torch.cuda.synchronize()
+                    window_ms = 1e3 * (time.perf_counter() - t0)
+                by_kernel = sorted(((e.key, e.device_time_total / 1e3, e.count)
+                                    for e in prof.key_averages()
+                                    if e.device_time_total > 0 and e.device_type.name == "CUDA"),
+                                   key=lambda r: -r[1])
+                busy_ms = sum(r[1] for r in by_kernel)
+                require(busy_ms > 0, "torch.profiler recorded no device time")
+                emit({"phase": "profile", "system": label, "route": "v3", "steps": n_steps,
+                      "window_ms": window_ms, "device_busy_ms": busy_ms,
+                      "device_idle_share": 1.0 - busy_ms / window_ms,
+                      "ms_per_step_by_kernel": [{"kernel": k[:80], "ms": ms / n_steps,
+                                                 "launches_per_step": n / n_steps}
+                                                for k, ms, n in by_kernel[:12]],
+                      "other_kernels_ms_per_step": sum(r[1] for r in by_kernel[12:]) / n_steps,
+                      "card": card})
+
+            profile_steps(system, state_v3, vanilla_batch, "vanilla")
+            profile_steps(art_system, art_state_v3, art_batch, "autodecoder")
 
         phase = "kernels"
-        keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
         fine = mlp_rows[N_COARSE + 1 + N_FINE]
 
         def train_entry(kname, replaces):
@@ -773,6 +1287,41 @@ def main(argv=None) -> int:
             train_entry("fused_level_train_grads", "aon_tpu/ops/train_fused_level.py:79"),
             train_entry("fused_mlp_bwd_xyz", "aon_tpu/ops/fused_mlp_train.py:320"),
         ]
+
+        def art_entry(kname, replaces, mode=""):
+            big, small = (art_rows[kname, mode, n] for n in (N_COARSE + 1 + N_FINE, N_COARSE + 1))
+            return {"name": kname, "route": "cuda", "source": "aon_tpu_torch/ops/csrc/art.cu",
+                    "replaces": replaces, "launches": art_train_launches[kname],
+                    "shape": big["shape"], **{k: big[k] for k in keys},
+                    "err_is": big["err_is"],
+                    "coarse": {k: small[k] for k in ("shape",) + keys}}
+
+        fwd_fine = art_rows["art_mlp_fwd", "render", N_COARSE + 1 + N_FINE]
+        entries += [
+            {"name": "art_mlp_fwd", "route": "cuda", "source": "aon_tpu_torch/ops/csrc/art.cu",
+             "replaces": "aon_tpu/ops/fused_art.py:187",
+             "launches": art_path_launches["art_mlp_fwd"] + art_train_launches["art_mlp_fwd"],
+             "launches_by_path": {"render": art_path_launches["art_mlp_fwd"],
+                                  "train": art_train_launches["art_mlp_fwd"]},
+             "shape": fwd_fine["shape"], **{k: fwd_fine[k] for k in keys},
+             "coarse": {k: art_rows["art_mlp_fwd", "render", N_COARSE + 1][k]
+                        for k in ("shape",) + keys},
+             "train": [{k: art_rows["art_mlp_fwd", "train", n][k] for k in ("shape",) + keys}
+                       for n in (N_COARSE + 1, N_COARSE + 1 + N_FINE)]},
+            art_entry("art_mlp_bwd", "aon_tpu/ops/fused_art.py:220"),
+            dict(art_entry("fused_level_train_art_grads",
+                           "aon_tpu/ops/train_fused_level_art.py:60", "autodecoder"),
+                 other_arguments=[
+                     {k: art_rows["fused_level_train_art_grads", mode, N_COARSE + 1 + N_FINE][k]
+                      for k in ("shape", "arguments", "max_abs_err", "mean_rel_err", "ms",
+                                "plain_ms")}
+                     for mode in ("autoencoder", "white_bkgd")]),
+        ]
+        # kernel 2 also serves the auto-decoder's paths
+        entries[1]["launches"] += (art_path_launches["resample_union"]
+                                   + art_train_launches["resample_union"])
+        entries[1]["launches_by_path"].update(art_render=art_path_launches["resample_union"],
+                                              art_train=art_train_launches["resample_union"])
         require(all(e["launches"] > 0 for e in entries), "a kernel of the path never launched")
         emit({"kernels": entries, "card": card})
         emit({"ok": True, "device": {"platform": "gpu", "kind": name,

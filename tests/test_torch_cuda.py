@@ -19,7 +19,13 @@ Tolerances, and why:
     mean magnitude, and the same launch twice within GRAD_TOL_REPEAT (only
     the atomicAdd order differs); their reasons stand beside them in
     aon_tpu_torch/ops/fused_mlp_train.py.  The level's compositing weights
-    and squared error: TWIN_TOL_MAX, as the raw outputs they are made from.
+    and squared error: TWIN_TOL_MAX, as the raw outputs they are made from;
+  * the three articulated kernels against their twins: the forward within
+    fused_art.TWIN_TOL_MAX / TWIN_TOL_MEAN, the gradients within
+    fused_art.GRAD_TOL_REL / GRAD_TOL_MEAN_REL (wider than the vanilla
+    kernels': a bf16 step in the deformation output is multiplied by up to 2^9
+    inside the encoding; the reasons stand beside them in
+    aon_tpu_torch/ops/fused_art.py).
 """
 
 import numpy as np
@@ -28,6 +34,7 @@ import torch
 
 from aon_tpu_torch.core.sampling import eval_quantiles, pdf_cdf
 from aon_tpu_torch.eval.render import render_frame
+from aon_tpu_torch.ops import fused_art
 from aon_tpu_torch.ops.fused_mlp import (
     SHAPES,
     make_posenc_constants,
@@ -54,6 +61,10 @@ from aon_tpu_torch.ops.resample import resample_union, resample_union_plain, sor
 from aon_tpu_torch.ops.train_fused_level import (
     fused_level_train_grads,
     fused_level_train_grads_plain,
+)
+from aon_tpu_torch.ops.train_fused_level_art import (
+    fused_level_train_art_grads,
+    fused_level_train_art_grads_plain,
 )
 from aon_tpu_torch.train.systems import build_system
 from aon_tpu_torch.utils.config import Config
@@ -231,3 +242,155 @@ def test_train_many_runs_the_v3_route_with_per_ray_streams(cuda):
     assert resample_union.launches - res0 == T * k
     assert all(torch.isfinite(v).all() for v in metrics.values())
     assert all(torch.isfinite(v).all() for v in state.params.values())
+
+
+# ------------------------------------------------------ articulated kernels
+
+
+def _art_system(device, **overrides):
+    cfg = Config(exp_type="vanilla_autodecoder", N_max_objs=4, white_back=False, **overrides)
+    return build_system(cfg, 2.0, 6.0, False, device=device)
+
+
+def _art_inputs(cuda, B, S, seed):
+    """Effective weights of a seeded articulated MLP (live biases, a density
+    bias that makes rays partly opaque) and one level's ray inputs."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    system = _art_system(cuda)
+    params = system.init_params(g)
+    mlp = {k: (v if v.ndim == 2 else 0.05 * torch.randn(v.shape, generator=g, device=cuda))
+           for k, v in mlp_params(params, "model.coarse_mlp").items()}
+    mlp["density.bias"] = mlp["density.bias"] + 1.5
+    latents = {"density": 0.1 * torch.randn(1, 128, generator=g, device=cuda),
+               "color": 0.1 * torch.randn(1, 128, generator=g, device=cuda),
+               "articulation": 0.1 * torch.randn(1, 32, generator=g, device=cuda)}
+    packed = fused_art.fold_latents(mlp, latents)
+    consts = make_posenc_constants(device=cuda)
+    d = torch.nn.functional.normalize(torch.randn(B, 3, generator=g, device=cuda), dim=-1)
+    o = -4.0 * d + 0.3 * torch.randn(B, 3, generator=g, device=cuda)
+    t = torch.sort(torch.rand(B, S, generator=g, device=cuda) * 4 + 2, dim=-1).values.contiguous()
+    target = torch.rand(B, 3, generator=g, device=cuda)
+    return packed, consts, t, o, d, target, g
+
+
+def assert_art_grads_close(got, want):
+    assert set(got) == set(fused_art.EFF_SHAPES) and all(
+        tuple(got[k].shape) == fused_art.EFF_SHAPES[k] for k in got)
+    assert all(torch.isfinite(v).all() for v in got.values())
+    max_rel, mean_rel = grad_errors(got, want)
+    assert max_rel <= fused_art.GRAD_TOL_REL and mean_rel <= fused_art.GRAD_TOL_MEAN_REL, (
+        max_rel, mean_rel)
+
+
+@pytest.mark.parametrize("B,S", [(37, 65), (5, 17), (64, 193)])  # ragged and whole tiles
+def test_art_fwd_kernel_matches_plain_twin(cuda, B, S):
+    packed, consts, t, o, d, _, _ = _art_inputs(cuda, B, S, seed=11)
+    samples = (o[:, None, :] + t[..., None] * d[:, None, :]).contiguous()
+    before = fused_art.art_mlp_fwd.launches
+    rgb, sigma = fused_art.art_mlp_fwd(packed, consts, samples, d)
+    torch.cuda.synchronize()
+    assert fused_art.art_mlp_fwd.launches == before + 1
+    rgb_p, sigma_p = fused_art.art_mlp_fwd_plain(packed, consts, samples, d)
+    assert torch.isfinite(rgb).all() and torch.isfinite(sigma).all()
+    err = torch.cat([(rgb - rgb_p).reshape(-1), (sigma - sigma_p).reshape(-1)]).abs()
+    assert err.max().item() <= fused_art.TWIN_TOL_MAX
+    assert err.mean().item() <= fused_art.TWIN_TOL_MEAN
+
+
+@pytest.mark.parametrize("B,S", [(37, 65), (5, 17), (512, 193)])
+def test_art_bwd_kernel_matches_plain_twin(cuda, B, S):
+    packed, consts, t, o, d, _, g = _art_inputs(cuda, B, S, seed=12)
+    samples = (o[:, None, :] + t[..., None] * d[:, None, :]).contiguous()
+    cot = torch.randn(B, S, 4, generator=g, device=cuda) / (B * S)
+    cot[:, ::3] = 0.0  # rows without a cotangent
+    before = fused_art.art_mlp_bwd.launches
+    grads = fused_art.art_mlp_bwd(packed, consts, samples, d, cot)
+    torch.cuda.synchronize()
+    assert fused_art.art_mlp_bwd.launches == before + 1
+    assert_art_grads_close(grads, fused_art.art_mlp_bwd_plain(packed, consts, samples, d, cot))
+    assert not grads["wd0x"][3].any() and not grads["wdo"][:, 3].any()  # the padding
+    again = fused_art.art_mlp_bwd(packed, consts, samples, d, cot)
+    assert grad_errors(again, grads)[0] <= GRAD_TOL_REPEAT
+
+
+ART_LEVEL_CASES = {
+    "autodecoder": dict(white_bkgd=False, rgb_padding=0.001, density_bias=-1.0, bce_weight=0.0,
+                        sigma_act="softplus_bias"),
+    "autoencoder": dict(white_bkgd=False, rgb_padding=0.0, density_bias=0.0, bce_weight=0.5,
+                        sigma_act="relu"),
+    "white_bkgd": dict(white_bkgd=True, rgb_padding=0.001, density_bias=-1.0, bce_weight=0.0,
+                       sigma_act="softplus_bias"),
+}
+
+
+@pytest.mark.parametrize("case", list(ART_LEVEL_CASES))
+@pytest.mark.parametrize("B,S", [(37, 65), (5, 17), (512, 193)])
+def test_art_level_kernel_matches_plain_twin(cuda, B, S, case):
+    packed, consts, t, o, d, target, g = _art_inputs(cuda, B, S, seed=13)
+    mask = (torch.rand(B, generator=g, device=cuda) > 0.4).float()
+    lw = (mask / (3.0 * mask.sum()).clamp_min(1.0) if case == "autoencoder"
+          else (0.5 + torch.rand(B, generator=g, device=cuda)) / (3.0 * B))
+    args = (packed, consts, t, o, d, d, target, lw.contiguous(), mask)
+    kw = ART_LEVEL_CASES[case]
+    before = fused_level_train_art_grads.launches
+    photo, wgt, acc, grads = fused_level_train_art_grads(*args, **kw)
+    torch.cuda.synchronize()
+    assert fused_level_train_art_grads.launches == before + 1
+    photo_p, wgt_p, acc_p, grads_p = fused_level_train_art_grads_plain(*args, **kw)
+    assert wgt.shape == (B, S) and acc.shape == (B,) and torch.isfinite(wgt).all()
+    assert acc_p.max().item() > 0.05  # the rays do hit something
+    assert (wgt - wgt_p).abs().max().item() <= fused_art.TWIN_TOL_MAX
+    assert (acc - acc_p).abs().max().item() <= fused_art.TWIN_TOL_MAX
+    assert abs(photo.item() - photo_p.item()) <= fused_art.TWIN_TOL_MAX * photo_p.item()
+    assert_art_grads_close(grads, grads_p)
+    again = fused_level_train_art_grads(*args, **kw)
+    assert torch.equal(wgt, again[1])
+    assert grad_errors(again[3], grads)[0] <= GRAD_TOL_REPEAT
+
+
+def test_fused_art_mlp_train_backward_launches_the_kernel(cuda):
+    params = _art_system(cuda).init_params(torch.Generator(device=cuda).manual_seed(3))
+    mlp = {k: v.requires_grad_(True) for k, v in mlp_params(params, "model.fine_mlp").items()}
+    g = torch.Generator(device=cuda).manual_seed(7)
+    latents = {k: (0.1 * torch.randn(1, n, generator=g, device=cuda)).requires_grad_(True)
+               for k, n in (("density", 128), ("color", 128), ("articulation", 32))}
+    samples = torch.rand(9, 33, 3, generator=g, device=cuda) * 4 - 2
+    vd = torch.nn.functional.normalize(torch.randn(9, 3, generator=g, device=cuda), dim=-1)
+    fwd0, bwd0 = fused_art.art_mlp_fwd.launches, fused_art.art_mlp_bwd.launches
+    rgb, sigma = fused_art.fused_art_mlp_train(mlp, latents, samples, vd)
+    (rgb.sum() + 2 * sigma.sum()).backward()
+    assert (fused_art.art_mlp_fwd.launches, fused_art.art_mlp_bwd.launches) == (fwd0 + 1, bwd0 + 1)
+    assert all(v.grad is not None and torch.isfinite(v.grad).all() for v in mlp.values())
+    assert all(v.grad is not None and v.grad.abs().max() > 0 for v in latents.values())
+    assert samples.grad is None
+
+
+@pytest.mark.parametrize("fused_train", ["v3", "v2"])
+def test_autodecoder_step_and_render_go_through_the_kernels(cuda, fused_train):
+    system = _art_system(cuda, N_samples=16, N_importance=16, fused_train=fused_train)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    state = system.init_state(gen)
+    k, m = 2, 48
+    d = torch.nn.functional.normalize(torch.randn(k, m, 3, generator=gen, device=cuda), dim=-1)
+    batch = {"rays_o": -4.0 * d, "rays_d": d, "viewdirs": d,
+             "target": torch.rand(k, m, 3, generator=gen, device=cuda),
+             "instance_id": 1, "articulation_id": 2}
+    counters = (fused_level_train_art_grads, fused_art.art_mlp_fwd, fused_art.art_mlp_bwd,
+                resample_union)
+    before = [c.launches for c in counters]
+    new_state, metrics = system.train_step(state, batch, gen)
+    torch.cuda.synchronize()
+    delta = [c.launches - b for c, b in zip(counters, before)]
+    assert delta == ([2 * k, 0, 0, k] if fused_train == "v3" else [0, 2 * k, 2 * k, k])
+    assert all(torch.isfinite(v).all() for v in metrics.values())
+    # only the indexed rows of the code tables move
+    for name, row in (("embedding_instance_shape", 1), ("embedding_instance_appearance", 1),
+                      ("embedding_instance_articulation", 2)):
+        moved = (new_state.params[f"code_library.{name}.weight"]
+                 - state.params[f"code_library.{name}.weight"]).abs().sum(dim=1) > 0
+        assert moved.nonzero().flatten().tolist() == [row], name
+    before = [c.launches for c in counters]
+    rays = {key: batch[key][0] for key in ("rays_o", "rays_d", "viewdirs")}
+    out = system.render_chunk(new_state.params, rays, 1, 3, is_test=True)
+    assert [c.launches - b for c, b in zip(counters, before)] == [0, 2, 0, 1]
+    assert out["comp_rgb"].shape == (m, 3) and all(torch.isfinite(v).all() for v in out.values())

@@ -67,9 +67,12 @@ def test_default_device_entry_points_raise_without_cuda():
 
 
 def test_other_exp_types_name_their_roadmap_item():
-    for exp_type in ("vanilla_autodecoder", "vanilla_ae_art"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_system(Config(exp_type=exp_type), 2.0, 6.0, True, device="cpu")
+    # the auto-decoder is ported; the auto-encoder names the slice it waits for
+    system = build_system(Config(exp_type="vanilla_autodecoder", N_max_objs=4), 2.0, 6.0, False,
+                          device="cpu")
+    assert type(system).__name__ == "AutoDecoderSystem"
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_system(Config(exp_type="vanilla_ae_art"), 2.0, 6.0, True, device="cpu")
     with pytest.raises(ValueError):
         build_system(Config(exp_type="nope"), 2.0, 6.0, True, device="cpu")
 

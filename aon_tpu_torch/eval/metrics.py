@@ -7,7 +7,7 @@ object-PSNR, SSIM and the results.json stat dict.
   float32 on the CPU, so no cuDNN TF32 convolution touches it.
 * ``psnr_masked``: seg-mask-selected pixels only (models/utils.py:102-109).
 
-LPIPS is not ported yet (ROADMAP.md slice 6).
+LPIPS is not ported yet (ROADMAP.md slice 8).
 """
 
 from __future__ import annotations

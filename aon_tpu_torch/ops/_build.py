@@ -39,6 +39,9 @@ _FLOAT = ctypes.c_float
 _SIGNATURES = {
     "fused_mlp_eval": {
         "aon_mlp_eval_launch": [_VOID_P] * 10 + [_LL, _INT, _VOID_P],
+        "aon_mlp_xyz_per_ray_launch": [_VOID_P] * 10 + [_LL, _INT, _VOID_P],
+        "aon_mlp_enc_launch": [_VOID_P] * 6 + [_LL, _VOID_P],
+        "aon_mlp_enc_per_ray_launch": [_VOID_P] * 6 + [_LL, _INT, _VOID_P],
         "aon_posenc_launch": [_VOID_P] * 3 + [_INT, _LL, _VOID_P, _VOID_P],
     },
     "resample": {
@@ -47,6 +50,7 @@ _SIGNATURES = {
     "level_train": {
         "aon_level_train_launch": [_VOID_P] * 19 + [_INT, _INT, _INT, _VOID_P],
         "aon_mlp_bwd_launch": [_VOID_P] * 14 + [_LL, _INT, _VOID_P],
+        "aon_mlp_bwd_enc_launch": [_VOID_P] * 10 + [_LL, _VOID_P],
     },
     "art": {
         "aon_art_fwd_launch": [_VOID_P] * 10 + [_LL, _INT, _VOID_P],

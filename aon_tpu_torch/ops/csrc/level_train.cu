@@ -1,14 +1,18 @@
 // Vanilla NeRF training kernels for Hopper (sm_90a): one fused training level
 // and the MLP backward of the two-kernel route.
 //
-// Replaces two TPU kernels:
+// Replaces three TPU kernels:
 //   * `_level_kernel` (aon_tpu/ops/train_fused_level.py, reached through
 //     fused_level_train_grads): samples o + t*d, in-kernel encodings, MLP
 //     forward, compositing, squared error against the target, compositing
 //     VJP and the full MLP backward into the 26 weight gradients;
 //   * `_bwd_kernel_xyz_flat` (aon_tpu/ops/fused_mlp_train.py, reached through
 //     _bwd_call_xyz; body `_bwd_body`): forward recomputed from raw xyz, then
-//     the same backward from a cotangent g (N, 4).
+//     the same backward from a cotangent g (N, 4);
+//   * `_bwd_kernel` (aon_tpu/ops/fused_mlp_train.py, reached through _bwd_call,
+//     the backward of fused_mlp_train): the same from given f32 encodings
+//     (N, 64) and (N, 32), rounded to bf16 where they are staged, so the
+//     w0 / w5b / wvb gradients read them as `dot_tn(enc, da)` does.
 //
 // Bound on the H100: operations (about 3.6 MFLOP per sample row against a
 // few dozen bytes of input), so the tensor cores set the floor.
@@ -62,11 +66,14 @@ constexpr int MAX_SAMPLES_PER_LANE = 8;  // composite_kernel: S <= 256
 
 // ---------------------------------------------------------------- 1. forward
 
-// Sample coordinates come either from xyz (n_rows, 3) or, where xyz is null,
-// from t_vals (n_rows) and per-ray origins and directions as o + t * d, the
-// product and the sum rounded separately as the plain version rounds them.
+// The encodings come either from enc_in (n_rows, 64) and venc_in (n_rows, 32)
+// f32 or, where enc_in is null, are computed from sample coordinates and the
+// per-ray vdir: from xyz (n_rows, 3) or, where xyz is null too, from t_vals
+// (n_rows) and per-ray origins and directions as o + t * d, the product and
+// the sum rounded separately as the plain version rounds them.
 __global__ void __launch_bounds__(THREADS, 2)
-train_fwd_kernel(const float* __restrict__ xyz, const float* __restrict__ t_vals,
+train_fwd_kernel(const float* __restrict__ enc_in, const float* __restrict__ venc_in,
+                 const float* __restrict__ xyz, const float* __restrict__ t_vals,
                  const float* __restrict__ rays_o, const float* __restrict__ rays_d,
                  const float* __restrict__ vdir, const float* __restrict__ s_pos,
                  const float* __restrict__ p_pos, const float* __restrict__ s_view,
@@ -84,24 +91,37 @@ train_fwd_kernel(const float* __restrict__ xyz, const float* __restrict__ t_vals
   for (int i = tid; i < TILE * POS_PAD; i += THREADS) {
     const int r = i / POS_PAD, c = i % POS_PAD;
     const long long g = min(row0 + r, n_rows - 1);
-    float x0, x1, x2;
-    if (xyz != nullptr) {
-      x0 = xyz[3 * g], x1 = xyz[3 * g + 1], x2 = xyz[3 * g + 2];
+    float e;
+    if (enc_in != nullptr) {
+      e = enc_in[g * POS_PAD + c];
     } else {
-      const long long ray = g / samples_per_ray;
-      const float t = t_vals[g];
-      x0 = __fadd_rn(rays_o[3 * ray + 0], __fmul_rn(t, rays_d[3 * ray + 0]));
-      x1 = __fadd_rn(rays_o[3 * ray + 1], __fmul_rn(t, rays_d[3 * ray + 1]));
-      x2 = __fadd_rn(rays_o[3 * ray + 2], __fmul_rn(t, rays_d[3 * ray + 2]));
+      float x0, x1, x2;
+      if (xyz != nullptr) {
+        x0 = xyz[3 * g], x1 = xyz[3 * g + 1], x2 = xyz[3 * g + 2];
+      } else {
+        const long long ray = g / samples_per_ray;
+        const float t = t_vals[g];
+        x0 = __fadd_rn(rays_o[3 * ray + 0], __fmul_rn(t, rays_d[3 * ray + 0]));
+        x1 = __fadd_rn(rays_o[3 * ray + 1], __fmul_rn(t, rays_d[3 * ray + 1]));
+        x2 = __fadd_rn(rays_o[3 * ray + 2], __fmul_rn(t, rays_d[3 * ray + 2]));
+      }
+      e = encode(x0, x1, x2, s_pos, p_pos, POS_PAD, c);
     }
-    const bf16 h = __float2bfloat16_rn(encode(x0, x1, x2, s_pos, p_pos, POS_PAD, c));
+    const bf16 h = __float2bfloat16_rn(e);
     sm.enc[r * LDE + c] = h;
     act_tile[static_cast<size_t>(r) * LDA + ACT_ENC + c] = h;
   }
   for (int i = tid; i < TILE * VIEW_PAD; i += THREADS) {
     const int r = i / VIEW_PAD, c = i % VIEW_PAD;
-    const float* v = vdir + 3 * (min(row0 + r, n_rows - 1) / samples_per_ray);
-    const bf16 h = __float2bfloat16_rn(encode(v[0], v[1], v[2], s_view, p_view, VIEW_PAD, c));
+    const long long g = min(row0 + r, n_rows - 1);
+    float e;
+    if (venc_in != nullptr) {
+      e = venc_in[g * VIEW_PAD + c];
+    } else {
+      const float* v = vdir + 3 * (g / samples_per_ray);
+      e = encode(v[0], v[1], v[2], s_view, p_view, VIEW_PAD, c);
+    }
+    const bf16 h = __float2bfloat16_rn(e);
     sm.venc[r * LDV + c] = h;
     act_tile[static_cast<size_t>(r) * LDA + ACT_VENC + c] = h;
   }
@@ -262,18 +282,19 @@ bwd_data_kernel(const float* __restrict__ g, const bf16* __restrict__ W,
 
 // -------------------------------------------------- 4. backward, weight grads
 
-int launch_forward(const float* xyz, const float* t_vals, const float* rays_o,
-                   const float* rays_d, const float* vdir, const float* s_pos,
-                   const float* p_pos, const float* s_view, const float* p_view,
-                   const void* weights, const float* biases, float* raw_rgb, float* raw_sigma,
-                   void* act, long long n_rows, int samples_per_ray, cudaStream_t stream) {
+int launch_forward(const float* enc, const float* venc, const float* xyz, const float* t_vals,
+                   const float* rays_o, const float* rays_d, const float* vdir,
+                   const float* s_pos, const float* p_pos, const float* s_view,
+                   const float* p_view, const void* weights, const float* biases,
+                   float* raw_rgb, float* raw_sigma, void* act, long long n_rows,
+                   int samples_per_ray, cudaStream_t stream) {
   const int smem = static_cast<int>(sizeof(Smem));
   cudaError_t err =
       cudaFuncSetAttribute(train_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long blocks = (n_rows + TILE - 1) / TILE;
   train_fwd_kernel<<<static_cast<unsigned>(blocks), THREADS, smem, stream>>>(
-      xyz, t_vals, rays_o, rays_d, vdir, s_pos, p_pos, s_view, p_view,
+      enc, venc, xyz, t_vals, rays_o, rays_d, vdir, s_pos, p_pos, s_view, p_view,
       static_cast<const bf16*>(weights), biases, raw_rgb, raw_sigma, static_cast<bf16*>(act),
       n_rows, samples_per_ray);
   return static_cast<int>(cudaGetLastError());
@@ -318,9 +339,9 @@ extern "C" int aon_level_train_launch(
   if (samples_per_ray > 32 * MAX_SAMPLES_PER_LANE) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
   const long long n_rows = static_cast<long long>(n_rays) * samples_per_ray;
-  int err = launch_forward(nullptr, t_vals, rays_o, rays_d, vdir, s_pos, p_pos, s_view, p_view,
-                           weights, biases, raw_rgb, raw_sigma, act, n_rows, samples_per_ray,
-                           stream);
+  int err = launch_forward(nullptr, nullptr, nullptr, t_vals, rays_o, rays_d, vdir, s_pos, p_pos,
+                           s_view, p_view, weights, biases, raw_rgb, raw_sigma, act, n_rows,
+                           samples_per_ray, stream);
   if (err != 0) return err;
   const int rays_per_block = 4;
   const float dcomp_scale = static_cast<float>(2.0 / (n_rays * 3.0));
@@ -343,9 +364,25 @@ extern "C" int aon_mlp_bwd_launch(const float* xyz, const float* vdir, const flo
                                   void* stream_) {
   if (n_rows <= 0) return 0;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
-  const int err = launch_forward(xyz, nullptr, nullptr, nullptr, vdir, s_pos, p_pos, s_view,
-                                 p_view, weights, biases, raw_rgb, raw_sigma, act, n_rows,
-                                 samples_per_ray, stream);
+  const int err = launch_forward(nullptr, nullptr, xyz, nullptr, nullptr, nullptr, vdir, s_pos,
+                                 p_pos, s_view, p_view, weights, biases, raw_rgb, raw_sigma, act,
+                                 n_rows, samples_per_ray, stream);
+  if (err != 0) return err;
+  return launch_backward(g, weights, act, grad, gw, n_rows, stream);
+}
+
+// The MLP backward from given encodings enc (n_rows, 64) and venc (n_rows, 32)
+// f32 (kernel table row 6): the forward recomputed from them, then gw as for
+// aon_mlp_bwd_launch.  Rows past n_rows in the last tile carry g = 0.
+extern "C" int aon_mlp_bwd_enc_launch(const float* enc, const float* venc, const float* g,
+                                      const void* weights, const float* biases, float* raw_rgb,
+                                      float* raw_sigma, void* act, void* grad, float* gw,
+                                      long long n_rows, void* stream_) {
+  if (n_rows <= 0) return 0;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+  const int err = launch_forward(enc, venc, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                                 nullptr, nullptr, nullptr, weights, biases, raw_rgb, raw_sigma,
+                                 act, n_rows, 1, stream);
   if (err != 0) return err;
   return launch_backward(g, weights, act, grad, gw, n_rows, stream);
 }

@@ -1,5 +1,22 @@
-"""Packing of the vanilla NeRF MLP for the fused kernels (port of the packing
-in ``aon_tpu/ops/fused_mlp.py`` and ``aon_tpu/ops/fused_mlp_train.py``).
+"""The fused vanilla NeRF MLP's eval entry points and its packing (port of
+``aon_tpu/ops/fused_mlp.py`` and of the packing in
+``aon_tpu/ops/fused_mlp_train.py``).
+
+Three entry points run one trunk and differ in how they take their input:
+
+  * ``fused_nerf_mlp``: per-sample encodings (N, 63|64) and (N, 27|32);
+  * ``fused_nerf_mlp_per_ray``: per-sample position encodings (B, S, 63|64)
+    and per-ray view encodings (B, 27|32);
+  * ``fused_nerf_mlp_xyz``: raw (B, S, 3) samples and per-ray (B, 3)
+    viewdirs, both encoded in the kernel.
+
+Each launches its CUDA kernel (``ops/csrc/fused_mlp_eval.cu``) on CUDA
+tensors and runs its plain PyTorch twin (``*_plain``) on CPU tensors.  The
+twins take the packing's dtype as their compute dtype, as the JAX kernels
+do: float32 packing computes in float32, bf16 packing rounds operands and
+activations to bf16.  The CUDA kernels take bf16 weights only: float32-packed
+weights are rounded to bf16 once (``round_packed``) before the launch, which
+is what the TPU's matrix unit does with float32 operands.
 
 The skip concat is algebraized: layer 5's (319, 256) kernel splits into a
 (256, 256) part on the activation and a (64, 256) zero-padded part on the
@@ -9,12 +26,13 @@ concatenates.  Encoded-input K dims are zero-padded 63 -> 64 and 27 -> 32.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from aon_tpu_torch.ops import _build
 from aon_tpu_torch.utils.device import DeviceLike, resolve_device
 
 POS_PAD = 64  # (2*10 + 1) * 3 = 63 encoded channels, zero-padded
@@ -207,3 +225,279 @@ def grads_from_blob(blob: torch.Tensor) -> Dict[str, torch.Tensor]:
         out[k] = blob[offset:offset + rows * cols].view(rows, cols)
         offset += rows * cols
     return out
+
+
+# --------------------------------------------------------------- plain math
+
+# 2 * 3.14159265358979, the TPU kernel's constant (float32 once in a tensor)
+TWO_PI = 6.28318530717958
+
+# plain-twin rows per block: bounds the f32 activations to ~1 GB at width 256
+_PLAIN_BLOCK_ROWS = 1 << 20
+
+
+def encode_plain(x: torch.Tensor, s: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """The kernel's positional encoding in PyTorch: x (N, 3) f32 -> (N, width) f32.
+
+    ``pre = x0*s0 + x1*s1 + x2*s2 + p``, then channels >= 3 take
+    ``sin(pre - 2pi * floor(pre / 2pi + 0.5))``: the explicit range reduction
+    of ``_encode_in_kernel`` (arguments reach ~3000 rad at degree 9).  The
+    subtraction is rounded once, as a fused multiply-add, as the CUDA kernel
+    does (``__fmaf_rn``) and as XLA does where it contracts that line.
+    """
+    pre = x[:, 0:1] * s[0:1] + x[:, 1:2] * s[1:2] + x[:, 2:3] * s[2:3] + p
+    # a device tensor, not a Python float: CUDA divides by a host scalar as a
+    # multiply by its reciprocal, which is not the kernel's IEEE division
+    two_pi = torch.tensor(TWO_PI, dtype=torch.float32, device=x.device)
+    k = torch.floor(pre / two_pi + 0.5)
+    # in float64 the product and the difference are exact, so the cast back
+    # to float32 is the single rounding of the fused multiply-add
+    reduced = (pre.double() - two_pi.double() * k.double()).float()
+    col = torch.arange(pre.shape[1], device=x.device)
+    return torch.where(col < 3, pre, torch.sin(reduced))
+
+
+def _mlp_compute(enc: torch.Tensor, venc: torch.Tensor, w: Mapping[str, torch.Tensor]):
+    """Trunk + heads of ``_mlp_compute``: operands in the packed dtype, products
+    accumulated in float32, activations rounded to that dtype between layers."""
+    dtype = w["w0"].dtype
+
+    def dot(a, b):  # bf16 operands are exact in f32, so this is bf16 x bf16 -> f32
+        return a.float() @ b.float()
+
+    def relu_to(x):
+        return torch.clamp_min(x, 0.0).to(dtype)
+
+    h = relu_to(dot(enc, w["w0"]) + w["b0"])
+    for i in (1, 2, 3, 4):
+        h = relu_to(dot(h, w[f"w{i}"]) + w[f"b{i}"])
+    h = relu_to(dot(h, w["w5a"]) + dot(enc, w["w5b"]) + w["b5"])
+    for i in (6, 7):
+        h = relu_to(dot(h, w[f"w{i}"]) + w[f"b{i}"])
+    sigma = dot(h, w["wd"]) + w["bd"]
+    bottleneck = (dot(h, w["wb"]) + w["bb"]).to(dtype)
+    v = relu_to(dot(bottleneck, w["wva"]) + dot(venc, w["wvb"]) + w["bv"])
+    rgb = dot(v, w["wrgb"]) + w["brgb"]
+    return rgb, sigma
+
+
+def _require_float32_reference(t: torch.Tensor) -> None:
+    if t.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("the plain MLP is a float32 reference: set allow_tf32 = False")
+
+
+def _mlp_rows(packed: Mapping[str, torch.Tensor], n: int, device: torch.device, stage):
+    """``_mlp_compute`` over n rows in blocks; ``stage(i, j)`` gives the
+    encodings of rows i..j in the packing's dtype."""
+    rgb = torch.empty(n, 3, dtype=torch.float32, device=device)
+    sigma = torch.empty(n, 1, dtype=torch.float32, device=device)
+    for i in range(0, n, _PLAIN_BLOCK_ROWS):
+        j = min(i + _PLAIN_BLOCK_ROWS, n)
+        rgb[i:j], sigma[i:j] = _mlp_compute(*stage(i, j), packed)
+    return rgb, sigma
+
+
+def pad_features(enc: torch.Tensor, venc: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Encodings zero-padded on their last dim to 64 and 32 (``_pad_features``);
+    the given tensors where they are that wide already."""
+
+    def pad(t, width):
+        return t if t.shape[-1] == width else F.pad(t, (0, width - t.shape[-1]))
+
+    return pad(enc, POS_PAD), pad(venc, VIEW_PAD)
+
+
+def fused_nerf_mlp_plain(packed, samples_enc, viewdirs_enc):
+    """Plain PyTorch twin of ``fused_nerf_mlp`` (``_kernel``), on any device."""
+    _require_float32_reference(samples_enc)
+    dtype = packed["w0"].dtype
+    enc, venc = pad_features(samples_enc, viewdirs_enc)
+    return _mlp_rows(packed, enc.shape[0], enc.device,
+                     lambda i, j: (enc[i:j].to(dtype), venc[i:j].to(dtype)))
+
+
+def fused_nerf_mlp_per_ray_plain(packed, samples_enc, viewdirs_enc):
+    """Plain PyTorch twin of ``fused_nerf_mlp_per_ray`` (``_kernel_per_ray``):
+    the view encoding is rounded to the compute dtype per ray, then repeated
+    over the ray's samples, as the selection product does."""
+    _require_float32_reference(samples_enc)
+    B, S, _ = samples_enc.shape
+    dtype = packed["w0"].dtype
+    enc, venc = pad_features(samples_enc.reshape(B * S, -1), viewdirs_enc)
+    venc = torch.repeat_interleave(venc.to(dtype), S, dim=0)
+    rgb, sigma = _mlp_rows(packed, B * S, enc.device,
+                           lambda i, j: (enc[i:j].to(dtype), venc[i:j]))
+    return rgb.reshape(B, S, 3), sigma.reshape(B, S, 1)
+
+
+def fused_nerf_mlp_xyz_plain(packed, enc_consts, samples, viewdirs):
+    """Plain PyTorch twin of ``fused_nerf_mlp_xyz`` (``_kernel_xyz_per_ray``)
+    and of ``fused_nerf_mlp_xyz_eval``: the viewdir is repeated per sample in
+    float32, both encodings are computed in float32 and cast to the compute
+    dtype."""
+    _require_float32_reference(samples)
+    B, S, _ = samples.shape
+    dtype = packed["w0"].dtype
+    x = samples.reshape(B * S, 3)
+    vd = torch.repeat_interleave(viewdirs, S, dim=0)
+    rgb, sigma = _mlp_rows(packed, B * S, samples.device, lambda i, j: (
+        encode_plain(x[i:j], enc_consts["s_pos"], enc_consts["p_pos"]).to(dtype),
+        encode_plain(vd[i:j], enc_consts["s_view"], enc_consts["p_view"]).to(dtype)))
+    return rgb.reshape(B, S, 3), sigma.reshape(B, S, 1)
+
+
+# ------------------------------------------------------------ kernel entries
+
+
+def check_float32(device: torch.device, **tensors) -> None:
+    """Raise unless every ``name=(tensor, shape)`` is contiguous float32 of
+    that shape on ``device``: what the kernels take."""
+    for name, (t, shape) in tensors.items():
+        if (tuple(t.shape) != tuple(shape) or t.dtype != torch.float32 or not t.is_contiguous()
+                or t.device != device):
+            raise ValueError(f"{name} must be contiguous float32 {tuple(shape)} on {device}")
+
+
+def _check_enc_consts(enc_consts: Mapping[str, torch.Tensor], device: torch.device) -> None:
+    for k, shape in zip(ENC_ORDER, ((4, POS_PAD), (1, POS_PAD), (4, VIEW_PAD), (1, VIEW_PAD))):
+        v = enc_consts[k]
+        if (tuple(v.shape) != shape or v.dtype != torch.float32 or not v.is_contiguous()
+                or v.device != device):
+            raise ValueError(f"enc_consts[{k!r}] must be contiguous float32 {shape} on {device}")
+
+
+def _kernel_device(t: torch.Tensor) -> Optional[torch.device]:
+    """None for a CPU tensor (the caller runs the twin), the device for a CUDA
+    tensor; raises for any other."""
+    if t.device.type == "cpu":
+        return None
+    if t.device.type != "cuda":
+        raise ValueError(f"no kernel for device {t.device}")
+    return t.device
+
+
+def launch_blobs(packed: Mapping[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's two blobs from bf16- or float32-packed weights (the latter
+    rounded to bf16 once)."""
+    if packed["w0"].dtype != torch.bfloat16:
+        packed = round_packed(packed)
+    return kernel_blobs(packed)
+
+
+def _checked_blobs(packed, blobs, device: torch.device):
+    wblob, bblob = blobs if blobs is not None else launch_blobs(packed)
+    if wblob.device != device or bblob.device != device:
+        raise ValueError(f"packed weights must be on {device}")
+    return wblob, bblob
+
+
+def _outputs(n: int, device: torch.device):
+    return (torch.empty(n, 3, dtype=torch.float32, device=device),
+            torch.empty(n, 1, dtype=torch.float32, device=device))
+
+
+def fused_nerf_mlp(
+    packed: Mapping[str, torch.Tensor],
+    samples_enc: torch.Tensor,
+    viewdirs_enc: torch.Tensor,
+    blobs: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-sample encodings (N, 63|64) and (N, 27|32) -> (raw_rgb (N, 3),
+    raw_sigma (N, 1)) float32, any N.
+
+    ``packed`` comes from ``pack_vanilla_mlp_params`` (bf16 or float32) or
+    ``pack_vanilla_mlp_params_f32``.  CUDA tensors launch the kernel (kernel
+    table row 5) on the bf16-rounded weights; CPU tensors run the plain twin
+    in the packing's dtype.  A caller that already holds the kernel's blobs
+    passes them as ``blobs``."""
+    device = _kernel_device(samples_enc)
+    if device is None:
+        return fused_nerf_mlp_plain(packed, samples_enc, viewdirs_enc)
+    n = samples_enc.shape[0]
+    enc, venc = (t.float().contiguous() for t in pad_features(samples_enc, viewdirs_enc))
+    check_float32(device, samples_enc=(enc, (n, POS_PAD)), viewdirs_enc=(venc, (n, VIEW_PAD)))
+    wblob, bblob = _checked_blobs(packed, blobs, device)
+    raw_rgb, raw_sigma = _outputs(n, device)
+    err = _build.library("fused_mlp_eval").aon_mlp_enc_launch(
+        enc.data_ptr(), venc.data_ptr(), wblob.data_ptr(), bblob.data_ptr(),
+        raw_rgb.data_ptr(), raw_sigma.data_ptr(), n,
+        torch.cuda.current_stream(device).cuda_stream)
+    _build.check(err, "fused_nerf_mlp")
+    fused_nerf_mlp.launches += 1
+    return raw_rgb, raw_sigma
+
+
+fused_nerf_mlp.launches = 0
+
+
+def fused_nerf_mlp_per_ray(
+    packed: Mapping[str, torch.Tensor],
+    samples_enc: torch.Tensor,
+    viewdirs_enc: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-sample position encodings (B, S, 63|64) and per-ray view encodings
+    (B, 27|32) -> (raw_rgb (B, S, 3), raw_sigma (B, S, 1)) float32, any B and
+    S.  The view encoding is read once per ray.  CUDA tensors launch the
+    kernel (kernel table row 7) on the bf16-rounded weights; CPU tensors run
+    the plain twin in the packing's dtype."""
+    device = _kernel_device(samples_enc)
+    if device is None:
+        return fused_nerf_mlp_per_ray_plain(packed, samples_enc, viewdirs_enc)
+    B, S, _ = samples_enc.shape
+    enc, venc = (t.float().contiguous() for t in pad_features(samples_enc, viewdirs_enc))
+    check_float32(device, samples_enc=(enc, (B, S, POS_PAD)), viewdirs_enc=(venc, (B, VIEW_PAD)))
+    wblob, bblob = _checked_blobs(packed, None, device)
+    raw_rgb, raw_sigma = _outputs(B * S, device)
+    err = _build.library("fused_mlp_eval").aon_mlp_enc_per_ray_launch(
+        enc.data_ptr(), venc.data_ptr(), wblob.data_ptr(), bblob.data_ptr(),
+        raw_rgb.data_ptr(), raw_sigma.data_ptr(), B * S, S,
+        torch.cuda.current_stream(device).cuda_stream)
+    _build.check(err, "fused_nerf_mlp_per_ray")
+    fused_nerf_mlp_per_ray.launches += 1
+    return raw_rgb.reshape(B, S, 3), raw_sigma.reshape(B, S, 1)
+
+
+fused_nerf_mlp_per_ray.launches = 0
+
+
+def xyz_launch(entry: str, what: str, device: torch.device, packed, enc_consts, samples, viewdirs,
+               blobs=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Check the inputs of a raw-coordinate entry point and launch its kernel
+    through the library's ``entry``: kernel table rows 1 and 8 run the same
+    kernel through entries of their own, so each counts its launches."""
+    B, S, _ = samples.shape
+    check_float32(device, samples=(samples, (B, S, 3)), viewdirs=(viewdirs, (B, 3)))
+    _check_enc_consts(enc_consts, device)
+    wblob, bblob = _checked_blobs(packed, blobs, device)
+    raw_rgb, raw_sigma = _outputs(B * S, device)
+    err = getattr(_build.library("fused_mlp_eval"), entry)(
+        samples.data_ptr(), viewdirs.data_ptr(), *(enc_consts[k].data_ptr() for k in ENC_ORDER),
+        wblob.data_ptr(), bblob.data_ptr(), raw_rgb.data_ptr(), raw_sigma.data_ptr(),
+        B * S, S, torch.cuda.current_stream(device).cuda_stream)
+    _build.check(err, what)
+    return raw_rgb.reshape(B, S, 3), raw_sigma.reshape(B, S, 1)
+
+
+def fused_nerf_mlp_xyz(
+    packed: Mapping[str, torch.Tensor],
+    enc_consts: Mapping[str, torch.Tensor],
+    samples: torch.Tensor,
+    viewdirs: torch.Tensor,
+    blobs: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Raw (B, S, 3) samples + per-ray (B, 3) viewdirs -> (raw_rgb (B, S, 3),
+    raw_sigma (B, S, 1)) float32, encodings computed in the kernel, any B and
+    S.  ``enc_consts`` comes from ``make_posenc_constants``.  CUDA tensors
+    launch the kernel (kernel table row 8) on the bf16-rounded weights; CPU
+    tensors run the plain twin in the packing's dtype.  A caller that already
+    holds the kernel's blobs passes them as ``blobs``."""
+    device = _kernel_device(samples)
+    if device is None:
+        return fused_nerf_mlp_xyz_plain(packed, enc_consts, samples, viewdirs)
+    out = xyz_launch("aon_mlp_xyz_per_ray_launch", "fused_nerf_mlp_xyz", device, packed,
+                     enc_consts, samples, viewdirs, blobs)
+    fused_nerf_mlp_xyz.launches += 1
+    return out
+
+
+fused_nerf_mlp_xyz.launches = 0

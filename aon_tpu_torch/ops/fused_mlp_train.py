@@ -1,6 +1,5 @@
-"""Fused NeRF MLP from raw coordinates, encodings computed in the kernel:
-the eval forward and the two-kernel training route (port of the xyz entry
-points of ``aon_tpu/ops/fused_mlp_train.py``).
+"""Fused NeRF MLP training entry points and the eval forward from raw
+coordinates (port of ``aon_tpu/ops/fused_mlp_train.py``).
 
 ``fused_nerf_mlp_xyz_eval`` launches the CUDA kernel ``ops/csrc/fused_mlp_eval.cu``
 on CUDA tensors and runs its plain twin, ``fused_nerf_mlp_xyz_eval_plain``,
@@ -9,8 +8,11 @@ recomputes the forward and returns the 26 weight gradients for a cotangent
 ``g``, through ``ops/csrc/level_train.cu`` on CUDA tensors and through
 ``fused_mlp_bwd_xyz_plain`` on CPU tensors.  ``fused_mlp_train_xyz`` joins the
 two as a ``torch.autograd.Function`` whose gradients flow to the weights only.
-The entry points on pre-encoded inputs (``fused_mlp_train``) are not ported
-yet (ROADMAP.md slice 6).
+
+The same on pre-encoded inputs: ``fused_mlp_train`` joins the forward of
+``ops.fused_mlp.fused_nerf_mlp`` with ``fused_mlp_bwd``, whose kernel
+(``ops/csrc/level_train.cu``) recomputes the forward from the given
+encodings.
 """
 
 from __future__ import annotations
@@ -20,26 +22,31 @@ from typing import Dict, Mapping, Optional, Tuple
 import torch
 
 from aon_tpu_torch.ops import _build
-from aon_tpu_torch.ops.fused_mlp import (
+from aon_tpu_torch.ops.fused_mlp import (  # noqa: F401  (TWO_PI, _mlp_compute: shared names)
     ENC_ORDER,
     N_KERNEL_BIASES,
     N_KERNEL_WEIGHTS,
     POS_PAD,
     SHAPES,
+    TWO_PI,
     VIEW_PAD,
+    _check_enc_consts,
+    _kernel_device,
+    _mlp_compute,
+    _require_float32_reference,
+    check_float32,
+    encode_plain,
+    fused_nerf_mlp,
+    fused_nerf_mlp_xyz_plain,
     grads_from_blob,
     kernel_blobs,
     pack_vanilla_mlp_params_f32,
+    pad_features,
     round_packed,
     train_blobs,
     unpack_vanilla_mlp_grads,
+    xyz_launch,
 )
-
-# 2 * 3.14159265358979, the TPU kernel's constant (float32 once in a tensor)
-TWO_PI = 6.28318530717958
-
-# plain-twin rows per block: bounds the f32 activations to ~1 GB at width 256
-_PLAIN_BLOCK_ROWS = 1 << 20
 
 # The kernel against its twin, on raw outputs.  Both round the same bf16
 # operands, but the kernel sums in another order, so a few activations land
@@ -71,86 +78,9 @@ _WS_ACT_COLS = 2528
 _WS_GRAD_COLS = 2432
 _TILE_ROWS = 64
 
-
-def encode_plain(x: torch.Tensor, s: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
-    """The kernel's positional encoding in PyTorch: x (N, 3) f32 -> (N, width) f32.
-
-    ``pre = x0*s0 + x1*s1 + x2*s2 + p``, then channels >= 3 take
-    ``sin(pre - 2pi * floor(pre / 2pi + 0.5))``: the explicit range reduction
-    of ``_encode_in_kernel`` (arguments reach ~3000 rad at degree 9).  The
-    subtraction is rounded once, as a fused multiply-add, as the CUDA kernel
-    does (``__fmaf_rn``) and as XLA does where it contracts that line.
-    """
-    pre = x[:, 0:1] * s[0:1] + x[:, 1:2] * s[1:2] + x[:, 2:3] * s[2:3] + p
-    # a device tensor, not a Python float: CUDA divides by a host scalar as a
-    # multiply by its reciprocal, which is not the kernel's IEEE division
-    two_pi = torch.tensor(TWO_PI, dtype=torch.float32, device=x.device)
-    k = torch.floor(pre / two_pi + 0.5)
-    # in float64 the product and the difference are exact, so the cast back
-    # to float32 is the single rounding of the fused multiply-add
-    reduced = (pre.double() - two_pi.double() * k.double()).float()
-    col = torch.arange(pre.shape[1], device=x.device)
-    return torch.where(col < 3, pre, torch.sin(reduced))
-
-
-def _mlp_compute(enc: torch.Tensor, venc: torch.Tensor, w: Mapping[str, torch.Tensor]):
-    """Trunk + heads of ``_mlp_compute``: operands in the packed dtype, products
-    accumulated in float32, activations rounded to that dtype between layers."""
-    dtype = w["w0"].dtype
-
-    def dot(a, b):  # bf16 operands are exact in f32, so this is bf16 x bf16 -> f32
-        return a.float() @ b.float()
-
-    def relu_to(x):
-        return torch.clamp_min(x, 0.0).to(dtype)
-
-    h = relu_to(dot(enc, w["w0"]) + w["b0"])
-    for i in (1, 2, 3, 4):
-        h = relu_to(dot(h, w[f"w{i}"]) + w[f"b{i}"])
-    h = relu_to(dot(h, w["w5a"]) + dot(enc, w["w5b"]) + w["b5"])
-    for i in (6, 7):
-        h = relu_to(dot(h, w[f"w{i}"]) + w[f"b{i}"])
-    sigma = dot(h, w["wd"]) + w["bd"]
-    bottleneck = (dot(h, w["wb"]) + w["bb"]).to(dtype)
-    v = relu_to(dot(bottleneck, w["wva"]) + dot(venc, w["wvb"]) + w["bv"])
-    rgb = dot(v, w["wrgb"]) + w["brgb"]
-    return rgb, sigma
-
-
-def fused_nerf_mlp_xyz_eval_plain(
-    packed: Mapping[str, torch.Tensor],
-    enc_consts: Mapping[str, torch.Tensor],
-    samples: torch.Tensor,
-    viewdirs: torch.Tensor,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch twin of the kernel, on any device.
-
-    With bf16-packed weights it rounds the operands to bf16 and multiplies in
-    float32 (TF32 must be off, the PyTorch default for matmul); with
-    float32-packed weights it is float32 throughout, like the JAX kernel.
-    """
-    if samples.is_cuda and torch.backends.cuda.matmul.allow_tf32:
-        raise RuntimeError("the plain MLP is a float32 reference: set allow_tf32 = False")
-    B, S, _ = samples.shape
-    dtype = packed["w0"].dtype
-    x = samples.reshape(B * S, 3)
-    vd = torch.repeat_interleave(viewdirs, S, dim=0)
-    rgb = torch.empty(B * S, 3, dtype=torch.float32, device=samples.device)
-    sigma = torch.empty(B * S, 1, dtype=torch.float32, device=samples.device)
-    for i in range(0, B * S, _PLAIN_BLOCK_ROWS):
-        j = min(i + _PLAIN_BLOCK_ROWS, B * S)
-        enc = encode_plain(x[i:j], enc_consts["s_pos"], enc_consts["p_pos"]).to(dtype)
-        venc = encode_plain(vd[i:j], enc_consts["s_view"], enc_consts["p_view"]).to(dtype)
-        rgb[i:j], sigma[i:j] = _mlp_compute(enc, venc, packed)
-    return rgb.reshape(B, S, 3), sigma.reshape(B, S, 1)
-
-
-def _check_enc_consts(enc_consts: Mapping[str, torch.Tensor], device: torch.device) -> None:
-    for k, shape in zip(ENC_ORDER, ((4, POS_PAD), (1, POS_PAD), (4, VIEW_PAD), (1, VIEW_PAD))):
-        v = enc_consts[k]
-        if (tuple(v.shape) != shape or v.dtype != torch.float32 or not v.is_contiguous()
-                or v.device != device):
-            raise ValueError(f"enc_consts[{k!r}] must be contiguous float32 {shape} on {device}")
+# Rows 1 and 8 of the kernel table compute the same function from the same
+# inputs (the TPU laid their inputs out differently): one twin serves both.
+fused_nerf_mlp_xyz_eval_plain = fused_nerf_mlp_xyz_plain
 
 
 def fused_nerf_mlp_xyz_eval(
@@ -163,35 +93,19 @@ def fused_nerf_mlp_xyz_eval(
     """Raw (B, S, 3) samples + per-ray (B, 3) viewdirs -> (raw_rgb (B, S, 3),
     raw_sigma (B, S, 1)) float32, encodings computed in the kernel.
 
-    ``packed`` comes from ``pack_vanilla_mlp_params`` (bf16 on CUDA),
-    ``enc_consts`` from ``make_posenc_constants``.  CUDA tensors launch the
-    kernel; CPU tensors run the plain twin.  A caller that already holds
+    ``packed`` comes from ``pack_vanilla_mlp_params`` (float32-packed weights
+    are rounded to bf16 for the launch), ``enc_consts`` from
+    ``make_posenc_constants``.  CUDA tensors launch the kernel (kernel table
+    row 1); CPU tensors run the plain twin.  A caller that already holds
     ``kernel_blobs(packed)`` passes them as ``blobs``.
     """
-    if samples.device.type == "cpu":
+    device = _kernel_device(samples)
+    if device is None:
         return fused_nerf_mlp_xyz_eval_plain(packed, enc_consts, samples, viewdirs)
-    if samples.device.type != "cuda":
-        raise ValueError(f"no kernel for device {samples.device}")
-    B, S, _ = samples.shape
-    for name, t, shape in (("samples", samples, (B, S, 3)), ("viewdirs", viewdirs, (B, 3))):
-        if (tuple(t.shape) != shape or t.dtype != torch.float32 or not t.is_contiguous()
-                or t.device != samples.device):
-            raise ValueError(f"{name} must be contiguous float32 {shape} on {samples.device}")
-    _check_enc_consts(enc_consts, samples.device)
-    wblob, bblob = blobs if blobs is not None else kernel_blobs(packed)
-    if wblob.device != samples.device or bblob.device != samples.device:
-        raise ValueError(f"packed weights must be on {samples.device}")
-    raw_rgb = torch.empty(B, S, 3, dtype=torch.float32, device=samples.device)
-    raw_sigma = torch.empty(B, S, 1, dtype=torch.float32, device=samples.device)
-    err = _build.library("fused_mlp_eval").aon_mlp_eval_launch(
-        samples.data_ptr(), viewdirs.data_ptr(),
-        *(enc_consts[k].data_ptr() for k in ENC_ORDER),
-        wblob.data_ptr(), bblob.data_ptr(), raw_rgb.data_ptr(), raw_sigma.data_ptr(),
-        B * S, S, torch.cuda.current_stream(samples.device).cuda_stream,
-    )
-    _build.check(err, "fused_nerf_mlp_xyz_eval")
+    out = xyz_launch("aon_mlp_eval_launch", "fused_nerf_mlp_xyz_eval", device, packed,
+                     enc_consts, samples, viewdirs, blobs)
     fused_nerf_mlp_xyz_eval.launches += 1
-    return raw_rgb, raw_sigma
+    return out
 
 
 fused_nerf_mlp_xyz_eval.launches = 0
@@ -330,15 +244,6 @@ def grad_errors(got: Mapping[str, torch.Tensor], want: Mapping[str, torch.Tensor
     return max_rel, mean_rel
 
 
-def check_float32(device: torch.device, **tensors) -> None:
-    """Raise unless every ``name=(tensor, shape)`` is contiguous float32 of
-    that shape on ``device``: what the kernels take."""
-    for name, (t, shape) in tensors.items():
-        if (tuple(t.shape) != tuple(shape) or t.dtype != torch.float32 or not t.is_contiguous()
-                or t.device != device):
-            raise ValueError(f"{name} must be contiguous float32 {tuple(shape)} on {device}")
-
-
 def train_workspaces(n_rows: int, device: torch.device):
     """Scratch of one launch of a training kernel: the bf16 activation and
     gradient workspaces (rows padded to whole 64-row tiles) and the float32
@@ -436,3 +341,103 @@ def fused_mlp_train_xyz(
     names = tuple(sorted(mlp_params))
     return _FusedMLPTrainXYZ.apply(enc_consts, samples.detach(), viewdirs.detach(), names,
                                    *(mlp_params[n] for n in names))
+
+
+# ------------------------------------------------------ pre-encoded inputs
+
+
+def fused_mlp_bwd_plain(
+    packed: Mapping[str, torch.Tensor],
+    enc: torch.Tensor,
+    venc: torch.Tensor,
+    g: torch.Tensor,
+) -> Dict[str, torch.Tensor]:
+    """Plain PyTorch twin of ``fused_mlp_bwd`` (``_bwd_kernel``), on any
+    device: ``fwd_activations`` and ``bwd_from_acts`` on the given encodings,
+    which every product rounds to bf16."""
+    _require_float32_reference(enc)
+    enc, venc = pad_features(enc.float(), venc.float())
+    acts = fwd_activations(enc, venc, packed)
+    g = g.float()
+    return bwd_from_acts(enc, venc, g[:, :3], g[:, 3:4], acts, packed)
+
+
+def fused_mlp_bwd(
+    packed: Mapping[str, torch.Tensor],
+    enc: torch.Tensor,
+    venc: torch.Tensor,
+    g: torch.Tensor,
+    blobs: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> Dict[str, torch.Tensor]:
+    """Weight gradients of the fused MLP for the cotangent ``g`` (N, 4) =
+    ``cat(g_rgb, g_sigma)`` from pre-encoded (N, 63|64) and (N, 27|32)
+    inputs: the forward is recomputed from them, nothing is kept from the
+    forward call.  ``packed`` is float32-packed (``pack_vanilla_mlp_params_f32``);
+    returns float32 gradients in the same layout (``SHAPES``).  CUDA tensors
+    launch the kernel (kernel table row 6); CPU tensors run the plain twin.
+    A caller that already holds ``train_blobs(packed)`` passes them as
+    ``blobs``."""
+    device = _kernel_device(enc)
+    if device is None:
+        return fused_mlp_bwd_plain(packed, enc, venc, g)
+    n = enc.shape[0]
+    enc, venc = (t.float().contiguous() for t in pad_features(enc, venc))
+    check_float32(device, enc=(enc, (n, POS_PAD)), venc=(venc, (n, VIEW_PAD)), g=(g, (n, 4)))
+    wblob, bblob = blobs if blobs is not None else train_blobs(packed)
+    if wblob.device != device:
+        raise ValueError(f"packed weights must be on {device}")
+    act, grad, raw_rgb, raw_sigma = train_workspaces(n, device)
+    # zeroed on the launch's stream: the kernels add into it
+    gw = torch.zeros(N_KERNEL_WEIGHTS + N_KERNEL_BIASES, dtype=torch.float32, device=device)
+    err = _build.library("level_train").aon_mlp_bwd_enc_launch(
+        enc.data_ptr(), venc.data_ptr(), g.data_ptr(), wblob.data_ptr(), bblob.data_ptr(),
+        raw_rgb.data_ptr(), raw_sigma.data_ptr(), act.data_ptr(), grad.data_ptr(), gw.data_ptr(),
+        n, torch.cuda.current_stream(device).cuda_stream,
+    )
+    _build.check(err, "fused_mlp_bwd")
+    fused_mlp_bwd.launches += 1
+    return grads_from_blob(gw)
+
+
+fused_mlp_bwd.launches = 0
+
+
+class _FusedMLPTrain(torch.autograd.Function):
+    """Forward through ``fused_nerf_mlp`` on the bf16-rounded weights,
+    backward through ``fused_mlp_bwd``; the float32-packed weights arrive as
+    ``names`` + ``*values`` and are the only inputs that receive a gradient."""
+
+    @staticmethod
+    def forward(ctx, enc, venc, names, *values):
+        packed = dict(zip(names, values))
+        # rounded once: both launches read the same blobs
+        rounded = round_packed(packed)
+        blobs = kernel_blobs(rounded) if enc.is_cuda else None
+        ctx.names, ctx.packed, ctx.blobs = names, packed, blobs
+        ctx.save_for_backward(enc, venc)
+        return fused_nerf_mlp(rounded, enc, venc, blobs=blobs)
+
+    @staticmethod
+    def backward(ctx, g_rgb, g_sigma):
+        enc, venc = ctx.saved_tensors
+        g = torch.cat([g_rgb, g_sigma], dim=-1).float().contiguous()
+        grads = fused_mlp_bwd(ctx.packed, enc, venc, g, blobs=ctx.blobs)
+        return (None, None, None, *(grads[n] for n in ctx.names))
+
+
+def fused_mlp_train(
+    packed: Mapping[str, torch.Tensor],
+    enc: torch.Tensor,
+    venc: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Differentiable fused MLP on pre-encoded inputs: float32-packed weights
+    (``pack_vanilla_mlp_params_f32``), enc (N, 63|64) and venc (N, 27|32) ->
+    ``(raw_rgb (N, 3), raw_sigma (N, 1))``.  Gradients flow to ``packed``
+    only, in its ``SHAPES`` layout; ``enc`` and ``venc`` get none.
+
+    The forward multiplies the weights rounded to bf16 (``round_packed``), as
+    the backward does and as the TPU's matrix unit does with float32
+    operands; the JAX kernel in interpret mode keeps them float32 there."""
+    names = tuple(sorted(packed))
+    return _FusedMLPTrain.apply(enc.detach(), venc.detach(), names,
+                                *(packed[n] for n in names))

@@ -4,7 +4,7 @@
 Only the reference's live path is ported: plain Adam(0.9, 0.999, eps 1e-8)
 with the log-lerp + sin-warmup schedule.  The factory surface of
 ``aon_tpu/train/optim.py`` (sgd / radam / ranger, steplr / cosine / poly,
-gradual warmup) is ROADMAP.md slice 6.
+gradual warmup) is ROADMAP.md slice 8.
 
 The update is written out as tensor code on dictionaries of tensors, in the
 order ``optax.adam`` computes it: the schedule is read at the count before
@@ -78,5 +78,5 @@ def make_optimizer(cfg: Config) -> Tuple[Adam, Callable[[int], float]]:
         return tx, tx.schedule
     raise NotImplementedError(
         f"optimizer={cfg.optimizer!r} with lr_scheduler={cfg.lr_scheduler!r} is not ported yet "
-        "(ROADMAP.md slice 6, Queue 1 item 9); only adam + nerf_loglerp is"
+        "(ROADMAP.md slice 8, Queue 1 item 9); only adam + nerf_loglerp is"
     )

@@ -333,7 +333,7 @@ def build_system(cfg: Config, near: float, far: float, white_bkgd: bool,
         return AutoDecoderSystem(cfg, near, far, white_bkgd, device=device)
     if cfg.exp_type == "vanilla_ae_art":
         raise NotImplementedError(
-            "exp_type='vanilla_ae_art' is not ported yet (ROADMAP.md slice 5, "
+            "exp_type='vanilla_ae_art' is not ported yet (ROADMAP.md slice 7, "
             "Queue 1 item 8: the auto-encoder)"
         )
     raise ValueError(f"unknown exp_type: {cfg.exp_type}")

@@ -8,15 +8,19 @@ Phases, each printed as one JSON line on stdout (nothing else goes there):
   device   the card (torch, and `nvidia-smi --query-gpu=name,power.limit`);
   build    nvcc builds every kernel of aon_tpu_torch/ops/csrc for sm_90a;
   kernel   each kernel on the card at its paths' shapes (render: 61,440 rays
-           x 65 and x 193 samples for the eval MLP, a 61,440-ray resample with
+           x 65 and x 193 samples for the eval MLP from raw coordinates and
+           from per-sample and per-ray encodings, a 61,440-ray resample with
            the one shared row of eval quantiles; training: 2,048 rays x 65 and
-           x 193 for the level, the MLP backward and the eval MLP with the
-           bf16-rounded float32 packing of the v2 forward, and a 2,048-ray
-           resample with per-ray sorted random quantiles), held against its
-           plain PyTorch twin on the same inputs, timed with CUDA events
-           (median) beside the twin and a library yardstick (the same function
-           as bf16 torch calls, under autograd for the training kernels) that
-           the port never calls, and beside its bound on the H100;
+           x 193 for the level, the MLP backward from raw coordinates and from
+           encodings and the eval MLP with the bf16-rounded float32 packing of
+           the v2 forward (and at x 193 from encodings, as fused_mlp_train's
+           forward), and a 2,048-ray resample with per-ray sorted random
+           quantiles; geometry: 512 x 128 grid points for the eval MLP of
+           extract_geometry), held against its plain PyTorch twin on the same
+           inputs, timed with CUDA events (median) beside the twin and a
+           library yardstick (the same function as bf16 torch calls, under
+           autograd for the training kernels) that the port never calls, and
+           beside its bound on the H100;
   posenc   the in-kernel encoding's range reduction at the 2^9 frequency;
   path     build_system on configs/quality_laptop_vanilla_refsched.json at
            full width with seeded random weights, one cold frame and then two
@@ -50,6 +54,18 @@ Phases, each printed as one JSON line on stdout (nothing else goes there):
            articulation) pair per step; ms per step, exact launch counts, the
            loss curve, the first step against the plain float32 route, code
            rows no step indexed unchanged, and train_many against train_step;
+  ops_api  the public kernel API (aon_tpu_torch.ops) on pre-encoded inputs of
+           2,048 rays x 65 samples with the trained vanilla state: a training
+           level through fused_mlp_train under autograd and the fine MLP
+           through fused_nerf_mlp and fused_nerf_mlp_per_ray, exact launch
+           counts, against the raw-coordinate entry points on the same samples;
+  geometry extract_geometry.main at its default settings (a 160^3 grid, 65,536
+           points per query) on the trained vanilla and auto-decoder states,
+           saved and restored through train.checkpoint (the auto-decoder also
+           at a midpoint code): exact launch counts, the sigma grid and its
+           occupancy against the plain twins' on the same points, the three
+           files parsed, and the wall time split into restore, query, mesh and
+           write;
   kernels  every kernel of the paths with its launches, error, times and bound;
 
 with --profile, two ``profile`` lines as well: torch.profiler over five warm v3
@@ -63,13 +79,19 @@ and exits 1.  Needs one CUDA device; exits 1 without one.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import math
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -161,6 +183,15 @@ TOL_ART_STEP_COS = {"trunk": 0.99, "deform": 0.6, "codes": 0.95}
 # deformation's phase amplification on top: seen 0.012 and 0.011
 TOL_ART_ROUTES_GRAD_MAX, TOL_ART_ROUTES_GRAD_MEAN = 0.1, 0.05
 
+# ---- geometry extraction (aon_tpu_torch/scripts/extract_geometry.py) at its
+# default, full-width settings: a 160^3 grid queried 65,536 points at a time
+GEO_RES, GEO_CHUNK = 160, 65536
+GEO_BOUNDS = (-1.5, -1.5, -1.5, 1.5, 1.5, 1.5)
+# the kernel's occupancy against its twin's: voxels whose sigma lies within
+# the kernel / twin noise of the threshold may flip; at most this share of
+# the grid's voxels may
+TOL_OCC_SHARE = 1e-4
+
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
@@ -173,6 +204,31 @@ class PhaseFailed(Exception):
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise PhaseFailed(what)
+
+
+def worst_tensors(got, want) -> dict:
+    """The gradient tensors with the largest max and mean relative errors
+    (the measures of ``fused_mlp_train.grad_errors``) and those errors."""
+    tiny = 1e-30
+    max_rel = {k: ((got[k] - want[k]).abs().max() / want[k].abs().max().clamp_min(tiny)).item()
+               for k in want}
+    mean_rel = {k: ((got[k] - want[k]).abs().mean() / want[k].abs().mean().clamp_min(tiny)).item()
+                for k in want}
+    k_max, k_mean = max(max_rel, key=max_rel.get), max(mean_rel, key=mean_rel.get)
+    return {"max": [k_max, max_rel[k_max]], "mean": [k_mean, mean_rel[k_mean]]}
+
+
+def geometry_files_ok(out_dir, out) -> bool:
+    """Whether the point cloud and the mesh an extraction wrote parse and
+    hold what it reported (``out``: occupied, verts, tris)."""
+    ply = (out_dir / "points.ply").read_text().splitlines()
+    obj = (out_dir / "mesh.obj").read_text().splitlines()
+    faces = [ln.split()[1:] for ln in obj if ln.startswith("f ")]
+    return (f"element vertex {out['occupied']}" in ply
+            and len(ply) == ply.index("end_header") + 1 + out["occupied"]
+            and sum(ln.startswith("v ") for ln in obj) == out["verts"]
+            and len(faces) == out["tris"]
+            and all(1 <= int(i) <= out["verts"] for f in faces for i in f))
 
 
 def launches_are(launches, **want) -> bool:
@@ -200,10 +256,17 @@ def time_ms(torch, fn, reps: int, warmup: int = 1) -> float:
 def library_mlp(torch, packed, consts, samples, viewdirs, encode_plain):
     """Yardstick only: the same layer chain as bf16 cuBLAS calls."""
     B, S, _ = samples.shape
-    bf = torch.bfloat16
-    enc = encode_plain(samples.reshape(-1, 3), consts["s_pos"], consts["p_pos"]).to(bf)
+    enc = encode_plain(samples.reshape(-1, 3), consts["s_pos"], consts["p_pos"])
     venc = encode_plain(torch.repeat_interleave(viewdirs, S, 0), consts["s_view"],
-                        consts["p_view"]).to(bf)
+                        consts["p_view"])
+    return library_mlp_enc(torch, packed, enc, venc)
+
+
+def library_mlp_enc(torch, packed, enc, venc):
+    """Yardstick only: the layer chain as bf16 cuBLAS calls on given
+    per-sample encodings."""
+    bf = torch.bfloat16
+    enc, venc = enc.to(bf), venc.to(bf)
     w = {k: v.to(bf) for k, v in packed.items()}
     h = torch.relu(torch.addmm(w["b0"], enc, w["w0"]))
     for i in (1, 2, 3, 4):
@@ -239,6 +302,15 @@ def library_level(torch, packed, consts, t_vals, rays_o, rays_d, viewdirs, targe
     return torch.autograd.grad(loss, list(w.values()))
 
 
+def library_mlp_vjp(torch, packed, enc, venc, cotangent):
+    """Yardstick only: the weight gradients of ``library_mlp_enc`` for the
+    cotangent (N, 4), under autograd."""
+    w = {k: v.to(torch.bfloat16).requires_grad_(True) for k, v in packed.items()}
+    rgb, sigma = library_mlp_enc(torch, w, enc, venc)
+    loss = (rgb.float() * cotangent[:, :3]).sum() + (sigma.float() * cotangent[:, 3:]).sum()
+    return torch.autograd.grad(loss, list(w.values()))
+
+
 def library_art_mlp(torch, packed, consts, samples, viewdirs, encode_plain):
     """Yardstick only: the articulated MLP's layer chain as bf16 cuBLAS calls
     (``packed``: effective weights, biases (1, C))."""
@@ -268,10 +340,14 @@ def library_art_mlp(torch, packed, consts, samples, viewdirs, encode_plain):
 
 
 def library_art_level(torch, packed, consts, t_vals, rays_o, rays_d, viewdirs, target, loss_w,
-                      encode_plain, cotangent=None):
+                      encode_plain, cotangent=None, mask=None, white_bkgd=False,
+                      rgb_padding=0.001, density_bias=-1.0, bce_weight=0.0,
+                      sigma_act="softplus_bias"):
     """Yardstick only: one articulated training level as bf16 cuBLAS calls
-    under autograd (the auto-decoder's head activations, compositing, weighted
-    loss, backward); with ``cotangent`` (B, S, 4) the MLP alone."""
+    under autograd (head activations, compositing, weighted loss, the opacity
+    BCE where ``bce_weight`` is set, backward; the level kernel's arguments,
+    the auto-decoder's by default); with ``cotangent`` (B, S, 4) the MLP
+    alone."""
     B, S = t_vals.shape
     samples = rays_o[:, None, :] + t_vals[..., None] * rays_d[:, None, :]
     w = {k: v.to(torch.bfloat16).requires_grad_(True) for k, v in packed.items()}
@@ -281,11 +357,19 @@ def library_art_level(torch, packed, consts, t_vals, rays_o, rays_d, viewdirs, t
         loss = (rgb * cotangent[..., :3]).sum() + (sigma * cotangent[..., 3]).sum()
     else:
         dist = torch.cat([t_vals[:, 1:] - t_vals[:, :-1], torch.full_like(t_vals[:, :1], 1e10)], -1)
-        alpha = 1.0 - torch.exp(-torch.nn.functional.softplus(sigma - 1.0) * dist)
+        sigma = (torch.nn.functional.softplus(sigma + density_bias)
+                 if sigma_act == "softplus_bias" else torch.relu(sigma))
+        alpha = 1.0 - torch.exp(-sigma * dist)
         trans = torch.cumprod(torch.clamp_min(1.0 - alpha, 0.0) + 1e-10, -1)
         wgt = alpha * torch.cat([torch.ones_like(trans[:, :1]), trans[:, :-1]], -1)
-        comp = (wgt[..., None] * (torch.sigmoid(rgb) * 1.002 - 0.001)).sum(1)
+        rgb = torch.sigmoid(rgb) * (1.0 + 2.0 * rgb_padding) - rgb_padding
+        comp, acc = (wgt[..., None] * rgb).sum(1), wgt.sum(-1)
+        if white_bkgd:
+            comp = comp + (1.0 - acc[:, None])
         loss = (loss_w[:, None] * (comp - target) ** 2).sum()
+        if bce_weight:
+            loss = loss + bce_weight * torch.nn.functional.binary_cross_entropy_with_logits(
+                acc, mask)
     return torch.autograd.grad(loss, list(w.values()), allow_unused=True)
 
 
@@ -326,6 +410,12 @@ def main(argv=None) -> int:
         from aon_tpu_torch.data.analytic import articulated_scene
         from aon_tpu_torch.ops import _build, fused_art
         from aon_tpu_torch.ops.fused_mlp import (
+            fused_nerf_mlp,
+            fused_nerf_mlp_per_ray,
+            fused_nerf_mlp_per_ray_plain,
+            fused_nerf_mlp_plain,
+            fused_nerf_mlp_xyz,
+            fused_nerf_mlp_xyz_plain,
             make_posenc_constants,
             pack_vanilla_mlp_params,
             pack_vanilla_mlp_params_f32,
@@ -337,13 +427,19 @@ def main(argv=None) -> int:
             TWIN_TOL_MAX,
             TWIN_TOL_MEAN,
             encode_plain,
+            fused_mlp_bwd,
+            fused_mlp_bwd_plain,
             fused_mlp_bwd_xyz,
             fused_mlp_bwd_xyz_plain,
+            fused_mlp_train,
             fused_nerf_mlp_xyz_eval,
             fused_nerf_mlp_xyz_eval_plain,
             grad_errors,
             posenc_in_kernel,
         )
+        from aon_tpu_torch.core.rendering import volumetric_rendering
+        from aon_tpu_torch.scripts import extract_geometry
+        from aon_tpu_torch.train.checkpoint import CheckpointManager
         from aon_tpu_torch.ops.render_fused import mlp_params
         from aon_tpu_torch.ops.resample import (
             resample_union,
@@ -401,28 +497,24 @@ def main(argv=None) -> int:
             torch.randn(CHUNK_RAYS, 3, generator=gen, device=dev), dim=-1)
         origins = -4.0 * dirs + 0.3 * torch.randn(CHUNK_RAYS, 3, generator=gen, device=dev)
 
-        def mlp_eval_record(packed_bf, samples, vdirs):
-            """One ``kernel`` line of the eval MLP against its twin, checked."""
-            n_rays, n_samples = samples.shape[:2]
-            rgb, sigma = fused_nerf_mlp_xyz_eval(packed_bf, consts, samples, vdirs)
+        def forward_record(kname, fn, fn_plain, args_, library, rows, in_bytes, **extra):
+            """One ``kernel`` line of a vanilla MLP forward entry against its
+            twin, checked; ``in_bytes`` are the inputs it stages."""
+            rgb, sigma = fn(*args_)
             torch.cuda.synchronize()
-            rgb_p, sigma_p = fused_nerf_mlp_xyz_eval_plain(packed_bf, consts, samples, vdirs)
+            rgb_p, sigma_p = fn_plain(*args_)
             err = torch.cat([(rgb - rgb_p).reshape(-1), (sigma - sigma_p).reshape(-1)]).abs()
-            rows = n_rays * n_samples
             flops = 2.0 * MLP_MACS_PER_SAMPLE * rows
-            # xyz in, rgb + sigma out per sample; viewdirs per ray; bf16 weights, f32 biases
-            nbytes = (rows * (12 + 16) + n_rays * 12 + 2 * MLP_MACS_PER_SAMPLE
-                      + 4 * MLP_BIASES)
-            args_ = (packed_bf, consts, samples, vdirs)
+            # inputs, rgb + sigma out per sample, bf16 weights, f32 biases
+            nbytes = in_bytes + rows * 16 + 2 * MLP_MACS_PER_SAMPLE + 4 * MLP_BIASES
             rec = {
-                "phase": "kernel", "name": "fused_nerf_mlp_xyz_eval",
-                "shape": f"{n_rays}x{n_samples}", "rows": rows,
+                "phase": "kernel", "name": kname, **extra, "rows": rows,
                 "max_abs_err": err.max().item(), "mean_abs_err": err.mean().item(),
                 "tol_max": TWIN_TOL_MAX, "tol_mean": TWIN_TOL_MEAN,
                 "finite": bool(torch.isfinite(rgb).all() and torch.isfinite(sigma).all()),
-                "ms": time_ms(torch, lambda: fused_nerf_mlp_xyz_eval(*args_), 5),
-                "plain_ms": time_ms(torch, lambda: fused_nerf_mlp_xyz_eval_plain(*args_), 3),
-                "library_ms": time_ms(torch, lambda: library_mlp(torch, *args_, encode_plain), 3),
+                "ms": time_ms(torch, lambda: fn(*args_), 5),
+                "plain_ms": time_ms(torch, lambda: fn_plain(*args_), 3),
+                "library_ms": time_ms(torch, library, 3),
                 "flop": flops, "bytes": nbytes,
                 "bound_ms": 1e3 * max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES),
                 "bound_by": ("operations" if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_BYTES
@@ -431,17 +523,78 @@ def main(argv=None) -> int:
             }
             rec["tflops"] = flops / rec["ms"] / 1e9
             emit(rec)
-            require(rec["finite"], "non-finite MLP kernel output")
+            require(rec["finite"], f"non-finite {kname} output")
             require(rec["max_abs_err"] <= TWIN_TOL_MAX and rec["mean_abs_err"] <= TWIN_TOL_MEAN,
-                    f"MLP kernel disagrees with its twin at {rec['shape']}")
+                    f"{kname} disagrees with its twin at {rec['shape']}")
             return rec
 
-        mlp_rows = {}
+        def mlp_eval_record(packed_bf, samples, vdirs, kname="fused_nerf_mlp_xyz_eval"):
+            """Kernel 1 (or 8, the same function from the same inputs) on raw
+            samples and per-ray viewdirs."""
+            n_rays, n_samples = samples.shape[:2]
+            fns = {"fused_nerf_mlp_xyz_eval": (fused_nerf_mlp_xyz_eval,
+                                               fused_nerf_mlp_xyz_eval_plain),
+                   "fused_nerf_mlp_xyz": (fused_nerf_mlp_xyz, fused_nerf_mlp_xyz_plain)}[kname]
+            args_ = (packed_bf, consts, samples, vdirs)
+            return forward_record(
+                kname, *fns, args_, lambda: library_mlp(torch, *args_, encode_plain),
+                n_rays * n_samples, n_rays * n_samples * 12 + n_rays * 12,
+                shape=f"{n_rays}x{n_samples}")
+
+        def encodings(samples, vdirs):
+            """Per-sample (N, 64) and per-ray (B, 32) float32 encodings, as a
+            caller of the encoded-input entry points makes them."""
+            x, block = samples.reshape(-1, 3), 1 << 20
+            enc = torch.empty(x.shape[0], 64, device=dev)
+            for i in range(0, x.shape[0], block):
+                enc[i:i + block] = encode_plain(x[i:i + block], consts["s_pos"], consts["p_pos"])
+            return enc, encode_plain(vdirs, consts["s_view"], consts["p_view"])
+
+        def enc_records(packed_bf, samples, vdirs):
+            """Kernels 5 (per-sample view encodings) and 7 (per-ray) on the
+            encodings of the samples, against their twins."""
+            n_rays, n_samples = samples.shape[:2]
+            rows = n_rays * n_samples
+            enc, venc = encodings(samples, vdirs)
+            venc_rows = torch.repeat_interleave(venc, n_samples, 0)
+            flat = (packed_bf, enc, venc_rows)
+            per_ray = (packed_bf, enc.view(n_rays, n_samples, 64), venc)
+            out = {
+                "fused_nerf_mlp": forward_record(
+                    "fused_nerf_mlp", fused_nerf_mlp, fused_nerf_mlp_plain, flat,
+                    lambda: library_mlp_enc(torch, packed_bf, enc, venc_rows), rows,
+                    rows * (64 + 32) * 4, shape=f"{n_rays}x{n_samples}"),
+                "fused_nerf_mlp_per_ray": forward_record(
+                    "fused_nerf_mlp_per_ray", fused_nerf_mlp_per_ray,
+                    fused_nerf_mlp_per_ray_plain, per_ray,
+                    lambda: library_mlp_enc(torch, packed_bf, enc,
+                                            torch.repeat_interleave(venc, n_samples, 0)),
+                    rows, rows * 64 * 4 + n_rays * 32 * 4, shape=f"{n_rays}x{n_samples}"),
+            }
+            del enc, venc, venc_rows, flat, per_ray
+            torch.cuda.empty_cache()
+            return out
+
+        mlp_rows, enc_rows = {}, {}
         for n_samples in (N_COARSE + 1, N_COARSE + 1 + N_FINE):
             _, samples = sample_along_rays(origins, dirs, n_samples - 1, 2.0, 6.0)
-            mlp_rows[n_samples] = mlp_eval_record(packed, samples.contiguous(), dirs)
+            samples = samples.contiguous()
+            mlp_rows[n_samples] = mlp_eval_record(packed, samples, dirs)
+            for kname, rec in enc_records(packed, samples, dirs).items():
+                enc_rows[kname, "render", n_samples] = rec
             del samples
         torch.cuda.empty_cache()
+
+        # kernel 8 at the extraction's block: 65,536 grid points as 512 x 128
+        # with one viewdir (extract_geometry.py --chunk 65536)
+        phase = "kernel:fused_nerf_mlp_xyz"
+        # (a generator of its own: the draws of the phases after this one stay
+        # those of earlier runs)
+        geo_gen = torch.Generator(device=dev).manual_seed(args.seed + 11)
+        geo_block = torch.rand(GEO_CHUNK // 128, 128, 3, generator=geo_gen, device=dev) * 3.0 - 1.5
+        geo_vdir = torch.tensor([[0.0, 0.0, -1.0]], device=dev).expand(GEO_CHUNK // 128, 3)
+        xyz_rec = mlp_eval_record(packed, geo_block, geo_vdir.contiguous(), "fused_nerf_mlp_xyz")
+        del geo_block, geo_vdir
 
         phase = "posenc"
         xs = (torch.rand(4096, 3, generator=gen, device=dev) * 12 - 6).contiguous()
@@ -508,6 +661,10 @@ def main(argv=None) -> int:
         # ------------------------------------------------- training kernels
         phase = "kernel:training"
         counters = {"fused_nerf_mlp_xyz_eval": fused_nerf_mlp_xyz_eval,
+                    "fused_nerf_mlp": fused_nerf_mlp,
+                    "fused_nerf_mlp_per_ray": fused_nerf_mlp_per_ray,
+                    "fused_nerf_mlp_xyz": fused_nerf_mlp_xyz,
+                    "fused_mlp_bwd": fused_mlp_bwd,
                     "resample_union": resample_union,
                     "fused_level_train_grads": fused_level_train_grads,
                     "fused_mlp_bwd_xyz": fused_mlp_bwd_xyz,
@@ -530,6 +687,11 @@ def main(argv=None) -> int:
             flops = 3 * 2.0 * MLP_MACS_PER_SAMPLE * rows
             level_args = (packed32, consts, t_lvl, ro, rd, rd, target, True)
             bwd_args = (packed32, consts, samples, rd, cot)
+            # kernel 6 on the samples' encodings, as fused_mlp_train's backward
+            # gets them
+            enc, venc = encodings(samples, rd)
+            enc_bwd_args = (packed32, enc, torch.repeat_interleave(venc, n_samples, 0),
+                            cot.reshape(rows, 4))
             runs = (
                 # t and weights (B, S), four (B, 3) ray arrays, f32 params in, f32 grads out
                 ("fused_level_train_grads", fused_level_train_grads,
@@ -542,6 +704,10 @@ def main(argv=None) -> int:
                  4 * (7 * rows + 3 * TRAIN_RAYS + 2 * n_params),
                  lambda: library_level(torch, packed32, consts, t_lvl, ro, rd, rd, target,
                                        encode_plain, cotangent=cot)),
+                # enc, venc and g (N, 64 + 32 + 4), f32 params in, f32 grads out
+                ("fused_mlp_bwd", fused_mlp_bwd, fused_mlp_bwd_plain, enc_bwd_args,
+                 4 * (100 * rows + 2 * n_params),
+                 lambda: library_mlp_vjp(torch, *enc_bwd_args)),
             )
             for kname, fn, fn_plain, fn_args, nbytes, library in runs:
                 got = fn(*fn_args)
@@ -566,6 +732,7 @@ def main(argv=None) -> int:
                     "err_is": "per gradient tensor, relative to its max (mean) magnitude; worst",
                     "tol_max": GRAD_TOL_REL, "tol_mean": GRAD_TOL_MEAN_REL,
                     "repeat_max_rel": grad_errors(grads2, grads)[0],
+                    "worst": worst_tensors(grads, grads_p),
                     "finite": all(bool(torch.isfinite(v).all()) for v in grads.values()),
                     "ms": time_ms(torch, lambda: fn(*fn_args), 7, warmup=2),
                     "plain_ms": time_ms(torch, lambda: fn_plain(*fn_args), 3),
@@ -587,6 +754,11 @@ def main(argv=None) -> int:
             # of training, rounded to bf16 for the launch
             train_rows["fused_nerf_mlp_xyz_eval", n_samples] = mlp_eval_record(
                 round_packed(packed32), samples, rd)
+            del enc, venc, enc_bwd_args
+            if level == "fine_mlp":
+                # kernels 5 and 7 as fused_mlp_train's forward launches them
+                for kname, rec in enc_records(round_packed(packed32), samples, rd).items():
+                    enc_rows[kname, "train", n_samples] = rec
             if level == "coarse_mlp":
                 # the resample as a step calls it: the coarse level's own
                 # weights (a few rays emptied: the eps padding path) and a
@@ -958,9 +1130,9 @@ def main(argv=None) -> int:
                     ("fused_level_train_art_grads", mode, fused_level_train_art_grads,
                      fused_level_train_art_grads_plain, (*level_args, lw, art_mask), kw,
                      4 * (2 * rows + (4 * 3 + 3) * TRAIN_RAYS + 2 * n_art_params + 1),
-                     (lambda lw=lw: library_art_level(torch, packed_art, consts, t_lvl, ro, rd, rd,
-                                                      art_target, lw, encode_plain))
-                     if mode == "autodecoder" else None))
+                     lambda lw=lw, kw=kw: library_art_level(
+                         torch, packed_art, consts, t_lvl, ro, rd, rd, art_target, lw,
+                         encode_plain, mask=art_mask, **kw)))
             for kname, mode, fn, fn_plain, fn_args, kw, nbytes, library in runs:
                 got = fn(*fn_args, **kw)
                 torch.cuda.synchronize()
@@ -989,10 +1161,11 @@ def main(argv=None) -> int:
                     "err_is": "per gradient tensor, relative to its max (mean) magnitude; worst",
                     "tol_max": fused_art.GRAD_TOL_REL, "tol_mean": fused_art.GRAD_TOL_MEAN_REL,
                     "repeat_max_rel": grad_errors(grads2, grads)[0],
+                    "worst": worst_tensors(grads, grads_p),
                     "finite": all(bool(torch.isfinite(v).all()) for v in grads.values()),
                     "ms": time_ms(torch, lambda: fn(*fn_args, **kw), 7, warmup=2),
                     "plain_ms": time_ms(torch, lambda: fn_plain(*fn_args, **kw), 3),
-                    "library_ms": time_ms(torch, library, 3) if library is not None else None,
+                    "library_ms": time_ms(torch, library, 3),
                     **bound_of(flops, nbytes), "card": card,
                 })
                 rec["tflops"] = flops / rec["ms"] / 1e9
@@ -1221,6 +1394,194 @@ def main(argv=None) -> int:
         art_train_launches = {k: art_v3["launches"][k] + art_v2["launches"][k]
                               + sum(r["launches"][k] for r in art_many.values()) for k in counters}
 
+        # ---------------------------------------------------------- ops_api
+        # The public kernel API (aon_tpu_torch.ops) as a caller drives it on
+        # pre-encoded inputs, with the trained vanilla state: a coarse training
+        # level through fused_mlp_train (kernels 5 and 6) under autograd, and
+        # the fine MLP on the same samples through fused_nerf_mlp and
+        # fused_nerf_mlp_per_ray (5 and 7).  Held against the raw-coordinate
+        # entry points (kernels 1 and 4) on the same samples, which encode in
+        # the kernel what the caller encoded here.
+        phase = "ops_api"
+        g = torch.Generator(device=dev).manual_seed(args.seed + 10)
+        batch = batch_of(g)
+        rd, vd, tgt = (batch[k].contiguous() for k in ("rays_d", "viewdirs", "target"))
+        n_api = N_COARSE + 1
+        t_api, samples = sample_along_rays(batch["rays_o"], rd, N_COARSE, 2.0, 6.0)
+        samples = samples.contiguous()
+        leaves = {k: v.clone().requires_grad_(True) for k, v in pack_vanilla_mlp_params_f32(
+            mlp_params(state_v3.params, "coarse_mlp")).items()}
+        packed_fine = pack_vanilla_mlp_params(mlp_params(state_v3.params, "fine_mlp"))
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        enc, venc = encodings(samples, vd)
+        venc_rows = torch.repeat_interleave(venc, n_api, 0)
+        rgb, sigma = fused_mlp_train(leaves, enc, venc_rows)
+        comp = volumetric_rendering(torch.sigmoid(rgb.view(TRAIN_RAYS, n_api, 3)),
+                                    torch.relu(sigma.view(TRAIN_RAYS, n_api, 1)), t_api, rd,
+                                    white_bkgd=True)[0]
+        loss = ((comp - tgt) ** 2).mean()
+        g_rgb, g_sigma, *api_grads = torch.autograd.grad(loss, [rgb, sigma, *leaves.values()])
+        api_grads = dict(zip(leaves, api_grads))
+        with torch.no_grad():
+            flat = fused_nerf_mlp(packed_fine, enc, venc_rows)
+            per_ray = fused_nerf_mlp_per_ray(packed_fine, enc.view(TRAIN_RAYS, n_api, 64), venc)
+        torch.cuda.synchronize()
+        api_ms = 1e3 * (time.perf_counter() - t0)
+        api_launches = {k: c.launches for k, c in counters.items()}
+        # the raw-coordinate entry points on the same samples (comparisons,
+        # not part of the run above)
+        weights32 = {k: v.detach() for k, v in leaves.items()}
+        ref_out = fused_nerf_mlp_xyz_eval(round_packed(weights32), consts, samples, vd)
+        ref_grads = fused_mlp_bwd_xyz(weights32, consts, samples, vd,
+                                      torch.cat([g_rgb, g_sigma], -1).view(TRAIN_RAYS, n_api, 4))
+        ref_fine = fused_nerf_mlp_xyz_eval(packed_fine, consts, samples, vd)
+
+        def out_errors(got, want):
+            err = torch.cat([(a.reshape(-1) - b.reshape(-1)) for a, b in zip(got, want)]).abs()
+            return {"max_abs_err": err.max().item(), "mean_abs_err": err.mean().item()}
+
+        api = {"train_forward_vs_xyz": out_errors((rgb, sigma), ref_out),
+               "render_vs_xyz": out_errors(flat, ref_fine)}
+        api["train_grads_vs_xyz"] = dict(zip(("max_rel", "mean_rel"),
+                                             grad_errors(api_grads, ref_grads)))
+        checks = {
+            "launches": launches_are(api_launches, fused_nerf_mlp=2, fused_nerf_mlp_per_ray=1,
+                                     fused_mlp_bwd=1),
+            "finite": math.isfinite(loss.item()) and all(
+                bool(torch.isfinite(v).all()) for v in api_grads.values()),
+            "outputs_vs_xyz": all(e["max_abs_err"] <= TWIN_TOL_MAX
+                                  and e["mean_abs_err"] <= TWIN_TOL_MEAN
+                                  for e in (api["train_forward_vs_xyz"], api["render_vs_xyz"])),
+            "grads_vs_xyz": (api["train_grads_vs_xyz"]["max_rel"] <= GRAD_TOL_REL
+                             and api["train_grads_vs_xyz"]["mean_rel"] <= GRAD_TOL_MEAN_REL),
+            # the view row gathered per ray is the flat row: the same values
+            "per_ray_equals_flat": bool(torch.equal(per_ray[0].reshape(-1, 3), flat[0])
+                                        and torch.equal(per_ray[1].reshape(-1, 1), flat[1])),
+        }
+        emit({"phase": "ops_api", "rays": TRAIN_RAYS, "samples": n_api, "loss": loss.item(),
+              "ms": api_ms, "launches": api_launches, "errors": api,
+              "tol": {"outputs": [TWIN_TOL_MAX, TWIN_TOL_MEAN],
+                      "grads": [GRAD_TOL_REL, GRAD_TOL_MEAN_REL]},
+              "checks": checks, "card": card})
+        require(all(checks.values()), f"ops_api checks failed: {checks}")
+        del enc, venc, venc_rows, rgb, sigma, comp, flat, per_ray, ref_out, ref_fine, leaves
+        torch.cuda.empty_cache()
+
+        # --------------------------------------------------------- geometry
+        # extract_geometry.main on the trained states of both systems, saved
+        # and restored through the port's CheckpointManager, at the script's
+        # default settings (160^3 points, 65,536 per query); the auto-decoder
+        # once more at a midpoint code of the interpolated table
+        phase = "geometry"
+        geo_dir = Path(tempfile.mkdtemp(prefix="aon_geometry_"))
+        cwd = os.getcwd()
+        geo_recs = {}
+        voxel = (GEO_BOUNDS[3] - GEO_BOUNDS[0]) / GEO_RES
+        centers = extract_geometry.voxel_centers(
+            np.asarray(GEO_BOUNDS[:3]), voxel, GEO_RES).reshape(-1, 3).astype(np.float32)
+        queries = math.ceil(GEO_RES ** 3 / GEO_CHUNK)
+        try:
+            os.chdir(geo_dir)
+            for label, config, sy, state, counter, ids in (
+                    ("vanilla", CONFIG, system, state_v3, "fused_nerf_mlp_xyz", []),
+                    ("autodecoder", ART_CONFIG, art_system, art_state_v3, "art_mlp_fwd",
+                     ["--instance", "1", "--articulation", "2"]),
+                    ("autodecoder_midpoint", ART_CONFIG, art_system, art_state_v3,
+                     "art_mlp_fwd", ["--instance", "0", "--articulation", "1", "--interpolated"])):
+                cfg_json = json.loads((ROOT / config).read_text())
+                cfg_json["output_path"] = str(geo_dir / "results")
+                cfg_path = geo_dir / Path(config).name
+                cfg_path.write_text(json.dumps(cfg_json))
+                run_dir = geo_dir / "results" / cfg_json["exp_name"]
+                ckpt = CheckpointManager(str(run_dir))
+                if not (run_dir / "last.ckpt").exists():  # both auto-decoder runs share it
+                    ckpt.save_last(state, epoch=0)
+                restored = ckpt.restore(sy.init_state(torch.Generator(device=dev).manual_seed(0)))
+                bit_exact = restored.step == state.step and all(
+                    torch.equal(getattr(restored, part)[k], getattr(state, part)[k])
+                    for part in ("params", "mu", "nu") for k in state.params)
+                flags = ["--config", str(cfg_path), "--resolution", str(GEO_RES),
+                         "--chunk", str(GEO_CHUNK), "--bounds", *map(str, GEO_BOUNDS),
+                         "--out", f"geometry_{label}", *ids]
+                for c in counters.values():
+                    c.launches = 0
+                printed = io.StringIO()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(printed):  # stdout carries JSON lines only
+                    out = extract_geometry.main(flags)
+                wall_s = time.perf_counter() - t0
+                launches = {k: c.launches for k, c in counters.items()}
+                # the plain twins over the same points, on the card
+                trainer = types.SimpleNamespace(cfg=get_config(["--config", str(cfg_path)]),
+                                                state=restored, system=sy)
+                twin = extract_geometry.density_color_fn(
+                    trainer, extract_geometry.build_parser().parse_args(flags), plain=True)
+                want = np.concatenate([
+                    twin(torch.from_numpy(centers[i:i + GEO_CHUNK]).to(dev))[0].cpu().numpy()
+                    for i in range(0, len(centers), GEO_CHUNK)])
+                out_dir = geo_dir / out["out_dir"]
+                z = np.load(out_dir / "density_grid.npz")
+                sigma_k = z["sigma"].reshape(-1)
+                err = np.abs(sigma_k - want)
+                thr = float(z["threshold"])
+                occ_twin = int((want > thr).sum())
+                flipped = int(((sigma_k > thr) != (want > thr)).sum())
+                files_ok = geometry_files_ok(out_dir, out)
+                lines = printed.getvalue().splitlines()
+                # The auto threshold may leave a grid of seeded, briefly trained
+                # weights empty: the occupancy is also held at the twin grid's
+                # 99th percentile, where a threshold cuts through the field, and
+                # the saved grid is re-thresholded there through --from_grid,
+                # which meshes ~41k voxels
+                thr99 = float(np.quantile(want, 0.99))
+                flipped99 = int(((sigma_k > thr99) != (want > thr99)).sum())
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(io.StringIO()):
+                    regrid = extract_geometry.main(["--from_grid", str(out_dir / "density_grid.npz"),
+                                                    "--threshold", repr(thr99)])
+                regrid["wall_s"] = time.perf_counter() - t0
+                tol = ((TWIN_TOL_MAX, TWIN_TOL_MEAN) if label == "vanilla"
+                       else (fused_art.TWIN_TOL_MAX, fused_art.TWIN_TOL_MEAN))
+                checks = {
+                    "restored_bit_exact": bit_exact,
+                    "launches": launches_are(launches, **{counter: queries}),
+                    "sigma_vs_twin": float(err.max()) <= tol[0] and float(err.mean()) <= tol[1],
+                    "occupancy_vs_twin": max(flipped, flipped99) <= TOL_OCC_SHARE * GEO_RES ** 3,
+                    "grid_file": (z["sigma"].shape == (GEO_RES,) * 3
+                                  and np.allclose(z["bounds"].reshape(-1), GEO_BOUNDS)
+                                  and math.isclose(float(z["voxel"]), voxel)
+                                  and bool(np.isfinite(z["sigma"]).all())),
+                    "ply_obj_files": files_ok,
+                    "printed": (sum(ln.startswith("queried ") for ln in lines) == queries
+                                and lines[-1].startswith(f"occupied {out['occupied']}/")),
+                    "from_grid": (regrid["occupied"] == int((sigma_k > thr99).sum()) > 0
+                                  and regrid["tris"] > 0 and geometry_files_ok(out_dir, regrid)),
+                }
+                rec = {"phase": "geometry", "system": label, "config": config, "flags": ids,
+                       "resolution": GEO_RES, "chunk": GEO_CHUNK, "points": out["points"],
+                       "queries": out["queries"], "launches": launches, "wall_s": wall_s,
+                       "seconds": out["seconds"], "occupied": out["occupied"],
+                       "occupied_twin": occ_twin, "flipped": flipped, "verts": out["verts"],
+                       "tris": out["tris"], "threshold": thr,
+                       "p99": {"threshold": thr99, "flipped": flipped99,
+                               **{k: regrid[k] for k in ("occupied", "verts", "tris", "wall_s")}},
+                       "sigma_max": float(sigma_k.max()),
+                       "sigma_max_abs_err": float(err.max()),
+                       "sigma_mean_abs_err": float(err.mean()),
+                       "tol": {"sigma": list(tol), "occupancy_share": TOL_OCC_SHARE},
+                       "checks": checks, "card": card}
+                emit(rec)
+                require(all(checks.values()), f"geometry ({label}) checks failed: {checks}")
+                geo_recs[label] = rec
+        finally:
+            os.chdir(cwd)
+            shutil.rmtree(geo_dir, ignore_errors=True)
+        torch.cuda.empty_cache()
+
         if args.profile:
             phase = "profile"
             from torch.profiler import ProfilerActivity, profile
@@ -1314,14 +1675,47 @@ def main(argv=None) -> int:
                  other_arguments=[
                      {k: art_rows["fused_level_train_art_grads", mode, N_COARSE + 1 + N_FINE][k]
                       for k in ("shape", "arguments", "max_abs_err", "mean_rel_err", "ms",
-                                "plain_ms")}
+                                "plain_ms", "library_ms")}
                      for mode in ("autoencoder", "white_bkgd")]),
+        ]
+
+        def enc_entry(kname, replaces):
+            big = enc_rows[kname, "render", N_COARSE + 1 + N_FINE]
+            return {"name": kname, "route": "cuda",
+                    "source": "aon_tpu_torch/ops/csrc/fused_mlp_eval.cu", "replaces": replaces,
+                    "launches": api_launches[kname],
+                    "launches_by_path": {"ops_api": api_launches[kname]},
+                    "shape": big["shape"], **{k: big[k] for k in keys},
+                    "coarse": {k: enc_rows[kname, "render", N_COARSE + 1][k]
+                               for k in ("shape",) + keys},
+                    "train": {k: enc_rows[kname, "train", N_COARSE + 1 + N_FINE][k]
+                              for k in ("shape",) + keys}}
+
+        geo_launches = {"fused_nerf_mlp_xyz": geo_recs["vanilla"]["launches"]["fused_nerf_mlp_xyz"],
+                        "art_mlp_fwd": sum(r["launches"]["art_mlp_fwd"] for r in geo_recs.values())}
+        entries += [
+            enc_entry("fused_nerf_mlp", "aon_tpu/ops/fused_mlp.py:186"),
+            dict(train_entry("fused_mlp_bwd", "aon_tpu/ops/fused_mlp_train.py:113"),
+                 launches=api_launches["fused_mlp_bwd"],
+                 launches_by_path={"ops_api": api_launches["fused_mlp_bwd"]}),
+            enc_entry("fused_nerf_mlp_per_ray", "aon_tpu/ops/fused_mlp.py:197"),
+            {"name": "fused_nerf_mlp_xyz", "route": "cuda",
+             "source": "aon_tpu_torch/ops/csrc/fused_mlp_eval.cu",
+             "entry": "aon_mlp_xyz_per_ray_launch",
+             "replaces": "aon_tpu/ops/fused_mlp.py:223",
+             "launches": geo_launches["fused_nerf_mlp_xyz"],
+             "launches_by_path": {"geometry": geo_launches["fused_nerf_mlp_xyz"]},
+             "shape": xyz_rec["shape"], **{k: xyz_rec[k] for k in keys}},
         ]
         # kernel 2 also serves the auto-decoder's paths
         entries[1]["launches"] += (art_path_launches["resample_union"]
                                    + art_train_launches["resample_union"])
         entries[1]["launches_by_path"].update(art_render=art_path_launches["resample_union"],
                                               art_train=art_train_launches["resample_union"])
+        art_fwd = next(e for e in entries if e["name"] == "art_mlp_fwd")
+        art_fwd["launches"] += geo_launches["art_mlp_fwd"]
+        art_fwd["launches_by_path"]["geometry"] = geo_launches["art_mlp_fwd"]
+        require(len(entries) == 11, "the kernels line lists kernel table rows 1-11")
         require(all(e["launches"] > 0 for e in entries), "a kernel of the path never launched")
         emit({"kernels": entries, "card": card})
         emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -25,16 +25,28 @@ Tolerances, and why:
     fused_art.GRAD_TOL_REL / GRAD_TOL_MEAN_REL (wider than the vanilla
     kernels': a bf16 step in the deformation output is multiplied by up to 2^9
     inside the encoding; the reasons stand beside them in
-    aon_tpu_torch/ops/fused_art.py).
+    aon_tpu_torch/ops/fused_art.py);
+  * the public API's kernels (rows 5, 7 and 8: one MLP, three stagings of
+    its input; row 6: the weight backward from given encodings) against
+    their twins: the limits of kernels 1 and 4 above, for the same reasons;
+  * the extraction's sigma grid on the card against its plain twins' grid:
+    TWIN_TOL_MAX / TWIN_TOL_MEAN of the kernel its system runs (sigma is
+    relu or softplus of the raw output, which moves no value further).
 """
 
 import numpy as np
 import pytest
 import torch
 
+import json
+import types
+from pathlib import Path
+
 from aon_tpu_torch.core.sampling import eval_quantiles, pdf_cdf
 from aon_tpu_torch.eval.render import render_frame
 from aon_tpu_torch.ops import fused_art
+from aon_tpu_torch.ops import fused_mlp as tfm
+from aon_tpu_torch.ops import fused_mlp_train as tfmt
 from aon_tpu_torch.ops.fused_mlp import (
     SHAPES,
     make_posenc_constants,
@@ -66,6 +78,8 @@ from aon_tpu_torch.ops.train_fused_level_art import (
     fused_level_train_art_grads,
     fused_level_train_art_grads_plain,
 )
+from aon_tpu_torch.scripts import extract_geometry
+from aon_tpu_torch.train.checkpoint import CheckpointManager
 from aon_tpu_torch.train.systems import build_system
 from aon_tpu_torch.utils.config import Config
 
@@ -394,3 +408,126 @@ def test_autodecoder_step_and_render_go_through_the_kernels(cuda, fused_train):
     out = system.render_chunk(new_state.params, rays, 1, 3, is_test=True)
     assert [c.launches - b for c, b in zip(counters, before)] == [0, 2, 0, 1]
     assert out["comp_rgb"].shape == (m, 3) and all(torch.isfinite(v).all() for v in out.values())
+
+
+# ------------------------------------------------------- public kernel API
+
+
+def _encodings(cuda, B, S, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    consts = make_posenc_constants(device=cuda)
+    samples = torch.rand(B, S, 3, generator=g, device=cuda) * 6 - 3
+    vd = torch.nn.functional.normalize(torch.randn(B, 3, generator=g, device=cuda), dim=-1)
+    enc = encode_plain(samples.reshape(-1, 3), consts["s_pos"], consts["p_pos"])
+    venc = encode_plain(vd, consts["s_view"], consts["p_view"])
+    return consts, samples, vd, enc, venc, g
+
+
+def _assert_twin(got, want):
+    err = torch.cat([(a - b).reshape(-1) for a, b in zip(got, want)]).abs()
+    assert all(torch.isfinite(t).all() for t in got)
+    assert err.max().item() <= TWIN_TOL_MAX and err.mean().item() <= TWIN_TOL_MEAN
+
+
+@pytest.mark.parametrize("B,S,width", [(37, 65, 63), (64, 193, 64)])  # ragged, whole tiles
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_encoded_input_kernels_match_their_twins(cuda, B, S, width, dtype):
+    params = mlp_params(_params(cuda), "fine_mlp")
+    packed = pack_vanilla_mlp_params(params, dtype=dtype)
+    twin_packed = tfm.round_packed(packed) if dtype == torch.float32 else packed
+    _, _, _, enc, venc, _ = _encodings(cuda, B, S, seed=21)
+    vwidth = 32 if width == 64 else 27
+    enc, venc = enc[:, :width].contiguous(), venc[:, :vwidth].contiguous()
+    venc_rows = torch.repeat_interleave(venc, S, dim=0)
+    counters = (tfm.fused_nerf_mlp, tfm.fused_nerf_mlp_per_ray)
+    before = [c.launches for c in counters]
+    flat = tfm.fused_nerf_mlp(packed, enc, venc_rows)
+    per_ray = tfm.fused_nerf_mlp_per_ray(packed, enc.reshape(B, S, -1), venc)
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(counters, before)] == [1, 1]
+    assert flat[0].shape == (B * S, 3) and per_ray[1].shape == (B, S, 1)
+    _assert_twin(flat, tfm.fused_nerf_mlp_plain(twin_packed, enc, venc_rows))
+    _assert_twin(per_ray, tfm.fused_nerf_mlp_per_ray_plain(twin_packed, enc.reshape(B, S, -1),
+                                                           venc))
+    # the same rows, the view row gathered per ray: the same values
+    assert torch.equal(per_ray[0].reshape(-1, 3), flat[0])
+
+
+@pytest.mark.parametrize("B,S", [(37, 65), (512, 128)])  # ragged; the extraction's block
+def test_xyz_per_ray_kernel_matches_its_twin_and_row_1(cuda, B, S):
+    packed = pack_vanilla_mlp_params(mlp_params(_params(cuda), "fine_mlp"))
+    consts, samples, vd, _, _, _ = _encodings(cuda, B, S, seed=22)
+    before = (tfm.fused_nerf_mlp_xyz.launches, fused_nerf_mlp_xyz_eval.launches)
+    got = tfm.fused_nerf_mlp_xyz(packed, consts, samples, vd)
+    torch.cuda.synchronize()
+    assert (tfm.fused_nerf_mlp_xyz.launches, fused_nerf_mlp_xyz_eval.launches) == (
+        before[0] + 1, before[1])
+    _assert_twin(got, tfm.fused_nerf_mlp_xyz_plain(packed, consts, samples, vd))
+    row1 = fused_nerf_mlp_xyz_eval(packed, consts, samples, vd)
+    assert torch.equal(got[0], row1[0]) and torch.equal(got[1], row1[1])
+
+
+@pytest.mark.parametrize("B,S", [(37, 65), (2048, 193)])
+def test_encoded_bwd_kernel_matches_twin_and_the_xyz_backward(cuda, B, S):
+    packed, consts, t, o, d, _ = _level_inputs(cuda, B, S, seed=23)
+    g = torch.Generator(device=cuda).manual_seed(24)
+    samples = (o[:, None, :] + t[..., None] * d[:, None, :]).contiguous()
+    cot = torch.randn(B, S, 4, generator=g, device=cuda) / (B * S)
+    cot[:, ::3] = 0.0
+    enc = encode_plain(samples.reshape(-1, 3), consts["s_pos"], consts["p_pos"])
+    venc = encode_plain(torch.repeat_interleave(d, S, 0), consts["s_view"], consts["p_view"])
+    before = tfmt.fused_mlp_bwd.launches
+    grads = tfmt.fused_mlp_bwd(packed, enc[:, :63], venc[:, :27], cot.reshape(-1, 4))
+    torch.cuda.synchronize()
+    assert tfmt.fused_mlp_bwd.launches == before + 1
+    assert_grads_close(grads, tfmt.fused_mlp_bwd_plain(packed, enc, venc, cot.reshape(-1, 4)))
+    # the encodings are the in-kernel ones to a sine ulp: row 4's gradients
+    assert_grads_close(grads, fused_mlp_bwd_xyz(packed, consts, samples, d, cot))
+    again = tfmt.fused_mlp_bwd(packed, enc, venc, cot.reshape(-1, 4))
+    assert grad_errors(again, grads)[0] <= GRAD_TOL_REPEAT
+
+
+def test_fused_mlp_train_runs_rows_5_and_6(cuda):
+    packed = {k: v.requires_grad_(True) for k, v in pack_vanilla_mlp_params_f32(
+        mlp_params(_params(cuda), "fine_mlp")).items()}
+    _, _, _, enc, venc, _ = _encodings(cuda, 9, 33, seed=25)
+    venc_rows = torch.repeat_interleave(venc, 33, dim=0)
+    before = (tfm.fused_nerf_mlp.launches, tfmt.fused_mlp_bwd.launches)
+    rgb, sigma = tfmt.fused_mlp_train(packed, enc, venc_rows)
+    (rgb.sum() + 2 * sigma.sum()).backward()
+    assert (tfm.fused_nerf_mlp.launches, tfmt.fused_mlp_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    cot = torch.cat([torch.ones_like(rgb), 2 * torch.ones_like(sigma)], dim=-1)
+    plain = {k: v.detach() for k, v in packed.items()}
+    assert_grads_close({k: v.grad for k, v in packed.items()},
+                       tfmt.fused_mlp_bwd_plain(plain, enc, venc_rows, cot))
+    _assert_twin((rgb, sigma), tfm.fused_nerf_mlp_plain(tfm.round_packed(plain), enc, venc_rows))
+
+
+@pytest.mark.parametrize("exp_type", ["vanilla", "vanilla_autodecoder"])
+def test_extract_geometry_goes_through_its_kernel(cuda, tmp_path, monkeypatch, exp_type):
+    cfg_file = tmp_path / "cfg.json"
+    cfg_file.write_text(json.dumps({"exp_type": exp_type, "exp_name": "geo", "N_max_objs": 4,
+                                    "output_path": str(tmp_path / "results")}))
+    cfg = Config(exp_type=exp_type, N_max_objs=4)
+    system = build_system(cfg, 2.0, 6.0, False, device=cuda)
+    state = system.init_state(torch.Generator(device=cuda).manual_seed(0))
+    CheckpointManager(str(tmp_path / "results" / "geo")).save_last(state, epoch=0)
+    monkeypatch.chdir(tmp_path)
+    counter = tfm.fused_nerf_mlp_xyz if exp_type == "vanilla" else fused_art.art_mlp_fwd
+    before = counter.launches
+    out = extract_geometry.main(["--config", str(cfg_file), "--resolution", "32", "--chunk",
+                                 "4096", "--bounds", "-1.5", "-1.5", "-1.5", "1.5", "1.5", "1.5",
+                                 "--instance", "1", "--articulation", "3", "--interpolated"])
+    assert counter.launches - before == out["queries"] == 8
+    sigma = np.load(Path(out["out_dir"]) / "density_grid.npz")["sigma"].reshape(-1)
+    trainer = types.SimpleNamespace(cfg=cfg, state=state, system=system)
+    args = types.SimpleNamespace(viewdir=(0.0, 0.0, -1.0), instance=1, articulation=3,
+                                 interpolated=True)
+    pts = torch.from_numpy(extract_geometry.voxel_centers(
+        np.full(3, -1.5), 3.0 / 32, 32).reshape(-1, 3).astype(np.float32)).to(cuda)
+    want = extract_geometry.density_color_fn(trainer, args, plain=True)(pts)[0].cpu().numpy()
+    tol = (TWIN_TOL_MAX, TWIN_TOL_MEAN) if exp_type == "vanilla" else (
+        fused_art.TWIN_TOL_MAX, fused_art.TWIN_TOL_MEAN)
+    err = np.abs(sigma - want)
+    assert err.max() <= tol[0] and err.mean() <= tol[1]

@@ -39,6 +39,21 @@ def test_import_leaves_no_jax_and_no_aon_tpu():
     assert res.returncode == 0, res.stdout + res.stderr
 
 
+def test_the_import_check_covers_the_api_checkpoints_and_extraction():
+    # the modules test_import_leaves_no_jax_and_no_aon_tpu walks include the
+    # public kernel API, the checkpoints and the geometry script
+    import pkgutil
+
+    import aon_tpu_torch
+
+    names = {m.name for m in pkgutil.walk_packages(aon_tpu_torch.__path__, "aon_tpu_torch.")}
+    assert {"aon_tpu_torch.ops", "aon_tpu_torch.train.checkpoint",
+            "aon_tpu_torch.scripts.extract_geometry"} <= names
+    sources = {str(f.relative_to(ROOT)) for f in (ROOT / "aon_tpu_torch").rglob("*.py")}
+    assert {"aon_tpu_torch/ops/__init__.py", "aon_tpu_torch/train/checkpoint.py",
+            "aon_tpu_torch/scripts/extract_geometry.py"} <= sources
+
+
 def test_sources_import_no_jax_and_no_aon_tpu():
     pattern = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|flax|optax|orbax|aon_tpu)\b(?!_torch)")
     files = sorted((ROOT / "aon_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]

@@ -115,17 +115,19 @@ __device__ __forceinline__ float encode(float x0, float x1, float x2,
   return col < 3 ? pre : sinf(reduce_arg(pre));
 }
 
-template <int NT>
-__device__ __forceinline__ void zero(FragC (&acc)[RT][NT]) {
+// R 16-row tiles by NT 16-column tiles of accumulators (R = RT: the block's
+// TILE rows; the two-stream body of fused_mlp_eval.cu gives a warp half of them)
+template <int R, int NT>
+__device__ __forceinline__ void zero(FragC (&acc)[R][NT]) {
 #pragma unroll
-  for (int r = 0; r < RT; ++r)
+  for (int r = 0; r < R; ++r)
 #pragma unroll
     for (int j = 0; j < NT; ++j) wmma::fill_fragment(acc[r][j], 0.0f);
 }
 
 // acc[r][j] += A[16r:16r+16, :K] @ W[:K, col0+16j : col0+16j+16]
-template <int NT>
-__device__ __forceinline__ void mma_tile(FragC (&acc)[RT][NT], const bf16* A, int lda, int K,
+template <int R, int NT>
+__device__ __forceinline__ void mma_tile(FragC (&acc)[R][NT], const bf16* A, int lda, int K,
                                          const bf16* __restrict__ W, int ldw, int col0) {
 #pragma unroll 2
   for (int k = 0; k < K; k += 16) {
@@ -134,7 +136,7 @@ __device__ __forceinline__ void mma_tile(FragC (&acc)[RT][NT], const bf16* A, in
     for (int j = 0; j < NT; ++j)
       wmma::load_matrix_sync(b[j], W + static_cast<size_t>(k) * ldw + col0 + 16 * j, ldw);
 #pragma unroll
-    for (int r = 0; r < RT; ++r) {
+    for (int r = 0; r < R; ++r) {
       FragA a;
       wmma::load_matrix_sync(a, A + r * 16 * lda + k, lda);
 #pragma unroll
@@ -147,13 +149,13 @@ __device__ __forceinline__ void mma_tile(FragC (&acc)[RT][NT], const bf16* A, in
 // With SAVE the same values also go to the tile's rows of the activation
 // workspace (`lds` columns per row), `save` pointing at this layer's first
 // column of the tile's first row.
-template <bool SAVE, int NT>
-__device__ __forceinline__ void store_bias_act(FragC (&acc)[RT][NT], const float* __restrict__ bias,
+template <bool SAVE, int R, int NT>
+__device__ __forceinline__ void store_bias_act(FragC (&acc)[R][NT], const float* __restrict__ bias,
                                                bool relu, bf16* out, int ldo, int col0,
                                                float* scratch, int lane, bf16* save = nullptr,
                                                int lds = LDA) {
 #pragma unroll
-  for (int r = 0; r < RT; ++r) {
+  for (int r = 0; r < R; ++r) {
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
       wmma::store_matrix_sync(scratch, acc[r][j], 16, wmma::mem_row_major);
@@ -169,6 +171,26 @@ __device__ __forceinline__ void store_bias_act(FragC (&acc)[RT][NT], const float
       __syncwarp();
     }
   }
+}
+
+// The density head on h7 (TILE rows of LDH columns in shared memory): raw
+// sigma (n_rows, 1) for the rows below n_rows; 64 rows x 4 partial sums of 64.
+// Thread t serves row t / 4, so each half of the block reads only its half of
+// the rows.
+__device__ __forceinline__ void density_head(const bf16* h_tile, const bf16* __restrict__ W,
+                                             const float* __restrict__ bias,
+                                             float* __restrict__ out_sigma, long long row0,
+                                             long long n_rows) {
+  const int tid = threadIdx.x;
+  const int r = tid >> 2, part = tid & 3;
+  const bf16* h = h_tile + r * LDH + 64 * part;
+  const bf16* w = W + OFF_WD + 64 * part;
+  float s = 0.0f;
+  for (int k = 0; k < 64; ++k) s = fmaf(__bfloat162float(h[k]), __bfloat162float(w[k]), s);
+  s += __shfl_xor_sync(0xffffffffu, s, 1);
+  s += __shfl_xor_sync(0xffffffffu, s, 2);
+  const long long g = row0 + r;
+  if (part == 0 && g < n_rows) out_sigma[g] = s + bias[OFF_BD];
 }
 
 __device__ __forceinline__ int trunk_offset(int layer) {  // layers 1..7 of the trunk
@@ -218,17 +240,7 @@ __device__ __forceinline__ void trunk_forward(Smem& sm, const bf16* __restrict__
   mma_tile(acc, hin, LDH, WIDTH, W + OFF_WB, WIDTH, col0);
   store_bias_act<SAVE>(acc, bias + OFF_BB, false, hout, LDH, col0, scratch, lane, act + ACT_BOTT,
                        lds);
-  {
-    const int r = tid >> 2, part = tid & 3;  // 64 rows x 4 partial sums of 64
-    const bf16* h = hin + r * LDH + 64 * part;
-    const bf16* w = W + OFF_WD + 64 * part;
-    float s = 0.0f;
-    for (int k = 0; k < 64; ++k) s = fmaf(__bfloat162float(h[k]), __bfloat162float(w[k]), s);
-    s += __shfl_xor_sync(0xffffffffu, s, 1);
-    s += __shfl_xor_sync(0xffffffffu, s, 2);
-    const long long g = row0 + r;
-    if (part == 0 && g < n_rows) out_sigma[g] = s + bias[OFF_BD];
-  }
+  density_head(hin, W, bias, out_sigma, row0, n_rows);
   __syncthreads();
   { bf16* t = hin; hin = hout; hout = t; }
 
@@ -243,7 +255,8 @@ __device__ __forceinline__ void trunk_forward(Smem& sm, const bf16* __restrict__
 }
 
 // The rgb head on v (TILE rows of LDH columns in shared memory, 128 used):
-// raw rgb (n_rows, 3) for the rows below n_rows; 64 rows x 4 partial sums of 32.
+// raw rgb (n_rows, 3) for the rows below n_rows; 64 rows x 4 partial sums of
+// 32, thread t on row t / 4 as in density_head.
 __device__ __forceinline__ void rgb_head(const bf16* v_tile, const bf16* __restrict__ W,
                                          const float* __restrict__ bias,
                                          float* __restrict__ out_rgb, long long row0,

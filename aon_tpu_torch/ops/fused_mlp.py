@@ -46,6 +46,10 @@ WEIGHT_ORDER = (
     "wb", "bb", "wd", "bd", "wva", "wvb", "bv", "wrgb", "brgb",
 )
 ENC_ORDER = ("s_pos", "p_pos", "s_view", "p_view")
+# the in-kernel encoders, in the order of the CUDA launchers' encoder argument
+# (ops/csrc/fused_mlp_eval.cu): `_encode_in_kernel` and the kernel bench's
+# `_encode_mxu` and `_encode_doubling` (scripts/bench_kernels.py)
+ENCODERS = ("elementwise", "mxu", "doubling")
 
 # Layout of the two blobs the CUDA kernel reads (ops/csrc/fused_mlp_eval.cu
 # fixes the same order): bf16 (in, out) matrices, then f32 biases.
@@ -66,6 +70,13 @@ PACKED_SHAPES = {
 SHAPES = {k: (v if len(v) == 2 else (1, v[0])) for k, v in PACKED_SHAPES.items()}
 N_KERNEL_WEIGHTS = sum(PACKED_SHAPES[k][0] * PACKED_SHAPES[k][1] for k in _KERNEL_WEIGHTS)
 N_KERNEL_BIASES = sum(PACKED_SHAPES[k][0] for k in _KERNEL_BIASES)
+# Multiply-adds per sample of the MLP forward at the function's own widths (63
+# position and 27 view channels): 63x256 + 7x256x256 (w1-w4, w5a, w6, w7) +
+# 63x256 (w5b) + 256x256 (bottleneck) + 256 (density) + 283x128 (view) +
+# 128x3.  The kernels' zero padding of K to 64 and 32 (N_KERNEL_WEIGHTS,
+# 594,560) is their own overhead, not the work's.  Bounds and TFLOP/s of the
+# vanilla MLP kernels count this.
+MLP_MACS_PER_SAMPLE = 593408
 
 
 def pack_vanilla_mlp_params(
@@ -286,14 +297,16 @@ def _require_float32_reference(t: torch.Tensor) -> None:
         raise RuntimeError("the plain MLP is a float32 reference: set allow_tf32 = False")
 
 
-def _mlp_rows(packed: Mapping[str, torch.Tensor], n: int, device: torch.device, stage):
-    """``_mlp_compute`` over n rows in blocks; ``stage(i, j)`` gives the
-    encodings of rows i..j in the packing's dtype."""
+def _mlp_rows(packed: Mapping[str, torch.Tensor], n: int, device: torch.device, stage,
+              compute=_mlp_compute):
+    """``compute`` (``_mlp_compute`` unless a variant body is given) over n
+    rows in blocks; ``stage(i, j)`` gives the encodings of rows i..j in the
+    packing's dtype."""
     rgb = torch.empty(n, 3, dtype=torch.float32, device=device)
     sigma = torch.empty(n, 1, dtype=torch.float32, device=device)
     for i in range(0, n, _PLAIN_BLOCK_ROWS):
         j = min(i + _PLAIN_BLOCK_ROWS, n)
-        rgb[i:j], sigma[i:j] = _mlp_compute(*stage(i, j), packed)
+        rgb[i:j], sigma[i:j] = compute(*stage(i, j), packed)
     return rgb, sigma
 
 

@@ -22,8 +22,10 @@ from typing import Dict, Mapping, Optional, Tuple
 import torch
 
 from aon_tpu_torch.ops import _build
+from aon_tpu_torch.ops.bench_variants import encode_plain as encode_variant_plain
 from aon_tpu_torch.ops.fused_mlp import (  # noqa: F401  (TWO_PI, _mlp_compute: shared names)
     ENC_ORDER,
+    ENCODERS,
     N_KERNEL_BIASES,
     N_KERNEL_WEIGHTS,
     POS_PAD,
@@ -111,15 +113,20 @@ def fused_nerf_mlp_xyz_eval(
 fused_nerf_mlp_xyz_eval.launches = 0
 
 
-def posenc_in_kernel(x: torch.Tensor, s: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+def posenc_in_kernel(x: torch.Tensor, s: torch.Tensor, p: torch.Tensor,
+                     encoder: str = "elementwise") -> torch.Tensor:
     """The kernel's f32 positional encoding alone, (N, 3) -> (N, width), on CUDA.
 
-    A check entry, not on the render path: it runs the same device function
-    the MLP kernel encodes with, so the range reduction can be held against
-    ``encode_plain`` and the exact sine.
+    A check entry, not on the render path (kernel table row 14): it runs the
+    device functions the MLP kernels encode with, ``encoder`` one of
+    ``ENCODERS`` (``elementwise``: ``_encode_in_kernel``, rows 1, 8 and 13;
+    ``mxu`` and ``doubling``: the kernel bench's two others, row 13), so the
+    range reduction can be held against the twin and the exact sine column by
+    column.  CPU tensors run the twin, ``bench_variants.encode_plain``.
     """
-    if not x.is_cuda:
-        raise ValueError("posenc_in_kernel runs on CUDA tensors only")
+    device = _kernel_device(x)
+    if device is None:
+        return encode_variant_plain(x, s, p, encoder)
     width = s.shape[1]
     for name, t, shape in (("x", x, (x.shape[0], 3)), ("s", s, (4, width)), ("p", p, (1, width))):
         if (tuple(t.shape) != shape or t.dtype != torch.float32 or not t.is_contiguous()
@@ -127,11 +134,15 @@ def posenc_in_kernel(x: torch.Tensor, s: torch.Tensor, p: torch.Tensor) -> torch
             raise ValueError(f"{name} must be contiguous float32 {shape} on {x.device}")
     out = torch.empty(x.shape[0], width, dtype=torch.float32, device=x.device)
     err = _build.library("fused_mlp_eval").aon_posenc_launch(
-        x.data_ptr(), s.data_ptr(), p.data_ptr(), width, x.shape[0], out.data_ptr(),
-        torch.cuda.current_stream(x.device).cuda_stream,
+        x.data_ptr(), s.data_ptr(), p.data_ptr(), width, x.shape[0], ENCODERS.index(encoder),
+        out.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(err, "posenc_in_kernel")
+    posenc_in_kernel.launches += 1
     return out
+
+
+posenc_in_kernel.launches = 0
 
 
 # --------------------------------------------------------------- training

@@ -25,6 +25,7 @@ from typing import Callable, Dict, Mapping, Optional, Tuple
 import torch
 
 from aon_tpu_torch.core import sampling
+from aon_tpu_torch.core.rays import effective_intervals
 from aon_tpu_torch.ops import _build
 from aon_tpu_torch.ops.fused_mlp import (
     ENC_ORDER,
@@ -200,7 +201,7 @@ def make_fused_step_fn(
         packed_f = pack_vanilla_mlp_params_f32(mlp_params(params, "fine_mlp"))
 
         t_vals, _ = sampling.sample_along_rays(
-            rays_o, rays_d, num_coarse, batch.get("t_near", near), batch.get("t_far", far),
+            rays_o, rays_d, num_coarse, *effective_intervals(batch, near, far),
             randomized=True, lindisp=lindisp, generator=generator, ray_ids=ray_ids,
             t_rand=draws.get("t_rand"),
         )

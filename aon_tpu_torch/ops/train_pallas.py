@@ -15,6 +15,7 @@ from typing import Callable, Mapping, Optional
 import torch
 
 from aon_tpu_torch.core import sampling
+from aon_tpu_torch.core.rays import effective_intervals
 from aon_tpu_torch.core.rendering import img2mse, volumetric_rendering
 from aon_tpu_torch.ops.fused_mlp import EncConstsCache
 from aon_tpu_torch.ops.fused_mlp_train import fused_mlp_train_xyz
@@ -72,7 +73,7 @@ def make_fused_loss_fn(
 
         t_vals, samples = sampling.sample_along_rays(
             rays["rays_o"], rays["rays_d"], num_coarse,
-            batch.get("t_near", near), batch.get("t_far", far),
+            *effective_intervals(batch, near, far),
             randomized=randomized, lindisp=lindisp, generator=generator, ray_ids=ray_ids,
             t_rand=draws.get("t_rand"),
         )

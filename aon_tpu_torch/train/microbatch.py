@@ -11,9 +11,12 @@ carries one value per step on its leading axis.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Mapping, Optional
+from typing import Callable, Dict, Mapping, Optional, Sequence
 
+import numpy as np
 import torch
+
+from aon_tpu_torch.utils.device import DeviceLike, resolve_device
 
 # batch entries carrying a per-ray leading axis (everything else is shared)
 RAY_KEYS = (
@@ -125,3 +128,27 @@ def make_train_many(loss_fn: Callable, metrics_fn: Callable) -> Callable:
         return state, metrics
 
     return train_many
+
+
+def stack_step_batches(batches: Sequence[Mapping[str, np.ndarray]],
+                       microbatch: Optional[int] = None,
+                       device: DeviceLike = "cuda") -> Dict[str, torch.Tensor]:
+    """Stack T host batches into one superbatch for ``train_many``, on one
+    device (``aon_tpu/parallel/mesh.py::stack_step_batches`` without the mesh).
+
+    Ray entries (``RAY_KEYS``) become (T, k, m, ...) with m = ``microbatch``
+    (the whole batch if None, or if it is larger); every other entry becomes
+    (T, ...).  Raises where the batch axis is not a multiple of m.
+    """
+    device = resolve_device(device)
+    out = {}
+    for k in batches[0]:
+        vs = np.stack([np.asarray(b[k]) for b in batches])
+        if k in RAY_KEYS:
+            n = vs.shape[1]
+            m = min(microbatch or n, n)
+            if n % m != 0:
+                raise ValueError(f"batch axis {n} not divisible by microbatch {m} ({k})")
+            vs = vs.reshape(len(batches), n // m, m, *vs.shape[2:])
+        out[k] = torch.from_numpy(vs).to(device)
+    return out

@@ -140,7 +140,7 @@ class VanillaSystem(_System):
         rays = {k: batch[k] for k in ("rays_o", "rays_d", "viewdirs")}
         out = torch.func.functional_call(
             self.model, dict(params),
-            (rays, self.white_bkgd, batch.get("t_near", self.near), batch.get("t_far", self.far)),
+            (rays, self.white_bkgd, *effective_intervals(batch, self.near, self.far)),
             dict(randomized=True, generator=generator, draws=draws),
         )
         loss0 = img2mse(out[0][0], batch["target"])

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Quickest proof that the PyTorch/CUDA port runs on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N] [--profile]
+    python3 chip_smoke.py [--seed N] [--seeds K] [--profile]
 
 Phases, each printed as one JSON line on stdout (nothing else goes there):
 
@@ -21,7 +21,11 @@ Phases, each printed as one JSON line on stdout (nothing else goes there):
            library yardstick (the same function as bf16 torch calls, under
            autograd for the training kernels) that the port never calls, and
            beside its bound on the H100;
-  posenc   the in-kernel encoding's range reduction at the 2^9 frequency;
+  posenc   the in-kernel encoding's range reduction at the 2^9 frequency, and
+           kernel table row 14 (the TPU suite's range-reduction test): its
+           256 x 3 inputs through each of the kernels' three encoders, column
+           by column against the twin and the exact sine, timed at 256 x 64
+           and at one 65,536-point extraction block;
   path     build_system on configs/quality_laptop_vanilla_refsched.json at
            full width with seeded random weights, one cold frame and then two
            timed 640x480 frames through render_frame (chunk 61440), launch
@@ -44,7 +48,11 @@ Phases, each printed as one JSON line on stdout (nothing else goes there):
            forward; backward and level: 2,048 x 65 and x 193 with t sampled as
            a step samples it; the level also with the auto-encoder's arguments
            and with a white background), each against its plain twin, timed
-           beside the twin, the bf16 library chain and the bound;
+           beside the twin, the bf16 library chain and the bound; then rows 3,
+           2 and 9 at the bench's shapes: the first 2,048 rays of each bench
+           batch, t stratified in their per-ray intervals and then resampled
+           (vanilla 17 and 49 samples on occupancy intervals, the auto-decoder
+           25 and 73 on AABB intervals);
   art_path three 640x480 frames (one cold, two timed) through
            AutoDecoderSystem.render_chunk at chunk 61440, two (instance,
            articulation) pairs and one is_test midpoint id, launch counts per
@@ -66,7 +74,27 @@ Phases, each printed as one JSON line on stdout (nothing else goes there):
            occupancy against the plain twins' on the same points, the three
            files parsed, and the wall time split into restore, query, mesh and
            write;
-  kernels  every kernel of the paths with its launches, error, times and bound;
+  bench_kernels  the port's kernel bench (aon_tpu_torch/scripts/bench_kernels.py)
+           with every variant, its lines re-emitted with exact launch counts;
+           then each variant of rows 12 (three bodies) and 13 (three
+           encoders) against its twin on 65,536 rows, timed at the bench's
+           2^18 rows beside the twin, the library chain and the bound; the
+           two-stream body against the base body bit for bit;
+  bench    the port's bench.py at its defaults (vanilla 32,768 rays at 16 + 32
+           samples on occupancy intervals, the auto-decoder 4,096 at 24 + 48
+           on AABB intervals) and at --reference_contract --headline_only:
+           its lines, rays/s and ms per step, exact launches, the loss of the
+           repeated batch falling, and the first step of the interval path on
+           one 2,048-ray microbatch of each bench batch against the plain
+           float32 route, beside the plain route in bf16 against float32 (what
+           bf16 rounding alone does to the same gradients);
+  kernels  every kernel of the paths with its launches, error, times and bound
+           (rows 1-13, rows 12 and 13 by variant, and row 14's check);
+
+with --seeds K > 1, a ``sweep`` line for each further seed and one that sums
+them up: the articulated kernels' training checks, the checks at the bench's
+shapes and the bench's interval first step, untimed, on the weights and
+draws of seeds seed+1 .. seed+K-1 (every check must pass on every seed);
 
 with --profile, two ``profile`` lines as well: torch.profiler over five warm v3
 steps of the vanilla and of the auto-decoder system, device time by kernel
@@ -104,11 +132,9 @@ PEAK_BYTES = 3.35e12
 CONFIG = "configs/quality_laptop_vanilla_refsched.json"
 CHUNK_RAYS = 61440
 N_COARSE, N_FINE = 64, 128
-# multiply-adds per sample at the function's own widths (63 position and 27
-# view channels): 63x256 + 7x256x256 (w1-w4, w5a, w6, w7) + 63x256 (w5b)
-# + 256x256 (bottleneck) + 256 (density) + 283x128 (view) + 128x3.  The
-# kernel's zero padding of K to 64 and 32 is its own overhead, not the bound's.
-MLP_MACS_PER_SAMPLE = 593408
+# the vanilla MLP's multiply-adds per sample are the port's
+# MLP_MACS_PER_SAMPLE (aon_tpu_torch/ops/fused_mlp.py), which the kernel
+# bench's TFLOP/s count too
 MLP_BIASES = 2436  # 8x256 trunk + 256 bottleneck + 1 density + 128 view + 3 rgb
 FOVY_DEG = 35.0  # the SAPIEN laptop dataset's camera (datagen/data_gen.py)
 
@@ -117,6 +143,9 @@ FOVY_DEG = 35.0  # the SAPIEN laptop dataset's camera (datagen/data_gen.py)
 TOL_RESAMPLE = 1e-6  # same f32 operations in the same order: bit-identical expected
 TOL_POSENC_TWIN = 1e-6  # an ulp of the sine
 TOL_POSENC_EXACT = 2e-3  # float32 range reduction at ~3000 rad (the TPU suite's bound)
+# the doubling encoder against its twin: nine doublings carry an ulp of the
+# first sine up by 2^9
+TOL_POSENC_ENCODER_TWIN = 1e-4
 # bf16 kernel path against the float32 module: the MLP's bf16 rounding moves
 # the coarse weights and so the fine samples
 TOL_PATH = {"comp_rgb": 3e-2, "acc": 3e-2, "depth": 2.5e-1}
@@ -134,6 +163,13 @@ TRAIN_LOSS_FALL = 0.6
 # fused_mlp_train.grad_errors, per parameter tensor)
 TOL_STEP_LOSS = 2e-2  # relative; the JAX suite's rtol on the fused loss
 TOL_STEP_GRAD_MAX, TOL_STEP_GRAD_MEAN = 0.1, 0.2  # seen on an H100: 0.040 and 0.099
+# the first step on the bench's occupancy intervals (0.19 long on average):
+# there the fine samples move with the coarse weights' last bits, and the
+# plain route in bf16 lies as far from the float32 route as the kernels do
+# (max / mean measures 0.04-0.29 / 0.08-0.21 over 12 seeds of weights and
+# draws on an H100, the kernel route within 1.11x / 1.07x of it).  The kernel
+# route is held to this many times the plain bf16 route's distance
+TOL_INTERVAL_VS_BF16 = 1.5
 # the two kernel routes against each other: the same bf16 roundings, but v2's
 # compositing backward is autograd's and its sums run in another order
 TOL_ROUTES_GRAD_MAX, TOL_ROUTES_GRAD_MEAN = 0.1, 0.02  # seen: 0.0012 and 0.0034
@@ -156,9 +192,9 @@ TOL_MANY_PARAMS_MEAN = 1e-8
 # ---- the auto-decoder (articulated NeRF + code library)
 ART_CONFIG = "configs/quality_laptop_autodec.json"
 ART_IMG_WH = (640, 480)  # the eval frame of the other paths
-# multiply-adds per sample at the function's own widths: the vanilla MLP's, with
-# the 4x128 deformation prefix (3x128 + 3x128x128 + 128x3) and views_1..3
-ART_MACS_PER_SAMPLE = MLP_MACS_PER_SAMPLE + 49920 + 49152  # 692,480
+# multiply-adds per sample the articulated MLP adds to the vanilla one's: the
+# 4x128 deformation prefix (3x128 + 3x128x128 + 128x3) and views_1..3
+ART_EXTRA_MACS = 49920 + 49152
 ART_BIASES = MLP_BIASES + 4 * 128 + 3 + 3 * 128
 ART_MICRO = 2  # ray_batch_size 4096 as microbatches of microbatch_rays 2048
 ART_STEPS_V3, ART_STEPS_V2 = 40, 6
@@ -182,6 +218,17 @@ TOL_ART_STEP_COS = {"trunk": 0.99, "deform": 0.6, "codes": 0.95}
 # the two kernel routes against each other, as TOL_ROUTES_GRAD_*, with the
 # deformation's phase amplification on top: seen 0.012 and 0.011
 TOL_ART_ROUTES_GRAD_MAX, TOL_ART_ROUTES_GRAD_MEAN = 0.1, 0.05
+# the kernel bench's bf16acc body against its base body on the same inputs,
+# mean absolute difference: at least this many times the bf16acc kernel's
+# mean error against its own twin, so that its check tells the two roundings
+# apart (the twins lie 1.0e-3 apart on 16,384 of these rows on the CPU; the
+# kernel was 1.5e-5 from its twin on an H100)
+BF16ACC_SEPARATION = 10.0
+
+# ---- the bench's contracts (aon_tpu_torch/scripts/bench.py): system, rays
+# per step, interval kind, _synthetic_batch seed, samples per level
+BENCH_CONTRACTS = (("vanilla", 32768, "occ", 0, (16, 32)),
+                   ("autodecoder", 4096, "aabb", 1, (24, 48)))
 
 # ---- geometry extraction (aon_tpu_torch/scripts/extract_geometry.py) at its
 # default, full-width settings: a 160^3 grid queried 65,536 points at a time
@@ -206,14 +253,16 @@ def require(cond: bool, what: str) -> None:
         raise PhaseFailed(what)
 
 
-def worst_tensors(got, want) -> dict:
-    """The gradient tensors with the largest max and mean relative errors
-    (the measures of ``fused_mlp_train.grad_errors``) and those errors."""
+def worst_tensors(got, want, skip=()) -> dict:
+    """The gradient tensors (but those in ``skip``) with the largest max and
+    mean relative errors (the measures of ``fused_mlp_train.grad_errors``)
+    and those errors."""
     tiny = 1e-30
+    names = [k for k in want if k not in skip]
     max_rel = {k: ((got[k] - want[k]).abs().max() / want[k].abs().max().clamp_min(tiny)).item()
-               for k in want}
+               for k in names}
     mean_rel = {k: ((got[k] - want[k]).abs().mean() / want[k].abs().mean().clamp_min(tiny)).item()
-                for k in want}
+                for k in names}
     k_max, k_mean = max(max_rel, key=max_rel.get), max(mean_rel, key=mean_rel.get)
     return {"max": [k_max, max_rel[k_max]], "mean": [k_mean, mean_rel[k_mean]]}
 
@@ -388,6 +437,9 @@ def library_resample(torch, t_vals, bins, cdf, u):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--seeds", type=int, default=1,
+                    help="also run the articulated, bench-shape and interval checks on this "
+                         "many seeds in all")
     ap.add_argument("--profile", action="store_true",
                     help="also trace five warm v3 train steps with torch.profiler")
     args = ap.parse_args(argv)
@@ -408,8 +460,10 @@ def main(argv=None) -> int:
         from aon_tpu_torch.data.analytic import analytic_scene
         from aon_tpu_torch.eval.render import render_frame
         from aon_tpu_torch.data.analytic import articulated_scene
-        from aon_tpu_torch.ops import _build, fused_art
+        from aon_tpu_torch.ops import _build, bench_variants, fused_art
         from aon_tpu_torch.ops.fused_mlp import (
+            ENCODERS,
+            MLP_MACS_PER_SAMPLE,
             fused_nerf_mlp,
             fused_nerf_mlp_per_ray,
             fused_nerf_mlp_per_ray_plain,
@@ -438,6 +492,8 @@ def main(argv=None) -> int:
             posenc_in_kernel,
         )
         from aon_tpu_torch.core.rendering import volumetric_rendering
+        from aon_tpu_torch.scripts import bench as port_bench
+        from aon_tpu_torch.scripts import bench_kernels as port_bench_kernels
         from aon_tpu_torch.scripts import extract_geometry
         from aon_tpu_torch.train.checkpoint import CheckpointManager
         from aon_tpu_torch.ops.render_fused import mlp_params
@@ -455,8 +511,13 @@ def main(argv=None) -> int:
             fused_level_train_art_grads_plain,
         )
         from aon_tpu_torch.train.microbatch import accumulated_grads
-        from aon_tpu_torch.train.systems import build_system
-        from aon_tpu_torch.utils.config import get_config
+        from aon_tpu_torch.train.systems import (
+            ART_TABLE,
+            AutoDecoderSystem,
+            VanillaSystem,
+            build_system,
+        )
+        from aon_tpu_torch.utils.config import Config, get_config
 
         # what the ``kernels`` line carries of every kernel's record
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -464,13 +525,14 @@ def main(argv=None) -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         dev = torch.device("cuda", 0)
-        name = torch.cuda.get_device_name(0)
+        kind = torch.cuda.get_device_name(0)
+        art_macs = MLP_MACS_PER_SAMPLE + ART_EXTRA_MACS  # 692,480
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
             capture_output=True, text=True, timeout=60,
         ).stdout.strip().splitlines()
-        card = smi[0] if smi else name  # name and power limit, beside every number
-        emit({"phase": "device", "name": name, "nvidia_smi": smi[0] if smi else None,
+        card = smi[0] if smi else kind  # name and power limit, beside every number
+        emit({"phase": "device", "name": kind, "nvidia_smi": smi[0] if smi else None,
               "count": torch.cuda.device_count(), "torch": torch.__version__,
               "cuda": torch.version.cuda, "python": sys.version.split()[0]})
 
@@ -526,6 +588,81 @@ def main(argv=None) -> int:
             require(rec["finite"], f"non-finite {kname} output")
             require(rec["max_abs_err"] <= TWIN_TOL_MAX and rec["mean_abs_err"] <= TWIN_TOL_MEAN,
                     f"{kname} disagrees with its twin at {rec['shape']}")
+            return rec
+
+        def bound_of(flops, nbytes):
+            by_ops = flops / PEAK_BF16_FLOPS >= nbytes / PEAK_BYTES
+            return {"flop": flops, "bytes": nbytes, "bound_by": "operations" if by_ops else "bytes",
+                    "bound_ms": 1e3 * max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES)}
+
+        def grad_record(kname, fn, fn_plain, fn_args, *, shape, rows, flops, nbytes, library,
+                        kw=None, art=False, timed=True, strict=True, **extra):
+            """One ``kernel`` line of a training kernel (a level or an MLP
+            backward) against its twin on the same inputs, checked (unless
+            ``strict`` is off: then its ``ok`` says): every gradient tensor by
+            the max and mean measures (the articulated kernels' deformation
+            gradients by direction and size instead), and a level's
+            compositing weights, acc and loss; timed beside the twin, the
+            library yardstick and the bound unless ``timed`` is off."""
+            kw = kw or {}
+            got = fn(*fn_args, **kw)
+            torch.cuda.synchronize()
+            want = fn_plain(*fn_args, **kw)
+            again = fn(*fn_args, **kw)
+            grads, grads_p, grads2 = (got, want, again) if isinstance(got, dict) else (
+                got[-1], want[-1], again[-1])
+            rec = {"phase": "kernel", "name": kname, **extra, "shape": shape, "rows": rows}
+            twin_tol = fused_art.TWIN_TOL_MAX if art else TWIN_TOL_MAX
+            fwd_ok = True
+            if not isinstance(got, dict):  # a level: (loss, weights, [acc,] grads)
+                loss_key = "photo_loss_rel_err" if art else "sq_err_rel_err"
+                rec.update({"weights_max_abs_err": (got[1] - want[1]).abs().max().item(),
+                            loss_key: abs(got[0].item() - want[0].item()) / want[0].item(),
+                            "tol_forward": twin_tol})
+                fwd = [rec["weights_max_abs_err"], rec[loss_key]]
+                if art:
+                    rec.update(acc_max_abs_err=(got[2] - want[2]).abs().max().item(),
+                               acc_mean=want[2].mean().item())
+                    fwd.append(rec["acc_max_abs_err"])
+                fwd_ok = max(fwd) <= twin_tol and bool(torch.isfinite(got[1]).all())
+            if art:
+                max_rel, mean_rel = fused_art.grad_errors(grads, grads_p)
+                tol = (fused_art.GRAD_TOL_REL, fused_art.GRAD_TOL_MEAN_REL)
+                direction = fused_art.deform_direction(grads, grads_p)
+                rec.update(deform={k: list(v) for k, v in direction.items()},
+                           # the entry measures the deformation is not held to
+                           deform_worst=worst_tensors(grads, grads_p, [
+                               k for k in grads_p if k not in fused_art.DEFORM_GRADS]),
+                           deform_min_cos=min(c for c, _ in direction.values()),
+                           deform_max_norm_off=max(abs(r - 1.0) for _, r in direction.values()),
+                           tol_deform=[fused_art.DEFORM_COS, fused_art.DEFORM_NORM])
+                close = fused_art.grads_close(grads, grads_p)
+                err_is = ("per gradient tensor outside the deformation, relative to its max "
+                          "(mean) magnitude; worst")
+            else:
+                max_rel, mean_rel = grad_errors(grads, grads_p)
+                tol = (GRAD_TOL_REL, GRAD_TOL_MEAN_REL)
+                close = max_rel <= tol[0] and mean_rel <= tol[1]
+                err_is = "per gradient tensor, relative to its max (mean) magnitude; worst"
+            rec.update({
+                "max_abs_err": max_rel, "mean_rel_err": mean_rel, "err_is": err_is,
+                "tol_max": tol[0], "tol_mean": tol[1],
+                "repeat_max_rel": grad_errors(grads2, grads)[0],
+                "worst": worst_tensors(grads, grads_p, fused_art.DEFORM_GRADS if art else ()),
+                "finite": all(bool(torch.isfinite(v).all()) for v in grads.values()),
+                **bound_of(flops, nbytes), "card": card,
+            })
+            if timed:
+                rec.update(ms=time_ms(torch, lambda: fn(*fn_args, **kw), 7, warmup=2),
+                           plain_ms=time_ms(torch, lambda: fn_plain(*fn_args, **kw), 3),
+                           library_ms=time_ms(torch, library, 3))
+                rec["tflops"] = flops / rec["ms"] / 1e9
+            rec["ok"] = rec["finite"] and fwd_ok and close
+            emit(rec)
+            if strict:
+                where = f"{kname} {extra.get('arguments', {}).get('mode', '')} at {shape}"
+                require(rec["finite"] and fwd_ok, f"{where}: forward outputs off")
+                require(close, f"{where} disagrees with its twin")
             return rec
 
         def mlp_eval_record(packed_bf, samples, vdirs, kname="fused_nerf_mlp_xyz_eval"):
@@ -588,15 +725,13 @@ def main(argv=None) -> int:
         # kernel 8 at the extraction's block: 65,536 grid points as 512 x 128
         # with one viewdir (extract_geometry.py --chunk 65536)
         phase = "kernel:fused_nerf_mlp_xyz"
-        # (a generator of its own: the draws of the phases after this one stay
-        # those of earlier runs)
-        geo_gen = torch.Generator(device=dev).manual_seed(args.seed + 11)
-        geo_block = torch.rand(GEO_CHUNK // 128, 128, 3, generator=geo_gen, device=dev) * 3.0 - 1.5
+        geo_block = torch.rand(GEO_CHUNK // 128, 128, 3, generator=gen, device=dev) * 3.0 - 1.5
         geo_vdir = torch.tensor([[0.0, 0.0, -1.0]], device=dev).expand(GEO_CHUNK // 128, 3)
         xyz_rec = mlp_eval_record(packed, geo_block, geo_vdir.contiguous(), "fused_nerf_mlp_xyz")
         del geo_block, geo_vdir
 
         phase = "posenc"
+        posenc_in_kernel.launches = 0
         xs = (torch.rand(4096, 3, generator=gen, device=dev) * 12 - 6).contiguous()
         rec = {"phase": "posenc", "max_abs_x": 6.0, "top_frequency": 2 ** (cfg.N_emb_xyz - 1)}
         for s, p in (("s_pos", "p_pos"), ("s_view", "p_view")):
@@ -612,11 +747,70 @@ def main(argv=None) -> int:
                 and max(rec["s_pos_err_exact"], rec["s_view_err_exact"]) <= TOL_POSENC_EXACT,
                 "in-kernel encoding outside its tolerance")
 
+        # Kernel table row 14, the TPU suite's range-reduction test
+        # (tests_tpu/test_kernel_parity.py): its 256 x 3 inputs, uniform in
+        # [-6, 6) from numpy seed 1, through each encoder of the kernels,
+        # column by column against the twin and the exact sine
+        phase = "posenc:row14"
+        x14 = torch.from_numpy(np.random.default_rng(1).uniform(-6, 6, (256, 3)).astype(
+            np.float32)).to(dev)
+        row14 = {"phase": "posenc", "check": "tests_tpu/test_kernel_parity.py:62", "rows": 256,
+                 "encoders": {}, "tol_exact": TOL_POSENC_EXACT,
+                 "tol_twin": {"elementwise": TOL_POSENC_TWIN, "mxu": TOL_POSENC_TWIN,
+                              "doubling": TOL_POSENC_ENCODER_TWIN}}
+        for encoder in ENCODERS:
+            for s, p in (("s_pos", "p_pos"), ("s_view", "p_view")):
+                got = posenc_in_kernel(x14, consts[s], consts[p], encoder)
+                col_err = (got - bench_variants.encode_plain(x14, consts[s], consts[p], encoder)
+                           ).abs().max(0).values
+                n_real = 3 * (1 + 2 * (cfg.N_emb_xyz if s == "s_pos" else cfg.N_emb_dir))
+                pre = (x14.double().cpu().numpy() @ consts[s].double().cpu().numpy()[:3]
+                       + consts[p].double().cpu().numpy())
+                exact = np.where(np.arange(pre.shape[1]) < 3, pre, np.sin(pre))[:, :n_real]
+                pad_cols = torch.arange(n_real, got.shape[1], device=dev)
+                # the doubling encoder's padding columns carry the raw coordinates
+                pad_want = (x14[:, (pad_cols - 3) % 3] if encoder == "doubling"
+                            else torch.zeros(256, len(pad_cols), device=dev))
+                row14["encoders"][f"{encoder}/{s}"] = {
+                    "err_twin": col_err.max().item(), "worst_column": int(col_err.argmax()),
+                    "err_exact": float(np.abs(got[:, :n_real].cpu().numpy() - exact).max()),
+                    "padding_exact": bool(torch.equal(got[:, n_real:], pad_want))}
+        row14["launches"] = posenc_in_kernel.launches
+        # its time at the check's shape and at one extraction block of 65,536
+        # points, beside the twin and the same encoding as one chain of torch
+        # calls (no range reduction): 12 B in and 256 B out per row
+        row14["timed"] = []
+        for n in (256, GEO_CHUNK):
+            xt = (torch.rand(n, 3, generator=gen, device=dev) * 12 - 6).contiguous()
+            col = torch.arange(64, device=dev)
+
+            def library_posenc(xt=xt):
+                pre = torch.addmm(consts["p_pos"], xt, consts["s_pos"][:3])
+                return torch.where(col < 3, pre, torch.sin(pre))
+
+            nbytes = n * (12 + 256) + 5 * 64 * 4
+            row14["timed"].append({
+                "shape": f"{n}x64",
+                "ms": time_ms(torch, lambda: posenc_in_kernel(xt, consts["s_pos"], consts["p_pos"]),
+                              20, warmup=3),
+                "plain_ms": time_ms(torch, lambda: encode_plain(xt, consts["s_pos"],
+                                                                consts["p_pos"]), 5),
+                "library_ms": time_ms(torch, library_posenc, 5),
+                "bytes": nbytes, "bound_ms": 1e3 * nbytes / PEAK_BYTES, "bound_by": "bytes"})
+        row14["card"] = card
+        emit(row14)
+        require(all(e["err_twin"] <= (TOL_POSENC_ENCODER_TWIN if k.startswith("doubling")
+                                      else TOL_POSENC_TWIN)
+                    and e["err_exact"] <= TOL_POSENC_EXACT and e["padding_exact"]
+                    for k, e in row14["encoders"].items()),
+                "an encoder of row 14 is outside its tolerance")
+
         phase = "kernel:resample_union"
 
-        def resample_record(t_vals, bins, cdf, u):
-            """One ``kernel`` line of the resample against its twin, checked;
-            ``u`` is one shared row expanded over the rays, or a row per ray."""
+        def resample_record(t_vals, bins, cdf, u, timed=True, **extra):
+            """One ``kernel`` line of the resample against its twin, checked
+            (timed unless ``timed`` is off); ``u`` is one shared row expanded
+            over the rays, or a row per ray."""
             n_rays, n_t = t_vals.shape
             n_b, n_u = bins.shape[-1], u.shape[-1]
             got = resample_union(t_vals, bins, cdf, u)
@@ -628,21 +822,24 @@ def main(argv=None) -> int:
             # comparisons: a binary search per fine sample and per merged element
             ops = n_rays * (n_u * (math.log2(n_b) + math.log2(n_t) + 8) + n_t * math.log2(n_u))
             rec = {
-                "phase": "kernel", "name": "resample_union", "shape": f"{n_rays}x{n_t}+{n_u}",
+                "phase": "kernel", "name": "resample_union", **extra,
+                "shape": f"{n_rays}x{n_t}+{n_u}",
                 "quantiles": "one shared row" if shared else "a sorted random row per ray",
                 "max_abs_err": (got - want).abs().max().item(), "tol": TOL_RESAMPLE,
                 "sorted": bool((got[:, 1:] >= got[:, :-1]).all()),
-                "ms": time_ms(torch, lambda: resample_union(t_vals, bins, cdf, u), 20, warmup=3),
-                "plain_ms": time_ms(torch, lambda: resample_union_plain(t_vals, bins, cdf, u), 5),
-                "library_ms": time_ms(
-                    torch, lambda: library_resample(torch, t_vals, bins, cdf, u_rows), 5),
                 "bytes": nbytes, "ops": ops,
                 "bound_ms": 1e3 * max(nbytes / PEAK_BYTES, ops / PEAK_F32_FLOPS),
                 "bound_by": ("bytes" if nbytes / PEAK_BYTES >= ops / PEAK_F32_FLOPS
                              else "operations"),
                 "card": card,
             }
-            rec["gbps"] = nbytes / rec["ms"] / 1e6
+            if timed:
+                rec.update(
+                    ms=time_ms(torch, lambda: resample_union(t_vals, bins, cdf, u), 20, warmup=3),
+                    plain_ms=time_ms(torch, lambda: resample_union_plain(t_vals, bins, cdf, u), 5),
+                    library_ms=time_ms(
+                        torch, lambda: library_resample(torch, t_vals, bins, cdf, u_rows), 5))
+                rec["gbps"] = nbytes / rec["ms"] / 1e6
             emit(rec)
             require(rec["sorted"] and rec["max_abs_err"] <= TOL_RESAMPLE,
                     f"resample kernel disagrees with its twin at {rec['shape']}")
@@ -670,7 +867,9 @@ def main(argv=None) -> int:
                     "fused_mlp_bwd_xyz": fused_mlp_bwd_xyz,
                     "art_mlp_fwd": fused_art.art_mlp_fwd,
                     "art_mlp_bwd": fused_art.art_mlp_bwd,
-                    "fused_level_train_art_grads": fused_level_train_art_grads}
+                    "fused_level_train_art_grads": fused_level_train_art_grads,
+                    **{fn.__name__: fn for fn in (*bench_variants.MLP_BODY.values(),
+                                                  *bench_variants.XYZ_BODY.values())}}
         n_params = MLP_MACS_PER_SAMPLE + MLP_BIASES
         ro, rd = origins[:TRAIN_RAYS].contiguous(), dirs[:TRAIN_RAYS].contiguous()
         target = torch.rand(TRAIN_RAYS, 3, generator=gen, device=dev)
@@ -710,46 +909,9 @@ def main(argv=None) -> int:
                  lambda: library_mlp_vjp(torch, *enc_bwd_args)),
             )
             for kname, fn, fn_plain, fn_args, nbytes, library in runs:
-                got = fn(*fn_args)
-                torch.cuda.synchronize()
-                want = fn_plain(*fn_args)
-                again = fn(*fn_args)
-                rec = {"phase": "kernel", "name": kname, "shape": f"{TRAIN_RAYS}x{n_samples}",
-                       "rows": rows}
-                if kname == "fused_level_train_grads":
-                    (sq, wgt, grads), (sq_p, wgt_p, grads_p), grads2 = got, want, again[2]
-                    rec.update(weights_max_abs_err=(wgt - wgt_p).abs().max().item(),
-                               sq_err_rel_err=abs(sq.item() - sq_p.item()) / sq_p.item(),
-                               tol_forward=TWIN_TOL_MAX)
-                    fwd_ok = (rec["weights_max_abs_err"] <= TWIN_TOL_MAX
-                              and rec["sq_err_rel_err"] <= TWIN_TOL_MAX
-                              and bool(torch.isfinite(wgt).all()))
-                else:
-                    grads, grads_p, grads2, fwd_ok = got, want, again, True
-                max_rel, mean_rel = grad_errors(grads, grads_p)
-                rec.update({
-                    "max_abs_err": max_rel, "mean_rel_err": mean_rel,
-                    "err_is": "per gradient tensor, relative to its max (mean) magnitude; worst",
-                    "tol_max": GRAD_TOL_REL, "tol_mean": GRAD_TOL_MEAN_REL,
-                    "repeat_max_rel": grad_errors(grads2, grads)[0],
-                    "worst": worst_tensors(grads, grads_p),
-                    "finite": all(bool(torch.isfinite(v).all()) for v in grads.values()),
-                    "ms": time_ms(torch, lambda: fn(*fn_args), 7, warmup=2),
-                    "plain_ms": time_ms(torch, lambda: fn_plain(*fn_args), 3),
-                    "library_ms": time_ms(torch, library, 3),
-                    "flop": flops, "bytes": nbytes,
-                    "bound_ms": 1e3 * max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES),
-                    "bound_by": ("operations" if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_BYTES
-                                 else "bytes"),
-                    "card": card,
-                })
-                rec["tflops"] = flops / rec["ms"] / 1e9
-                emit(rec)
-                require(rec["finite"] and fwd_ok, f"{kname}: forward outputs off at {rec['shape']}")
-                require(max_rel <= GRAD_TOL_REL and mean_rel <= GRAD_TOL_MEAN_REL,
-                        f"{kname} disagrees with its twin at {rec['shape']}")
-                train_rows[kname, n_samples] = rec
-                del got, want, again, grads, grads_p, grads2
+                train_rows[kname, n_samples] = grad_record(
+                    kname, fn, fn_plain, fn_args, shape=f"{TRAIN_RAYS}x{n_samples}", rows=rows,
+                    flops=flops, nbytes=nbytes, library=library)
             # the eval MLP as the v2 forward launches it: the float32 packing
             # of training, rounded to bf16 for the launch
             train_rows["fused_nerf_mlp_xyz_eval", n_samples] = mlp_eval_record(
@@ -1042,15 +1204,11 @@ def main(argv=None) -> int:
         art_params = art_state0.params
         latents = {k: v.detach() for k, v in art_system._latents(
             art_params, {"instance_id": 1, "articulation_id": 2}).items()}
-        n_art_params = ART_MACS_PER_SAMPLE + ART_BIASES
+        n_art_params = art_macs + ART_BIASES
 
-        def bound_of(flops, nbytes):
-            by_ops = flops / PEAK_BF16_FLOPS >= nbytes / PEAK_BYTES
-            return {"flop": flops, "bytes": nbytes, "bound_by": "operations" if by_ops else "bytes",
-                    "bound_ms": 1e3 * max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES)}
-
-        def art_fwd_record(packed_art, samples, vdirs, path):
-            """One ``kernel`` line of the articulated forward against its twin, checked."""
+        def art_fwd_record(packed_art, samples, vdirs, path, timed=True):
+            """One ``kernel`` line of the articulated forward against its twin,
+            checked (timed unless ``timed`` is off)."""
             n_rays, n_samples = samples.shape[:2]
             rows = n_rays * n_samples
             args_ = (packed_art, consts, samples, vdirs)
@@ -1065,16 +1223,18 @@ def main(argv=None) -> int:
                 "max_abs_err": err.max().item(), "mean_abs_err": err.mean().item(),
                 "tol_max": fused_art.TWIN_TOL_MAX, "tol_mean": fused_art.TWIN_TOL_MEAN,
                 "finite": bool(torch.isfinite(rgb).all() and torch.isfinite(sigma).all()),
-                "ms": time_ms(torch, lambda: fused_art.art_mlp_fwd(*args_), 5),
-                "plain_ms": time_ms(torch, lambda: fused_art.art_mlp_fwd_plain(*args_), 3),
-                "library_ms": time_ms(
-                    torch, lambda: library_art_mlp(torch, *args_, encode_plain), 3),
-                **bound_of(2.0 * ART_MACS_PER_SAMPLE * rows,
-                           rows * (12 + 16) + n_rays * 12 + 2 * ART_MACS_PER_SAMPLE
+                **bound_of(2.0 * art_macs * rows,
+                           rows * (12 + 16) + n_rays * 12 + 2 * art_macs
                            + 4 * ART_BIASES),
                 "card": card,
             }
-            rec["tflops"] = rec["flop"] / rec["ms"] / 1e9
+            if timed:
+                rec.update(
+                    ms=time_ms(torch, lambda: fused_art.art_mlp_fwd(*args_), 5),
+                    plain_ms=time_ms(torch, lambda: fused_art.art_mlp_fwd_plain(*args_), 3),
+                    library_ms=time_ms(
+                        torch, lambda: library_art_mlp(torch, *args_, encode_plain), 3))
+                rec["tflops"] = rec["flop"] / rec["ms"] / 1e9
             emit(rec)
             require(rec["finite"], "non-finite articulated MLP kernel output")
             require(rec["max_abs_err"] <= fused_art.TWIN_TOL_MAX
@@ -1089,6 +1249,7 @@ def main(argv=None) -> int:
             art_rows["art_mlp_fwd", "render", n_samples] = art_fwd_record(
                 packed_fine, samples.contiguous(), dirs, "render chunk")
             del samples
+        del packed_fine
         torch.cuda.empty_cache()
 
         art_level_modes = {
@@ -1100,97 +1261,156 @@ def main(argv=None) -> int:
             "white_bkgd": dict(white_bkgd=True, rgb_padding=0.001, density_bias=-1.0,
                                bce_weight=0.0, sigma_act="softplus_bias"),
         }
-        art_target = target * (torch.rand(TRAIN_RAYS, 1, generator=gen, device=dev) > 0.5)
-        art_mask = (art_target.sum(-1) > 0).float()
-        lw_uniform = torch.full((TRAIN_RAYS,), 1.0 / (3.0 * TRAIN_RAYS), device=dev)
-        lw_masked = (art_mask / (3.0 * art_mask.sum()).clamp_min(1.0)).contiguous()
-        t_lvl, _ = sample_along_rays(ro, rd, N_COARSE, 2.0, 6.0, randomized=True, generator=gen)
-        for level, n_samples in (("coarse_mlp", N_COARSE + 1), ("fine_mlp", N_COARSE + 1 + N_FINE)):
-            packed_art = fused_art.fold_latents(mlp_params(art_params, f"model.{level}"), latents)
-            samples = (ro[:, None, :] + t_lvl[..., None] * rd[:, None, :]).contiguous()
-            rows = TRAIN_RAYS * n_samples
-            cot = torch.randn(TRAIN_RAYS, n_samples, 4, generator=gen, device=dev) / rows
-            flops = 3 * 2.0 * ART_MACS_PER_SAMPLE * rows  # forward and two backward products
-            level_args = (packed_art, consts, t_lvl, ro, rd, rd, art_target)
-            bwd_args = (packed_art, consts, samples, rd, cot)
-            runs = [
-                # xyz and g (B, S, 3 + 4), viewdirs, f32 params in, f32 grads out
-                ("art_mlp_bwd", "", fused_art.art_mlp_bwd, fused_art.art_mlp_bwd_plain, bwd_args, {},
-                 4 * (7 * rows + 3 * TRAIN_RAYS + 2 * n_art_params),
-                 lambda: library_art_level(torch, packed_art, consts, t_lvl, ro, rd, rd,
-                                           art_target, lw_uniform, encode_plain, cotangent=cot)),
-            ]
-            for mode, kw in art_level_modes.items():
-                if mode != "autodecoder" and level == "coarse_mlp":
-                    continue  # the other two argument sets once, at the fine shape
-                lw = lw_masked if mode == "autoencoder" else lw_uniform
-                runs.append(
-                    # t and weights (B, S); o, d, viewdirs, target (B, 3); loss_w, mask, acc (B);
-                    # f32 params in, f32 grads out
-                    ("fused_level_train_art_grads", mode, fused_level_train_art_grads,
-                     fused_level_train_art_grads_plain, (*level_args, lw, art_mask), kw,
-                     4 * (2 * rows + (4 * 3 + 3) * TRAIN_RAYS + 2 * n_art_params + 1),
-                     lambda lw=lw, kw=kw: library_art_level(
-                         torch, packed_art, consts, t_lvl, ro, rd, rd, art_target, lw,
-                         encode_plain, mask=art_mask, **kw)))
-            for kname, mode, fn, fn_plain, fn_args, kw, nbytes, library in runs:
-                got = fn(*fn_args, **kw)
-                torch.cuda.synchronize()
-                want = fn_plain(*fn_args, **kw)
-                again = fn(*fn_args, **kw)
-                rec = {"phase": "kernel", "name": kname, "shape": f"{TRAIN_RAYS}x{n_samples}",
-                       "rows": rows}
-                if kname == "fused_level_train_art_grads":
-                    (ph, wgt, acc, grads), (ph_p, wgt_p, acc_p, grads_p) = got, want
-                    grads2 = again[3]
-                    rec.update(arguments=dict(kw, mode=mode),
-                               weights_max_abs_err=(wgt - wgt_p).abs().max().item(),
-                               acc_max_abs_err=(acc - acc_p).abs().max().item(),
-                               acc_mean=acc_p.mean().item(),
-                               photo_loss_rel_err=abs(ph.item() - ph_p.item()) / ph_p.item(),
-                               tol_forward=fused_art.TWIN_TOL_MAX)
-                    fwd_ok = (rec["weights_max_abs_err"] <= fused_art.TWIN_TOL_MAX
-                              and rec["acc_max_abs_err"] <= fused_art.TWIN_TOL_MAX
-                              and rec["photo_loss_rel_err"] <= fused_art.TWIN_TOL_MAX
-                              and bool(torch.isfinite(wgt).all()))
+
+        def art_train_checks(seed, timed=True, strict=True):
+            """Rows 9 (with each argument set), 11 and 10 at the training
+            shapes, 2,048 rays x 65 and x 193 samples with t sampled as a step
+            samples it, against their twins, on the weights, codes, rays and
+            draws of ``seed``; the records by (kernel, arguments, samples)."""
+            gen = torch.Generator(device=dev).manual_seed(seed + 17)
+            params_s = art_system.init_params(torch.Generator(device=dev).manual_seed(seed + 7))
+            lat = {k: v.detach() for k, v in art_system._latents(
+                params_s, {"instance_id": 1, "articulation_id": 2}).items()}
+            rd = torch.nn.functional.normalize(
+                torch.randn(TRAIN_RAYS, 3, generator=gen, device=dev), dim=-1)
+            ro = (-4.0 * rd + 0.3 * torch.randn(TRAIN_RAYS, 3, generator=gen, device=dev))
+            target = torch.rand(TRAIN_RAYS, 3, generator=gen, device=dev)
+            target = target * (torch.rand(TRAIN_RAYS, 1, generator=gen, device=dev) > 0.5)
+            mask = (target.sum(-1) > 0).float()
+            lw_uniform = torch.full((TRAIN_RAYS,), 1.0 / (3.0 * TRAIN_RAYS), device=dev)
+            lw_masked = (mask / (3.0 * mask.sum()).clamp_min(1.0)).contiguous()
+            t_lvl, _ = sample_along_rays(ro, rd, N_COARSE, 2.0, 6.0, randomized=True,
+                                         generator=gen)
+            recs = {}
+            for level in ("coarse_mlp", "fine_mlp"):
+                packed_art = fused_art.fold_latents(mlp_params(params_s, f"model.{level}"), lat)
+                n_samples = t_lvl.shape[1]
+                samples = (ro[:, None, :] + t_lvl[..., None] * rd[:, None, :]).contiguous()
+                rows = TRAIN_RAYS * n_samples
+                cot = torch.randn(TRAIN_RAYS, n_samples, 4, generator=gen, device=dev) / rows
+                level_args = (packed_art, consts, t_lvl, ro, rd, rd, target)
+                runs = [
+                    # xyz and g (B, S, 3 + 4), viewdirs, f32 params in, f32 grads out
+                    ("art_mlp_bwd", "", fused_art.art_mlp_bwd, fused_art.art_mlp_bwd_plain,
+                     (packed_art, consts, samples, rd, cot), {},
+                     4 * (7 * rows + 3 * TRAIN_RAYS + 2 * n_art_params),
+                     lambda: library_art_level(torch, packed_art, consts, t_lvl, ro, rd, rd,
+                                               target, lw_uniform, encode_plain, cotangent=cot)),
+                ]
+                for mode, kw in art_level_modes.items():
+                    if mode != "autodecoder" and level == "coarse_mlp":
+                        continue  # the other two argument sets once, at the fine shape
+                    lw = lw_masked if mode == "autoencoder" else lw_uniform
+                    runs.append(
+                        # t and weights (B, S); o, d, viewdirs, target (B, 3); loss_w, mask,
+                        # acc (B); f32 params in, f32 grads out
+                        ("fused_level_train_art_grads", mode, fused_level_train_art_grads,
+                         fused_level_train_art_grads_plain, (*level_args, lw, mask), kw,
+                         4 * (2 * rows + (4 * 3 + 3) * TRAIN_RAYS + 2 * n_art_params + 1),
+                         lambda lw=lw, kw=kw: library_art_level(
+                             torch, packed_art, consts, t_lvl, ro, rd, rd, target, lw,
+                             encode_plain, mask=mask, **kw)))
+                for kname, mode, fn, fn_plain, fn_args, kw, nbytes, library in runs:
+                    extra = {"arguments": dict(kw, mode=mode)} if mode else {}
+                    recs[kname, mode, n_samples] = grad_record(
+                        kname, fn, fn_plain, fn_args, kw=kw, shape=f"{TRAIN_RAYS}x{n_samples}",
+                        rows=rows, flops=3 * 2.0 * art_macs * rows,  # forward, two backward
+                        nbytes=nbytes, library=library, art=True, timed=timed, strict=strict,
+                        seed=seed, **extra)
+                # the forward as the v2 route launches it
+                recs["art_mlp_fwd", "train", n_samples] = art_fwd_record(
+                    packed_art, samples, rd, "v2 forward", timed=timed)
+                if level == "coarse_mlp":
+                    # the fine level's t: the union with the resample of this level's own weights
+                    wgt = fused_level_train_art_grads(
+                        *level_args, lw_uniform, mask, **art_level_modes["autodecoder"])[1]
+                    bins = (0.5 * (t_lvl[:, 1:] + t_lvl[:, :-1])).contiguous()
+                    u = sorted_uniform(torch.rand(TRAIN_RAYS, N_FINE + 1, generator=gen,
+                                                  device=dev))
+                    t_lvl = resample_union(t_lvl, bins, pdf_cdf(wgt[:, 1:-1]).contiguous(), u)
+                del samples, cot, level_args, runs, packed_art
+            torch.cuda.empty_cache()
+            return recs
+
+        art_train0 = art_train_checks(args.seed)
+        art_rows.update(art_train0)
+
+        # ------------------------------------------------ bench shapes
+        # rows 3, 2 and 9 as the bench's steps launch them: the first
+        # microbatch of each bench batch, t stratified in its per-ray
+        # intervals, then the union with the resample of the coarse level's
+        # weights
+        phase = "kernel:bench_shapes"
+
+        def bench_shape_checks(seed, timed=True, strict=True):
+            """Rows 3 and 9, and row 2 between their levels, on the first
+            2,048 rays of each bench batch (vanilla 17 + 32 samples on
+            occupancy intervals, white background; the auto-decoder 25 + 48 on
+            AABB intervals), against their twins, on the weights and draws of
+            ``seed``; the records by (kernel, samples)."""
+            gen = torch.Generator(device=dev).manual_seed(seed + 14)
+            recs = {}
+            for system_name, n_rays, tight, batch_seed, (n_c, n_f) in BENCH_CONTRACTS:
+                hb = port_bench._synthetic_batch(n_rays, tight, seed=batch_seed)
+                b = {k: torch.from_numpy(v[:TRAIN_RAYS]).to(dev) for k, v in hb.items()}
+                ro, rd, vd, tg = b["rays_o"], b["rays_d"], b["viewdirs"], b["target"]
+                contract = f"{system_name} bench, {tight} intervals"
+                t_lvl, _ = sample_along_rays(ro, rd, n_c, b["t_near"], b["t_far"],
+                                             randomized=True, generator=gen)
+                vanilla = system_name == "vanilla"
+                if vanilla:
+                    p = system.init_params(torch.Generator(device=dev).manual_seed(seed + 1))
                 else:
-                    grads, grads_p, grads2, fwd_ok = got, want, again, True
-                max_rel, mean_rel = grad_errors(grads, grads_p)
-                rec.update({
-                    "max_abs_err": max_rel, "mean_rel_err": mean_rel,
-                    "err_is": "per gradient tensor, relative to its max (mean) magnitude; worst",
-                    "tol_max": fused_art.GRAD_TOL_REL, "tol_mean": fused_art.GRAD_TOL_MEAN_REL,
-                    "repeat_max_rel": grad_errors(grads2, grads)[0],
-                    "worst": worst_tensors(grads, grads_p),
-                    "finite": all(bool(torch.isfinite(v).all()) for v in grads.values()),
-                    "ms": time_ms(torch, lambda: fn(*fn_args, **kw), 7, warmup=2),
-                    "plain_ms": time_ms(torch, lambda: fn_plain(*fn_args, **kw), 3),
-                    "library_ms": time_ms(torch, library, 3),
-                    **bound_of(flops, nbytes), "card": card,
-                })
-                rec["tflops"] = flops / rec["ms"] / 1e9
-                emit(rec)
-                require(rec["finite"] and fwd_ok, f"{kname}: forward outputs off at {rec['shape']}")
-                require(max_rel <= fused_art.GRAD_TOL_REL
-                        and mean_rel <= fused_art.GRAD_TOL_MEAN_REL,
-                        f"{kname} ({mode}) disagrees with its twin at {rec['shape']}")
-                art_rows[kname, mode, n_samples] = rec
-                del got, want, again, grads, grads_p, grads2
-            # the forward as the v2 route launches it
-            art_rows["art_mlp_fwd", "train", n_samples] = art_fwd_record(
-                packed_art, samples, rd, "v2 forward")
-            if level == "coarse_mlp":
-                # the fine level's t: the union with the resample of this level's own weights
-                wgt = fused_level_train_art_grads(
-                    *level_args, lw_uniform, art_mask, **art_level_modes["autodecoder"])[1]
-                bins = (0.5 * (t_lvl[:, 1:] + t_lvl[:, :-1])).contiguous()
-                u = sorted_uniform(torch.rand(TRAIN_RAYS, N_FINE + 1, generator=gen, device=dev))
-                t_next = resample_union(t_lvl, bins, pdf_cdf(wgt[:, 1:-1]).contiguous(), u)
-                del wgt, bins, u
-            del samples, cot, level_args, bwd_args, runs, packed_art
-            t_lvl = t_next
-        del packed_fine
-        torch.cuda.empty_cache()
+                    p = art_system.init_params(torch.Generator(device=dev).manual_seed(seed + 7))
+                    lat = {k: v.detach() for k, v in art_system._latents(
+                        p, {"instance_id": 0, "articulation_id": 1}).items()}
+                    lw = torch.full((TRAIN_RAYS,), 1.0 / (3.0 * TRAIN_RAYS), device=dev)
+                    ones = torch.ones(TRAIN_RAYS, device=dev)
+                for level in ("coarse_mlp", "fine_mlp"):
+                    n_samples = t_lvl.shape[1]
+                    rows = TRAIN_RAYS * n_samples
+                    if vanilla:
+                        packed_l = pack_vanilla_mlp_params_f32(mlp_params(p, level))
+                        kname, fn, fn_plain, kw = ("fused_level_train_grads", fused_level_train_grads,
+                                                   fused_level_train_grads_plain, {})
+                        fn_args = (packed_l, consts, t_lvl, ro, rd, vd, tg, True)
+                        macs, n_p = MLP_MACS_PER_SAMPLE, n_params
+                        library = (lambda packed_l=packed_l, t=t_lvl: library_level(
+                            torch, packed_l, consts, t, ro, rd, vd, tg, encode_plain))
+                    else:
+                        packed_l = fused_art.fold_latents(mlp_params(p, f"model.{level}"), lat)
+                        kname, fn, fn_plain = ("fused_level_train_art_grads",
+                                               fused_level_train_art_grads,
+                                               fused_level_train_art_grads_plain)
+                        kw = art_level_modes["autodecoder"]
+                        fn_args = (packed_l, consts, t_lvl, ro, rd, vd, tg, lw, ones)
+                        macs, n_p = art_macs, n_art_params
+                        library = (lambda packed_l=packed_l, t=t_lvl: library_art_level(
+                            torch, packed_l, consts, t, ro, rd, vd, tg, lw, encode_plain,
+                            mask=ones, **art_level_modes["autodecoder"]))
+                    recs[kname, n_samples] = grad_record(
+                        kname, fn, fn_plain, fn_args, kw=kw, shape=f"{TRAIN_RAYS}x{n_samples}",
+                        rows=rows, flops=3 * 2.0 * macs * rows,
+                        # t and weights (B, S); o, d, viewdirs, target [, loss_w, mask,
+                        # acc] per ray; f32 params in, f32 grads out
+                        nbytes=4 * (2 * rows + (12 if vanilla else 15) * TRAIN_RAYS
+                                    + 2 * n_p + 1),
+                        library=library, art=not vanilla, timed=timed, strict=strict,
+                        seed=seed, contract=contract)
+                    if level == "coarse_mlp":
+                        wgt = fn(*fn_args, **kw)[1]
+                        bins = (0.5 * (t_lvl[:, 1:] + t_lvl[:, :-1])).contiguous()
+                        cdf = pdf_cdf(wgt[:, 1:-1]).contiguous()
+                        u = sorted_uniform(torch.rand(TRAIN_RAYS, n_f + 1, generator=gen,
+                                                      device=dev))
+                        recs["resample_union", n_samples] = resample_record(
+                            t_lvl, bins, cdf, u, timed=timed, seed=seed, contract=contract)
+                        t_lvl = resample_union(t_lvl, bins, cdf, u)
+                    del packed_l, fn_args
+            torch.cuda.empty_cache()
+            return recs
+
+        bench_shape_rows = bench_shape_checks(args.seed)
 
         # --------------------------------------------------------- art path
         phase = "art_path"
@@ -1582,6 +1802,341 @@ def main(argv=None) -> int:
             shutil.rmtree(geo_dir, ignore_errors=True)
         torch.cuda.empty_cache()
 
+        # ----------------------------------------------------- bench_kernels
+        # The port's kernel bench (aon_tpu_torch/scripts/bench_kernels.py),
+        # every variant at its own shapes: rows 1 and 4 through the training
+        # entries, row 12 (three bodies) and row 13 (three encoders); then each
+        # row-12 and row-13 variant against its twin on 65,536 rows
+        phase = "bench_kernels"
+        for c in counters.values():
+            c.launches = 0
+        with contextlib.redirect_stdout(io.StringIO()):  # its lines are re-emitted below
+            bk_lines = {line["variant"]: line for line in port_bench_kernels.main([], device=dev)}
+        bk_launches = {k: c.launches for k, c in counters.items()}
+        for line in bk_lines.values():
+            emit({"phase": "bench_kernels", **line, "card": card})
+
+        def bk_calls(*names):  # a warm-up launch and the timed ones, per variant
+            return sum(1 + bk_lines[n]["calls"] for n in names)
+
+        parts = {n for n, v in port_bench_kernels.VARIANTS.items() if v[0] == "parts"}
+        fwd_parts = {n for n in parts if "fwd" in port_bench_kernels.VARIANTS[n][2]["part"]}
+        want_bk = {
+            "fused_nerf_mlp_xyz_eval": bk_calls(*fwd_parts, "train512"),
+            "fused_mlp_bwd_xyz": bk_calls(*(n for n in parts if "bwd" in
+                                            port_bench_kernels.VARIANTS[n][2]["part"]), "train512"),
+            "mlp_body_base": bk_calls("body_base512"),
+            "mlp_body_2s": bk_calls("body_2s512", "body_2s1024"),
+            "mlp_body_bf16acc": bk_calls("body_bf16acc512"),
+            **{f"xyz_body_{e}": bk_calls(v) for e, v in (
+                ("elementwise", "xyzbody_base512"), ("mxu", "xyzbody_mxu512"),
+                ("doubling", "xyzbody_doubling512"))}}
+        n_twin, n_bench = 65536, port_bench_kernels.ROWS["fwd"]
+        packed_b = pack_vanilla_mlp_params(port_bench_kernels.mlp_params(dev))
+        g = torch.Generator(device=dev).manual_seed(args.seed + 12)
+        variant_in = {n: {"enc": torch.randn(n, 64, generator=g, device=dev),
+                          "venc": torch.randn(n, 32, generator=g, device=dev),
+                          "xyz": torch.randn(n, 3, generator=g, device=dev),
+                          "vdir": torch.randn(n, 3, generator=g, device=dev)}
+                      for n in (n_twin, n_bench)}
+        variant_rows, outs = {}, {}
+        for row, names in ((12, bench_variants.BODIES), (13, ENCODERS)):
+            for vname in names:
+                if row == 12:
+                    fn, kname = bench_variants.MLP_BODY[vname], f"mlp_body_{vname}"
+                    variant = {"base": "body_base512", "2s": "body_2s512",
+                               "bf16acc": "body_bf16acc512"}[vname]
+
+                    def run(x, fn=fn):
+                        return fn(packed_b, x["enc"], x["venc"])
+
+                    def plain(x, vname=vname):
+                        return bench_variants.mlp_body_plain(x["enc"], x["venc"], packed_b, vname)
+
+                    def library(x):
+                        return library_mlp_enc(torch, packed_b, x["enc"], x["venc"])
+
+                    in_bytes = (64 + 32) * 4
+                else:
+                    fn, kname = bench_variants.XYZ_BODY[vname], f"xyz_body_{vname}"
+                    variant = {"elementwise": "xyzbody_base512", "mxu": "xyzbody_mxu512",
+                               "doubling": "xyzbody_doubling512"}[vname]
+
+                    def run(x, fn=fn):
+                        return fn(packed_b, consts, x["xyz"], x["vdir"])
+
+                    def plain(x, vname=vname):
+                        return bench_variants.xyz_body_plain(packed_b, consts, x["xyz"], x["vdir"],
+                                                             vname)
+
+                    def library(x):
+                        return library_mlp(torch, packed_b, consts, x["xyz"][:, None], x["vdir"],
+                                           encode_plain)
+
+                    in_bytes = 24
+                got = run(variant_in[n_twin])
+                torch.cuda.synchronize()
+                want = plain(variant_in[n_twin])
+                outs[kname] = got
+                err = torch.cat([(a - b).reshape(-1) for a, b in zip(got, want)]).abs()
+                flops = 2.0 * MLP_MACS_PER_SAMPLE * n_bench
+                nbytes = n_bench * (in_bytes + 16) + 2 * MLP_MACS_PER_SAMPLE + 4 * MLP_BIASES
+                x_bench = variant_in[n_bench]
+                rec = {"phase": "kernel", "name": kname, "row": row, "variant": variant,
+                       "shape": f"{n_bench}", "twin_rows": n_twin,
+                       "max_abs_err": err.max().item(), "mean_abs_err": err.mean().item(),
+                       "tol_max": TWIN_TOL_MAX, "tol_mean": TWIN_TOL_MEAN,
+                       "finite": all(bool(torch.isfinite(t).all()) for t in got),
+                       "ms": bk_lines[variant]["ms_per_call"],
+                       "plain_ms": time_ms(torch, lambda: plain(x_bench), 3),
+                       "library_ms": time_ms(torch, lambda: library(x_bench), 3),
+                       **bound_of(flops, nbytes), "card": card}
+                rec["tflops"] = flops / rec["ms"] / 1e9
+                emit(rec)
+                require(rec["finite"] and rec["max_abs_err"] <= TWIN_TOL_MAX
+                        and rec["mean_abs_err"] <= TWIN_TOL_MEAN,
+                        f"{kname} disagrees with its twin")
+                variant_rows[kname] = rec
+        two_stream_diff = max((a - b).abs().max().item() for a, b in zip(
+            outs["mlp_body_2s"], outs["mlp_body_base"]))
+        # the bf16acc body's check tells its rounding from the base body's:
+        # the two bodies' outputs lie further apart than bf16acc from its twin
+        gap = torch.cat([(a - b).reshape(-1) for a, b in zip(
+            outs["mlp_body_bf16acc"], outs["mlp_body_base"])]).abs()
+        bf16acc_err = variant_rows["mlp_body_bf16acc"]["mean_abs_err"]
+        checks = {"lines": set(bk_lines) == set(port_bench_kernels.VARIANTS),
+                  "launches": launches_are(bk_launches, **want_bk),
+                  "two_stream_bit_identical_to_base": two_stream_diff == 0.0,
+                  "bf16acc_apart_from_base": (gap.mean().item() > TWIN_TOL_MEAN and gap.mean().item()
+                                              >= BF16ACC_SEPARATION * bf16acc_err)}
+        emit({"phase": "bench_kernels", "launches": bk_launches, "launches_want": want_bk,
+              "two_stream_vs_base_max_abs_diff": two_stream_diff,
+              "bf16acc_vs_base": {"max_abs_diff": gap.max().item(),
+                                  "mean_abs_diff": gap.mean().item(),
+                                  "bf16acc_vs_twin_mean_abs_err": bf16acc_err,
+                                  "separation_min": BF16ACC_SEPARATION},
+              "checks": checks, "card": card})
+        require(all(checks.values()), f"bench_kernels checks failed: {checks}")
+        del gap
+        del variant_in, outs, packed_b
+        torch.cuda.empty_cache()
+
+        # ------------------------------------------------------------- bench
+        # The port's bench.py at its defaults (the production contract:
+        # vanilla 32,768 rays at 16 + 32 samples with occupancy intervals, the
+        # auto-decoder 4,096 at 24 + 48 with AABB intervals), then at
+        # --reference_contract --headline_only; exact launches, the loss of
+        # the repeated batch falling; and the first step of the interval path
+        # on one 2,048-ray microbatch of the bench's own batch against the
+        # plain float32 route
+        phase = "bench"
+        bench_runs, bench_launches = {}, {}
+        for label, flags in (("production", []),
+                             ("reference_contract", ["--reference_contract", "--headline_only"])):
+            for c in counters.values():
+                c.launches = 0
+            printed = io.StringIO()
+            with contextlib.redirect_stdout(printed):
+                res = port_bench.main(flags, device=dev)
+            bench_launches[label] = {k: c.launches for k, c in counters.items()}
+            lines = [json.loads(ln) for ln in printed.getvalue().splitlines()]
+            bench_runs[label] = (res, lines)
+            emit({"phase": "bench", "contract": label, "flags": flags, "lines": lines,
+                  "results": res, "launches": bench_launches[label], "card": card})
+
+        def bench_launches_want(res):
+            """Launches of the bench's dispatches: per step, two levels and a
+            resample per microbatch."""
+            want = {}
+            calls = port_bench.WARMUP_DISPATCHES + port_bench.TIMED_DISPATCHES
+            for system, level in (("vanilla", "fused_level_train_grads"),
+                                  ("autodecoder", "fused_level_train_art_grads")):
+                if system in res:
+                    r = res[system]
+                    micro = calls * r["steps_per_dispatch"] * r["rays_per_step"] // r["microbatch"]
+                    want[level] = 2 * micro
+                    want["resample_union"] = want.get("resample_union", 0) + micro
+            return want
+
+        def interval_first_step(seed):
+            """The first step of the interval path (the v3 kernel route) on the
+            first 2,048 rays of each bench batch against the plain float32
+            route, with the weights and draws of ``seed``; beside it, the
+            plain route in bf16 against float32 on the same inputs: what bf16
+            rounding alone does to the same gradients."""
+            out = {}
+            for system_name, n_rays, tight, batch_seed, samples in BENCH_CONTRACTS:
+                hb = port_bench._synthetic_batch(n_rays, tight, seed=batch_seed)
+                batch = {k: torch.from_numpy(v[:TRAIN_RAYS]).to(dev) for k, v in hb.items()}
+                kw = dict(N_samples=samples[0], N_importance=samples[1], compute_dtype="bfloat16")
+                route_cfg = (("v3", {}), ("plain", dict(use_pallas=False, compute_dtype="float32")),
+                             ("plain_bf16", dict(use_pallas=False)))
+                if system_name == "vanilla":
+                    routes = {r: VanillaSystem(Config(**{**kw, **o}), 2.0, 6.0, True, device=dev)
+                              for r, o in route_cfg}
+                else:
+                    batch.update(instance_id=torch.tensor(0, device=dev),
+                                 articulation_id=torch.tensor(1, device=dev))
+                    routes = {r: AutoDecoderSystem(Config(**{**kw, **o}, N_max_objs=8), 2.0, 6.0,
+                                                   False, device=dev)
+                              for r, o in route_cfg}
+                g = torch.Generator(device=dev).manual_seed(seed + 13)
+                params0 = routes["v3"].init_params(g)
+                draws = {"t_rand": torch.rand(TRAIN_RAYS, samples[0] + 1, generator=g, device=dev),
+                         "u": sorted_uniform(torch.rand(TRAIN_RAYS, samples[1] + 1, generator=g,
+                                                        device=dev))}
+                first = {r: accumulated_grads(sy.loss_fn, params0, batch, None, draws)
+                         for r, sy in routes.items()}
+                # The articulation and shape codes enter the deformation field
+                # (fold_latents folds both into its first bias; the shape code
+                # also into the trunk's), so their gradients carry the
+                # deformation's phase noise, which the short AABB intervals
+                # weigh more than the [2, 6] ladder of the art_train phase
+                # does; the plain route in bf16 shows the same against
+                # float32 (PERF.md).  They are held with the deformation's
+                # tensors, the appearance code (the view layer's only) at the
+                # codes' limit.
+                deform_codes = [ART_TABLE, "code_library.embedding_instance_shape.weight"]
+                names = {"trunk": [k for k in params0 if k.startswith("model.")
+                                   and ".deform_" not in k],
+                         "deform": [k for k in params0 if ".deform_" in k] + deform_codes,
+                         "codes": [k for k in params0 if k.startswith("code_library.")
+                                   and k not in deform_codes]}
+
+                def against_plain(r):
+                    a, b = first[r], first["plain"]
+                    max_rel, mean_rel = grad_errors(a[2], b[2])
+                    cmp = {"loss_rel": abs(a[0].item() - b[0].item()) / abs(b[0].item()),
+                           "grad_max_rel": max_rel, "grad_mean_rel": mean_rel}
+                    if system_name != "vanilla":
+                        cmp["cos"] = {grp: cosine(a[2], b[2], ks) for grp, ks in names.items()}
+                        cmp["cos_by_code_table"] = {k: cosine(a[2], b[2], [k])
+                                                    for k in params0 if k.startswith("code_library.")}
+                    return cmp
+
+                rec = {"seed": seed, "loss": {r: first[r][0].item() for r in first},
+                       **against_plain("v3"), "plain_bf16_vs_plain": against_plain("plain_bf16"),
+                       "interval_mean_span": float((hb["t_far"] - hb["t_near"])[:TRAIN_RAYS].mean())}
+                if system_name == "vanilla":
+                    bf16 = rec["plain_bf16_vs_plain"]
+                    rec["ok"] = (rec["loss_rel"] <= TOL_STEP_LOSS
+                                 and rec["grad_max_rel"] <= TOL_INTERVAL_VS_BF16 * bf16["grad_max_rel"]
+                                 and rec["grad_mean_rel"]
+                                 <= TOL_INTERVAL_VS_BF16 * bf16["grad_mean_rel"])
+                else:
+                    rec["ok"] = rec["loss_rel"] <= TOL_STEP_LOSS and all(
+                        rec["cos"][grp] >= TOL_ART_STEP_COS[grp] for grp in names)
+                out[system_name] = rec
+                del first, routes
+            torch.cuda.empty_cache()
+            return out
+
+        interval_first = interval_first_step(args.seed)
+        prod, ref = bench_runs["production"][0], bench_runs["reference_contract"][0]
+        checks = {
+            "schema": [ln.get("metric") for ln in bench_runs["production"][1]] == [
+                "train_rays_per_sec", "train_rays_per_sec_autodecoder", "train_rays_per_sec_ae"]
+            and [ln.get("metric") for ln in bench_runs["reference_contract"][1]] == [
+                "train_rays_per_sec"]
+            and all(set(ln) == {"metric", "value", "unit", "vs_baseline"}
+                    for ln in bench_runs["production"][1][:2] + bench_runs["reference_contract"][1]),
+            "losses_finite_and_falling": all(
+                all(math.isfinite(x) for x in r["dispatch_losses"])
+                and r["dispatch_losses"][-1] < r["dispatch_losses"][0]
+                for res in (prod, ref) for r in res.values()),
+            "launches": (launches_are(bench_launches["production"], **bench_launches_want(prod))
+                         and launches_are(bench_launches["reference_contract"],
+                                          **bench_launches_want(ref))),
+            "first_step_vs_plain": all(r["ok"] for r in interval_first.values()),
+        }
+        emit({"phase": "bench", "summary": {
+                  label: {system: {k: r[k] for k in ("rays_per_s", "ms_per_step", "samples",
+                                                     "tight", "rays_per_step", "microbatch")}
+                          for system, r in bench_runs[label][0].items()}
+                  for label in bench_runs},
+              "first_step_interval_vs_plain": interval_first,
+              "tol": {"loss_rel": TOL_STEP_LOSS,
+                      "vanilla_grad_vs_plain_over_bf16_plain": TOL_INTERVAL_VS_BF16,
+                      "autodecoder_cos_vs_plain": TOL_ART_STEP_COS},
+              "checks": checks, "card": card})
+        require(all(checks.values()), f"bench checks failed: {checks}")
+
+        # ------------------------------------------------------------ sweep
+        # the articulated kernels' training checks, the checks at the bench's
+        # shapes and the bench's interval first step on further seeds of
+        # weights, codes, rays and draws, untimed
+        phase = "sweep"
+
+        def sweep_line(seed, art, shapes, interval):
+            """What one seed's checks read: per gradient check the two
+            measures and the worst tensor, and the deformation's direction and
+            size; the interval first step's errors and cosines."""
+            grad_recs = {**{f"{k}/{m or 'cotangent'}/{n}": r for (k, m, n), r in art.items()
+                            if k != "art_mlp_fwd"},
+                         **{f"{k}/bench/{n}": r for (k, n), r in shapes.items()
+                            if k != "resample_union"}}
+            return {
+                "phase": "sweep", "seed": seed,
+                "grads": {name: {"max": r["max_abs_err"], "mean": r["mean_rel_err"],
+                                 "worst_mean": r["worst"]["mean"],
+                                 "ok": r["ok"],
+                                 **({"deform_worst_mean": r["deform_worst"]["mean"],
+                                     "deform_min_cos": r["deform_min_cos"],
+                                     "deform_max_norm_off": r["deform_max_norm_off"]}
+                                    if "deform" in r else {})}
+                          for name, r in grad_recs.items()},
+                "art_mlp_fwd_max_abs_err": max(r["max_abs_err"] for (k, *_), r in art.items()
+                                               if k == "art_mlp_fwd"),
+                "resample_max_abs_err": max(r["max_abs_err"] for (k, _), r in shapes.items()
+                                            if k == "resample_union"),
+                "interval": {
+                    name: {r: {k: cmp[k] for k in ("loss_rel", "grad_max_rel", "grad_mean_rel",
+                                                     "cos", "cos_by_code_table") if k in cmp}
+                           for r, cmp in (("v3", rec), ("plain_bf16", rec["plain_bf16_vs_plain"]))}
+                    for name, rec in interval.items()},
+                "card": card}
+
+        sweep, failed = [], []
+        if args.seeds > 1:
+            sweep.append(sweep_line(args.seed, art_train0, bench_shape_rows, interval_first))
+        for seed in range(args.seed + 1, args.seed + args.seeds):
+            art, shapes = (art_train_checks(seed, timed=False, strict=False),
+                           bench_shape_checks(seed, timed=False, strict=False))
+            interval = interval_first_step(seed)
+            sweep.append(sweep_line(seed, art, shapes, interval))
+            emit(sweep[-1])
+            failed += [f"seed {seed}: {r['name']} {r.get('arguments', {}).get('mode', '')} "
+                       f"{r['shape']}" for r in (*art.values(), *shapes.values())
+                       if not r.get("ok", True)]
+            failed += [f"seed {seed}: interval first step, {name}"
+                       for name, r in interval.items() if not r["ok"]]
+        if args.seeds > 1:
+            summary = {}
+            for check in sweep[0]["grads"]:
+                recs = [ln["grads"][check] for ln in sweep]
+                summary[check] = {"max": max(r["max"] for r in recs),
+                                 "mean": max(r["mean"] for r in recs),
+                                 "worst_mean_tensors": sorted({r["worst_mean"][0] for r in recs})}
+                if "deform_min_cos" in recs[0]:
+                    summary[check].update(
+                        deform_min_cos=min(r["deform_min_cos"] for r in recs),
+                        deform_max_norm_off=max(r["deform_max_norm_off"] for r in recs))
+            cos_range = {
+                f"{name}/{route}/{k}": [min(ln["interval"][name][route][group][k] for ln in sweep),
+                                        max(ln["interval"][name][route][group][k] for ln in sweep)]
+                for name in ("autodecoder",) for route in ("v3", "plain_bf16")
+                for group in ("cos", "cos_by_code_table")
+                for k in sweep[0]["interval"][name][route][group]}
+            emit({"phase": "sweep", "seeds": [ln["seed"] for ln in sweep], "grads": summary,
+                  "autodecoder_interval_cos_min_max": cos_range,
+                  "tol": {"grad": [fused_art.GRAD_TOL_REL, fused_art.GRAD_TOL_MEAN_REL],
+                          "deform": [fused_art.DEFORM_COS, fused_art.DEFORM_NORM],
+                          "vanilla_grad": [GRAD_TOL_REL, GRAD_TOL_MEAN_REL],
+                          "interval_cos": TOL_ART_STEP_COS,
+                          "vanilla_interval_over_bf16_plain": TOL_INTERVAL_VS_BF16},
+                  "failed": failed, "card": card})
+            require(not failed, f"checks failed on further seeds: {failed}")
+
         if args.profile:
             phase = "profile"
             from torch.profiler import ProfilerActivity, profile
@@ -1715,10 +2270,53 @@ def main(argv=None) -> int:
         art_fwd = next(e for e in entries if e["name"] == "art_mlp_fwd")
         art_fwd["launches"] += geo_launches["art_mlp_fwd"]
         art_fwd["launches_by_path"]["geometry"] = geo_launches["art_mlp_fwd"]
-        require(len(entries) == 11, "the kernels line lists kernel table rows 1-11")
+
+        # the benchmark entry points: the kernel bench launches rows 1 and 4,
+        # the bench rows 2, 3 and 9
+        by_name = {e["name"]: e for e in entries}
+        for kname, path, n in (
+                ("fused_nerf_mlp_xyz_eval", "bench_kernels", bk_launches["fused_nerf_mlp_xyz_eval"]),
+                ("fused_mlp_bwd_xyz", "bench_kernels", bk_launches["fused_mlp_bwd_xyz"]),
+                *((k, "bench", sum(bench_launches[c][k] for c in bench_launches))
+                  for k in ("resample_union", "fused_level_train_grads",
+                            "fused_level_train_art_grads"))):
+            e = by_name[kname]
+            e.setdefault("launches_by_path", {"train": e["launches"]})
+            e["launches"] += n
+            e["launches_by_path"][path] = n
+        # and their checks at the bench's shapes
+        for kname in ("resample_union", "fused_level_train_grads", "fused_level_train_art_grads"):
+            by_name[kname]["bench_shapes"] = [
+                {k: r[k] for k in ("contract", "shape") + keys}
+                for (n, _), r in bench_shape_rows.items() if n == kname]
+
+        def variant_entry(kname):
+            rec = variant_rows[kname]
+            row12 = rec["row"] == 12
+            return {"name": kname, "row": rec["row"], "variant": rec["variant"], "route": "cuda",
+                    "source": "aon_tpu_torch/ops/csrc/fused_mlp_eval.cu",
+                    "entry": "aon_mlp_body_launch" if row12 else "aon_mlp_xyz_body_launch",
+                    "replaces": "scripts/bench_kernels.py:" + ("148" if row12 else "386"),
+                    "launches": bk_launches[kname],
+                    "launches_by_path": {"bench_kernels": bk_launches[kname]},
+                    "shape": rec["shape"], **{k: rec[k] for k in keys}}
+
+        entries += [variant_entry(k) for k in variant_rows]
+        timed14 = row14["timed"][-1]  # at one extraction block
+        entries.append({
+            "name": "posenc_in_kernel", "row": 14, "route": "cuda",
+            "source": "aon_tpu_torch/ops/csrc/fused_mlp_eval.cu", "entry": "aon_posenc_launch",
+            "replaces": "tests_tpu/test_kernel_parity.py:62", "check_only": True,
+            "launches": row14["launches"], "launches_by_path": {"posenc": row14["launches"]},
+            "shape": timed14["shape"],
+            "max_abs_err": max(e["err_twin"] for e in row14["encoders"].values()),
+            **{k: timed14[k] for k in keys if k != "max_abs_err"},
+            "check_shape": row14["timed"][0]})
+        require(len(entries) == 18, "the kernels line lists kernel table rows 1-13 (rows 12 and "
+                "13 by variant) and row 14's check")
         require(all(e["launches"] > 0 for e in entries), "a kernel of the path never launched")
         emit({"kernels": entries, "card": card})
-        emit({"ok": True, "device": {"platform": "gpu", "kind": name,
+        emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                      "count": torch.cuda.device_count()}})
         return 0
     except Exception as exc:  # report the failing phase, then exit non-zero

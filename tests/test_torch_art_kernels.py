@@ -397,3 +397,67 @@ def test_blob_layout_round_trips(setup):
     assert tfa._KERNEL_BIASES[:12] == tuple("bdn" if k == "bd" else k for k in tfm._KERNEL_BIASES)
     with pytest.raises(ValueError, match="the kernel takes"):
         tfa.art_blobs(dict(packed, wdo=packed["wdo"][:, :3]))
+
+
+def test_deformation_grads_are_held_by_direction(setup):
+    # fused_art.grads_close: the deformation's gradients by each tensor's
+    # cosine and norm against the twin's, the other tensors by the max and
+    # mean measures.  Noise of a tenth of each deformation entry, which the
+    # entry measures would refuse, passes; a deformation tensor zeroed,
+    # negated or scaled by a third fails, and so does brgb or bdn off by a
+    # tenth of itself
+    s, kw = setup, LEVEL_CASES["autodecoder"]
+    inp = {k: _t(v) for k, v in _level_inputs(s, "autodecoder").items()}
+    packed = tfa.fold_latents(params_from_flax(s["params"]), _as_torch(s["latents"]))
+    want = fused_level_train_art_grads_plain(
+        packed, s["consts"], *(inp[k] for k in ("t_vals", "rays_o", "rays_d", "viewdirs",
+                                                "target", "loss_w", "mask")), **kw)[3]
+    assert tfa.grads_close(want, want)
+    assert set(tfa.DEFORM_GRADS) < set(want)
+    g = torch.Generator().manual_seed(0)
+    noisy = dict(want, **{k: want[k] * (1 + 0.1 * torch.randn(want[k].shape, generator=g))
+                          for k in tfa.DEFORM_GRADS})
+    assert grad_errors(noisy, want)[1] > tfa.GRAD_TOL_MEAN_REL
+    assert tfa.grads_close(noisy, want)
+    assert min(c for c, _ in tfa.deform_direction(noisy, want).values()) > 0.98
+    for k in ("bdo", "wd1", "wd0x"):
+        for wrong in (0.0 * want[k], -want[k], 1.34 * want[k], 0.66 * want[k]):
+            assert not tfa.grads_close(dict(want, **{k: wrong}), want), k
+    for k in ("brgb", "bdn"):
+        assert not tfa.grads_close(dict(want, **{k: 1.1 * want[k]}), want), k
+
+
+def test_level_deformation_grads_agree_with_pallas_by_direction_on_aabb_intervals():
+    # the bench's auto-decoder contract: its AABB batch (2,048 rays, 24 + 1
+    # stratified samples in 0.4-0.9-long intervals), fresh flax weights from
+    # seed 3.  The deformation's activations vary little over such short
+    # intervals, so its gradients cancel with the sum of d_xp: JAX's Pallas
+    # level and the twin, both correct, disagree there entry by entry beyond
+    # the entry limits (seen 0.066 max / 0.087 mean on bdo) and agree by
+    # direction and size, the measure fused_art.grads_close holds them to
+    from aon_tpu.core.sampling import pos_enc
+    from aon_tpu_torch.core.sampling import sample_along_rays
+    from aon_tpu_torch.scripts.bench import _synthetic_batch
+
+    B, S, kw = 2048, 24, LEVEL_CASES["autodecoder"]
+    b = {k: torch.from_numpy(v[:B]) for k, v in _synthetic_batch(4096, "aabb", seed=1).items()}
+    g = np.random.default_rng(3)
+    latents = {k: (g.normal(size=(1, n)) * 0.1).astype(np.float32)
+               for k, n in (("density", 128), ("color", 128), ("articulation", 32))}
+    jl = {k: jnp.asarray(v) for k, v in latents.items()}
+    params = FlaxArtMLP().init(jax.random.PRNGKey(3), jnp.zeros((2, 4, 3)),
+                               pos_enc(jnp.zeros((2, 3)), 0, 4), jl)["params"]
+    t_rand = _t(g.uniform(size=(B, S + 1)))
+    t, _ = sample_along_rays(b["rays_o"], b["rays_d"], S, b["t_near"], b["t_far"],
+                             randomized=True, t_rand=t_rand)
+    args = (t, b["rays_o"], b["rays_d"], b["viewdirs"], b["target"],
+            torch.full((B,), 1.0 / (3 * B)), torch.ones(B))
+    want = fused_level_train_art_grads_plain(
+        tfa.fold_latents(params_from_flax(params), _as_torch(latents)),
+        make_posenc_constants(device="cpu"), *args, **kw)[3]
+    got = _as_torch(jax_level(jfa.fold_latents(params, jl), jfm.make_posenc_constants(),
+                              *(jnp.asarray(a.numpy()) for a in args), **kw)[3])
+    entry = {k: grad_errors({k: got[k]}, {k: want[k]}) for k in tfa.DEFORM_GRADS}
+    assert max(m for _, m in entry.values()) > tfa.GRAD_TOL_MEAN_REL
+    assert tfa.grads_close(got, want)
+    assert min(c for c, _ in tfa.deform_direction(got, want).values()) > 0.99

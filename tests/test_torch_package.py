@@ -168,3 +168,41 @@ def test_chip_smoke_refuses_to_run_without_cuda():
                          text=True, timeout=120)
     assert res.returncode != 0
     assert '"ok": true' not in res.stdout
+
+
+def test_the_import_check_covers_the_benchmark_entry_points():
+    import inspect
+    import pkgutil
+
+    import aon_tpu_torch
+    from aon_tpu_torch.scripts import bench, bench_kernels
+
+    names = {m.name for m in pkgutil.walk_packages(aon_tpu_torch.__path__, "aon_tpu_torch.")}
+    assert {"aon_tpu_torch.ops.bench_variants", "aon_tpu_torch.scripts.bench",
+            "aon_tpu_torch.scripts.bench_kernels"} <= names
+    for main in (bench.main, bench_kernels.main):
+        assert inspect.signature(main).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("the host has CUDA: the defaults run there")
+    for main, argv in ((bench.main, ["--headline_only"]), (bench_kernels.main, ["train512"])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            main(argv)
+
+
+def test_bench_variant_wrappers_raise_on_other_devices():
+    from aon_tpu_torch.ops import bench_variants
+    from aon_tpu_torch.ops.fused_mlp_train import posenc_in_kernel
+
+    meta = {n: torch.empty(8, c, device="meta") for n, c in (("enc", 64), ("venc", 32), ("x", 3))}
+    wrappers = (*bench_variants.MLP_BODY.values(), *bench_variants.XYZ_BODY.values(),
+                posenc_in_kernel)
+    before = [w.launches for w in wrappers]
+    for fn in bench_variants.MLP_BODY.values():
+        with pytest.raises(ValueError, match="no kernel"):
+            fn({}, meta["enc"], meta["venc"])
+    for fn in bench_variants.XYZ_BODY.values():
+        with pytest.raises(ValueError, match="no kernel"):
+            fn({}, {}, meta["x"], meta["x"])
+    with pytest.raises(ValueError, match="no kernel"):
+        posenc_in_kernel(meta["x"], meta["enc"], meta["enc"])
+    assert [w.launches for w in wrappers] == before

@@ -38,12 +38,12 @@ _FLOAT = ctypes.c_float
 # ctypes would pass them as 32-bit ints.
 _SIGNATURES = {
     "fused_mlp_eval": {
-        "aon_mlp_eval_launch": [_VOID_P] * 10 + [_LL, _INT, _VOID_P],
-        "aon_mlp_xyz_per_ray_launch": [_VOID_P] * 10 + [_LL, _INT, _VOID_P],
-        "aon_mlp_enc_launch": [_VOID_P] * 6 + [_LL, _VOID_P],
-        "aon_mlp_enc_per_ray_launch": [_VOID_P] * 6 + [_LL, _INT, _VOID_P],
-        "aon_mlp_body_launch": [_VOID_P] * 6 + [_LL, _INT, _VOID_P],
-        "aon_mlp_xyz_body_launch": [_VOID_P] * 10 + [_LL, _INT, _VOID_P],
+        "aon_mlp_eval_launch": [_VOID_P] * 10 + [_LL, _INT, _INT, _VOID_P],
+        "aon_mlp_xyz_per_ray_launch": [_VOID_P] * 10 + [_LL, _INT, _INT, _VOID_P],
+        "aon_mlp_enc_launch": [_VOID_P] * 6 + [_LL, _INT, _VOID_P],
+        "aon_mlp_enc_per_ray_launch": [_VOID_P] * 6 + [_LL, _INT, _INT, _VOID_P],
+        "aon_mlp_body_launch": [_VOID_P] * 6 + [_LL, _INT, _INT, _VOID_P],
+        "aon_mlp_xyz_body_launch": [_VOID_P] * 10 + [_LL, _INT, _INT, _VOID_P],
         "aon_posenc_launch": [_VOID_P] * 3 + [_INT, _LL, _INT, _VOID_P, _VOID_P],
     },
     "resample": {

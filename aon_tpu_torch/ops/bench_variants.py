@@ -21,7 +21,8 @@ Each variant has its own entry, ``mlp_body_<body>`` and ``xyz_body_<encoder>``
 (by name in ``MLP_BODY`` and ``XYZ_BODY``), with its own launch count
 ``.launches``.  On CUDA tensors an entry launches its kernel
 (``ops/csrc/fused_mlp_eval.cu``: ``aon_mlp_body_launch``,
-``aon_mlp_xyz_body_launch``) on the bf16-rounded weights; on CPU tensors it
+``aon_mlp_xyz_body_launch``) on the bf16-rounded weights (``blobs``: the
+eval kernel's, ``fused_mlp.launch_blobs``); on CPU tensors it
 runs the plain twin, ``mlp_body_plain`` or ``xyz_body_plain``, in the
 packing's dtype.  ``encode_plain`` is the plain twin of the three encoders.
 """
@@ -48,6 +49,7 @@ from aon_tpu_torch.ops.fused_mlp import (
     _outputs,
     _require_float32_reference,
     check_float32,
+    eval_grid,
     pad_features,
 )
 from aon_tpu_torch.ops.fused_mlp import encode_plain as _encode_elementwise
@@ -203,7 +205,8 @@ def _body_entry(body: str) -> Callable:
         raw_rgb, raw_sigma = _outputs(n, device)
         err = _build.library("fused_mlp_eval").aon_mlp_body_launch(
             enc.data_ptr(), venc.data_ptr(), wblob.data_ptr(), bblob.data_ptr(),
-            raw_rgb.data_ptr(), raw_sigma.data_ptr(), n, index, _stream(device))
+            raw_rgb.data_ptr(), raw_sigma.data_ptr(), n, index, eval_grid(n, device),
+            _stream(device))
         _build.check(err, entry.__name__)
         entry.launches += 1
         return raw_rgb, raw_sigma
@@ -234,7 +237,7 @@ def _xyz_entry(encoder: str) -> Callable:
         err = _build.library("fused_mlp_eval").aon_mlp_xyz_body_launch(
             xyz.data_ptr(), vdir.data_ptr(), *(enc_consts[k].data_ptr() for k in ENC_ORDER),
             wblob.data_ptr(), bblob.data_ptr(), raw_rgb.data_ptr(), raw_sigma.data_ptr(), n,
-            index, _stream(device))
+            index, eval_grid(n, device), _stream(device))
         _build.check(err, entry.__name__)
         entry.launches += 1
         return raw_rgb, raw_sigma

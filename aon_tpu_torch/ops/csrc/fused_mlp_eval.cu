@@ -40,43 +40,36 @@
 // XYZ_MXU and XYZ_DOUBLING: the XYZ staging with the bench's two other
 // encoders (`encode_mxu`, `encode_doubling_coord` below).
 //
-// Body (row 12).  BASE is the trunk of mlp_common.cuh.  TWO_STREAM is
-// `_mlp_body_2s`: the tile's two halves of 32 rows go through the layer
-// chain as two independent streams, warps 0-3 on rows 0-31 and warps 4-7 on
-// rows 32-63, each group synchronised by its own named barrier, so one
-// half's bias/relu/store overlaps the other half's products.  Per row it
-// computes what BASE computes, with K in the same order: bit-identical.
-// BF16ACC is `_mlp_body_bf16acc`: each trunk and view product is rounded to
-// bf16 as it leaves its f32 accumulator (Hopper's bf16 MMA has no bf16
-// accumulator; XLA's bf16-output dot rounds the f32 sum once), the bias is
-// rounded to bf16, and the sums and the relu are bf16, rounded after each
-// add.  The skip and view layers add two such products, each rounded apart:
-// the second product is parked as bf16 in the layer's output tile and added
-// in the first one's epilogue.  The density head and the bottleneck stay f32
-// as in BASE.
+// Body (row 12): BASE, TWO_STREAM (`_mlp_body_2s`) or BF16ACC
+// (`_mlp_body_bf16acc`), the trunk's template argument (trunk_sm90.cuh).
+// Rows 1, 5, 7, 8 and 13 compute `_mlp_body`'s function on the two-stream
+// schedule (MAIN_PATH): per row it is BASE's arithmetic in BASE's order, bit
+// for bit, and it measured 10-14% faster than the lockstep BASE on every one
+// of them (its ping-pong overlaps one warpgroup's epilogues and staging with
+// the other's products); row 12's `base` keeps the lockstep schedule of the
+// bench's own `_mlp_body`.
 //
 // Bound on the H100: operations.  About 1.19 MFLOP per sample (padded K)
 // against 12-384 B in and 16 B out, so the tensor cores, not HBM, set the
 // floor (the 384 B of ENC are ~1.4 ms of HBM per 11.9 M rows against ~14 ms
-// of bf16 MMA at the peak).  Design for that: every activation stays in
-// shared memory (a double buffer of TILE x 256 bf16); only the staged inputs
-// go in and four floats per sample come out.  Each block takes TILE = 64
-// samples; each of its 8 warps owns 32 output columns of a 256-wide layer for
-// all 64 rows, so one B fragment feeds four mma.sync tiles.  The packed
-// weights (1.19 MB bf16) are read as WMMA fragments straight from global
-// memory and stay resident in L2.  This is the simple first version: no TMA,
-// no wgmma, no weight staging in shared memory.
+// of bf16 MMA at the peak).  Design for that (trunk_sm90.cuh): one persistent
+// block per SM, two consumer warpgroups on wgmma over 128-row tiles, the
+// weights streamed into a ring of shared-memory slabs by a producer thread,
+// every activation kept on chip; only the staged inputs go in and four
+// floats per sample come out.  Each consumer warpgroup stages its own 64
+// rows of a tile into its swizzled enc / venc tiles before the layer chain.
 //
-// Precision and the shared forward: mlp_common.cuh.
+// Precision and the encoders: mlp_common.cuh.
 
-#include "mlp_common.cuh"
+#include "trunk_sm90.cuh"
 
 using namespace aon;
+using sm90::Body;
 
 namespace {
 
 enum class Staging { XYZ, ENC, ENC_PER_RAY, XYZ_MXU, XYZ_DOUBLING };
-enum class Body { BASE, TWO_STREAM, BF16ACC };
+constexpr Body MAIN_PATH = Body::TWO_STREAM;  // the schedule of rows 1, 5, 7, 8 and 13
 // the encoder argument of the launchers: 0 elementwise, 1 MXU, 2 doubling
 enum Encoder { ENCODER_ELEMENTWISE = 0, ENCODER_MXU = 1, ENCODER_DOUBLING = 2 };
 
@@ -124,204 +117,128 @@ __device__ __forceinline__ void encode_doubling_coord(float xc, int c, int width
     if ((col - 3) % 3 == c) write(col, xc);
 }
 
-// Barrier of one stream of the body: the whole block, or the 128 threads of
-// one half (named barriers 1 and 2; 0 is __syncthreads).
-template <int GROUPS>
-__device__ __forceinline__ void stream_sync(int group) {
-  if constexpr (GROUPS == 1) {
-    __syncthreads();
-  } else {
-    asm volatile("bar.sync %0, %1;" ::"r"(1 + group), "r"(THREADS / GROUPS) : "memory");
-  }
-}
-
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-// BF16ACC epilogue: out = relu(bf16(bf16(bf16(acc) [+ out]) + bf16(bias)));
-// with PARK the product alone, bf16(acc), goes to out for the next product's
-// epilogue to add.
-template <bool PARK, bool ADD, int R, int NT>
-__device__ __forceinline__ void store_bf16acc(FragC (&acc)[R][NT], const float* __restrict__ bias,
-                                              bf16* out, int col0, float* scratch, int lane) {
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      wmma::store_matrix_sync(scratch, acc[r][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int row = 16 * r + (e >> 4), col = col0 + 16 * j + (e & 15);
-        float v = round_bf16(scratch[e]);
-        if (!PARK) {
-          if (ADD) v = round_bf16(__fadd_rn(v, __bfloat162float(out[row * LDH + col])));
-          v = fmaxf(round_bf16(__fadd_rn(v, round_bf16(__ldg(bias + col)))), 0.0f);
-        }
-        out[row * LDH + col] = __float2bfloat16_rn(v);
-      }
-      __syncwarp();
-    }
-  }
-}
-
-// One layer's epilogue of the variant bodies: BF16ACC's, or BASE's
-// bf16(act(acc + bias)).
-template <Body B, bool ADD, int R, int NT>
-__device__ __forceinline__ void store_layer(FragC (&acc)[R][NT], const float* __restrict__ bias,
-                                            bool relu, bf16* out, int col0, float* scratch,
-                                            int lane) {
-  if constexpr (B == Body::BF16ACC)
-    store_bf16acc<false, ADD>(acc, bias, out, col0, scratch, lane);
-  else
-    store_bias_act<false>(acc, bias, relu, out, LDH, col0, scratch, lane);
-}
-
-// The whole MLP forward over the tile, for the bodies TWO_STREAM and BF16ACC
-// (BASE is mlp_forward of mlp_common.cuh).  A stream is GROUP_WARPS warps on
-// R 16-row tiles; each warp owns NT 16-column tiles of a 256-wide layer and
-// NTV of the 128-wide view layer.  Activations alternate between sm.h[0] and
-// sm.h[1], as in trunk_forward.
-template <Body B>
-__device__ __forceinline__ void variant_forward(Smem& sm, const bf16* __restrict__ W,
-                                                const float* __restrict__ bias,
-                                                float* __restrict__ out_rgb,
-                                                float* __restrict__ out_sigma, long long row0,
-                                                long long n_rows) {
-  constexpr int GROUPS = B == Body::TWO_STREAM ? 2 : 1;
-  constexpr int GROUP_WARPS = WARPS / GROUPS;
-  constexpr int R = RT / GROUPS;
-  constexpr int NT = WIDTH / 16 / GROUP_WARPS;
-  constexpr int NTV = COND / 16 / GROUP_WARPS;
-  constexpr bool SPLIT = B == Body::BF16ACC;  // two separately rounded products
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int group = warp / GROUP_WARPS;
-  const int first = 16 * R * group;  // the stream's first row of the tile
-  const int col0 = 16 * NT * (warp % GROUP_WARPS);
-  const int vcol0 = 16 * NTV * (warp % GROUP_WARPS);
-  float* scratch = sm.scratch[warp];
-  const bf16* enc = sm.enc + first * LDE;
-  const bf16* venc = sm.venc + first * LDV;
-  bf16* hin = sm.h[0] + first * LDH;
-  bf16* hout = sm.h[1] + first * LDH;
-  FragC acc[R][NT];
-
-  zero(acc);
-  mma_tile(acc, enc, LDE, POS_PAD, W + OFF_W0, WIDTH, col0);
-  store_layer<B, false>(acc, bias, true, hin, col0, scratch, lane);
-  stream_sync<GROUPS>(group);
-
-#pragma unroll 1
-  for (int layer = 1; layer < 8; ++layer) {
-    const bool skip = layer == 5;  // layer5(cat[h, enc]) == h @ w5a + enc @ w5b
-    if (SPLIT && skip) {
-      zero(acc);
-      mma_tile(acc, enc, LDE, POS_PAD, W + OFF_W5B, WIDTH, col0);
-      store_bf16acc<true, false>(acc, nullptr, hout, col0, scratch, lane);
-    }
-    zero(acc);
-    mma_tile(acc, hin, LDH, WIDTH, W + trunk_offset(layer), WIDTH, col0);
-    if (!SPLIT && skip) mma_tile(acc, enc, LDE, POS_PAD, W + OFF_W5B, WIDTH, col0);
-    if (SPLIT && skip)
-      store_layer<B, true>(acc, bias + layer * WIDTH, true, hout, col0, scratch, lane);
-    else
-      store_layer<B, false>(acc, bias + layer * WIDTH, true, hout, col0, scratch, lane);
-    stream_sync<GROUPS>(group);
-    bf16* t = hin; hin = hout; hout = t;
-  }
-
-  // hin holds h7: the bottleneck (f32 + bias, rounded) goes to hout, then the
-  // density head reads h7
-  zero(acc);
-  mma_tile(acc, hin, LDH, WIDTH, W + OFF_WB, WIDTH, col0);
-  store_bias_act<false>(acc, bias + OFF_BB, false, hout, LDH, col0, scratch, lane);
-  density_head(sm.h[1], W, bias, out_sigma, row0, n_rows);
-  stream_sync<GROUPS>(group);
-  { bf16* t = hin; hin = hout; hout = t; }
-
-  // view layer: v = relu(bott @ wva + venc @ wvb + bv) into sm.h[1]
-  FragC vacc[R][NTV];
-  if (SPLIT) {
-    zero(vacc);
-    mma_tile(vacc, venc, LDV, VIEW_PAD, W + OFF_WVB, COND, vcol0);
-    store_bf16acc<true, false>(vacc, nullptr, hout, vcol0, scratch, lane);
-  }
-  zero(vacc);
-  mma_tile(vacc, hin, LDH, WIDTH, W + OFF_WVA, COND, vcol0);
-  if (!SPLIT) mma_tile(vacc, venc, LDV, VIEW_PAD, W + OFF_WVB, COND, vcol0);
-  store_layer<B, SPLIT>(vacc, bias + OFF_BV, true, hout, vcol0, scratch, lane);
-  stream_sync<GROUPS>(group);
-  rgb_head(sm.h[1], W, bias, out_rgb, row0, n_rows);
-}
-
+// Writes one warpgroup's 64 rows of a tile, row0 .. row0 + 63, into its
+// swizzled bf16 enc / venc tiles; rows past the end repeat the last row.
 // in0 / in1: XYZ, XYZ_MXU, XYZ_DOUBLING: xyz (n_rows, 3) and per-ray vdir
 // (B, 3); ENC: enc (n_rows, 64) and venc (n_rows, 32); ENC_PER_RAY: enc
-// (n_rows, 64) and venc (B, 32).  Rows past the end repeat the last row.
-template <Staging ST, Body B = Body::BASE>
-__global__ void __launch_bounds__(THREADS, 2)
+// (n_rows, 64) and venc (B, 32).  Each thread keeps one column, so its
+// encoding constants load once; every global load of the tile is issued
+// before the first value is used (the staging is latency-bound, not
+// throughput-bound): the ENC loops unroll whole, and in the XYZ stagings
+// each lane loads one row's coordinates, which the warp then shares by
+// shuffles.
+template <Staging ST>
+__device__ __forceinline__ void stage_rows(const sm90::Consumer& c, const float* __restrict__ in0,
+                                           const float* __restrict__ in1,
+                                           const float* __restrict__ s_pos,
+                                           const float* __restrict__ p_pos,
+                                           const float* __restrict__ s_view,
+                                           const float* __restrict__ p_view, long long row0,
+                                           long long n_rows, int samples_per_ray) {
+  constexpr int ROWS = sm90::WG_ROWS;
+  uint8_t* enc = c.enc();
+  uint8_t* venc = c.venc();
+  auto put = [](uint8_t* tile, int r, int col, float v) {
+    *reinterpret_cast<bf16*>(tile + sm90::swizzled(r, col)) = __float2bfloat16_rn(v);
+  };
+  auto row = [&](int r) { return min(row0 + r, n_rows - 1); };
+  if constexpr (ST == Staging::XYZ_DOUBLING) {
+    // one thread per (row, coordinate) of each input
+    for (int i = c.t; i < 2 * ROWS * 3; i += sm90::WG_THREADS) {
+      const bool view = i >= ROWS * 3;
+      const int r = (i % (ROWS * 3)) / 3, k = i % 3;
+      const long long g = row(r);
+      if (view)
+        encode_doubling_coord(in1[3 * (g / samples_per_ray) + k], k, VIEW_PAD,
+                              [&](int col, float v) { put(venc, r, col, v); });
+      else
+        encode_doubling_coord(in0[3 * g + k], k, POS_PAD,
+                              [&](int col, float v) { put(enc, r, col, v); });
+    }
+  } else if constexpr (ST == Staging::XYZ || ST == Staging::XYZ_MXU) {
+    auto enc_one = [](float x0, float x1, float x2, const float* s, const float* p, int width,
+                      int col) {
+      return ST == Staging::XYZ ? encode(x0, x1, x2, s, p, width, col)
+                                : encode_mxu(x0, x1, x2, s, p, width, col);
+    };
+    // positions: warp w stages column 32 (w % 2) + lane of rows w / 2 + 2j,
+    // j < 32; lane j loads row w / 2 + 2j
+    const int col = 32 * (c.warp & 1) + c.lane;
+    const long long gl = row((c.warp >> 1) + 2 * c.lane);
+    const float xl0 = in0[3 * gl], xl1 = in0[3 * gl + 1], xl2 = in0[3 * gl + 2];
+#pragma unroll 4
+    for (int j = 0; j < 32; ++j) {
+      const float x0 = __shfl_sync(0xffffffffu, xl0, j), x1 = __shfl_sync(0xffffffffu, xl1, j),
+                  x2 = __shfl_sync(0xffffffffu, xl2, j);
+      put(enc, (c.warp >> 1) + 2 * j, col, enc_one(x0, x1, x2, s_pos, p_pos, POS_PAD, col));
+    }
+    // view directions: warp w stages column lane of rows w + 4j, j < 16;
+    // lane j (and j + 16) loads the ray of row w + 4j
+    const float* d = in1 + 3 * (row(c.warp + 4 * (c.lane & 15)) / samples_per_ray);
+    const float dl0 = d[0], dl1 = d[1], dl2 = d[2];
+#pragma unroll 4
+    for (int j = 0; j < 16; ++j) {
+      const float d0 = __shfl_sync(0xffffffffu, dl0, j), d1 = __shfl_sync(0xffffffffu, dl1, j),
+                  d2 = __shfl_sync(0xffffffffu, dl2, j);
+      put(venc, c.warp + 4 * j, c.lane, enc_one(d0, d1, d2, s_view, p_view, VIEW_PAD, c.lane));
+    }
+  } else {
+    const int col = c.t % POS_PAD;
+    float v[ROWS * POS_PAD / sm90::WG_THREADS];
+#pragma unroll
+    for (int j = 0; j < ROWS * POS_PAD / sm90::WG_THREADS; ++j)
+      v[j] = in0[row(c.t / POS_PAD + 2 * j) * POS_PAD + col];
+#pragma unroll
+    for (int j = 0; j < ROWS * POS_PAD / sm90::WG_THREADS; ++j)
+      put(enc, c.t / POS_PAD + 2 * j, col, v[j]);
+    const int vcol = c.t % VIEW_PAD;
+    float w[ROWS * VIEW_PAD / sm90::WG_THREADS];
+#pragma unroll
+    for (int j = 0; j < ROWS * VIEW_PAD / sm90::WG_THREADS; ++j) {
+      const long long g = row(c.t / VIEW_PAD + 4 * j);
+      w[j] = in1[(ST == Staging::ENC ? g : g / samples_per_ray) * VIEW_PAD + vcol];
+    }
+#pragma unroll
+    for (int j = 0; j < ROWS * VIEW_PAD / sm90::WG_THREADS; ++j)
+      put(venc, c.t / VIEW_PAD + 4 * j, vcol, w[j]);
+  }
+}
+
+// One persistent block per SM over the tiles blockIdx.x, + gridDim.x, ...;
+// W is the eval blob (trunk_sm90.cuh), bias the f32 bias blob.
+template <Staging ST, Body B>
+__global__ void __launch_bounds__(sm90::THREADS, 1)
 mlp_eval_kernel(const float* __restrict__ in0, const float* __restrict__ in1,
                 const float* __restrict__ s_pos, const float* __restrict__ p_pos,
                 const float* __restrict__ s_view, const float* __restrict__ p_view,
                 const bf16* __restrict__ W, const float* __restrict__ bias,
                 float* __restrict__ out_rgb, float* __restrict__ out_sigma,
                 long long n_rows, int samples_per_ray) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
-  const int tid = threadIdx.x;
-  const long long row0 = static_cast<long long>(blockIdx.x) * TILE;
-
-  if constexpr (ST == Staging::XYZ_DOUBLING) {
-    // one thread per (row, coordinate): TILE x 3 of each input
-    for (int i = tid; i < 2 * TILE * 3; i += THREADS) {
-      const bool view = i >= TILE * 3;
-      const int r = (i % (TILE * 3)) / 3, c = i % 3;
-      const long long g = min(row0 + r, n_rows - 1);
-      if (view) {
-        bf16* row = sm.venc + r * LDV;
-        encode_doubling_coord(in1[3 * (g / samples_per_ray) + c], c, VIEW_PAD,
-                              [row](int col, float v) { row[col] = __float2bfloat16_rn(v); });
-      } else {
-        bf16* row = sm.enc + r * LDE;
-        encode_doubling_coord(in0[3 * g + c], c, POS_PAD,
-                              [row](int col, float v) { row[col] = __float2bfloat16_rn(v); });
-      }
-    }
+  using namespace sm90;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const Block blk = block_setup(smem_raw, W);
+  const long long n_tiles = (n_rows + TILE_ROWS - 1) / TILE_ROWS;
+  // one branch per role for the kernel's whole life, as setmaxnreg needs
+  if (threadIdx.x >= CONSUMER_THREADS) {
+    producer_registers();
+    if (threadIdx.x == CONSUMER_THREADS) produce(blk, W, n_tiles);
   } else {
-    for (int i = tid; i < TILE * POS_PAD; i += THREADS) {
-      const int r = i / POS_PAD, c = i % POS_PAD;
-      const long long g = min(row0 + r, n_rows - 1);
-      float v;
-      if constexpr (ST == Staging::XYZ || ST == Staging::XYZ_MXU) {
-        const float* x = in0 + 3 * g;
-        v = ST == Staging::XYZ ? encode(x[0], x[1], x[2], s_pos, p_pos, POS_PAD, c)
-                               : encode_mxu(x[0], x[1], x[2], s_pos, p_pos, POS_PAD, c);
-      } else {
-        v = in0[g * POS_PAD + c];
-      }
-      sm.enc[r * LDE + c] = __float2bfloat16_rn(v);
+    consumer_registers();
+    Consumer c(blk);
+    float acc[128];  // each layer's first wgmma writes it whole
+    if constexpr (B == Body::TWO_STREAM)  // warpgroup 0 takes the first turn
+      if (c.wg == 1) bar_arrive(BAR_TURN, CONSUMER_THREADS);
+    for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+      const long long row0 = tile * TILE_ROWS + c.wg * WG_ROWS;
+      c.sync();  // the last tile's products on enc / venc are done
+      stage_rows<ST>(c, in0, in1, s_pos, p_pos, s_view, p_view, row0, n_rows, samples_per_ray);
+      fence_async_shared();
+      c.sync();
+      trunk_tile<B>(c, acc, bias, out_rgb, out_sigma, row0, n_rows);
     }
-    for (int i = tid; i < TILE * VIEW_PAD; i += THREADS) {
-      const int r = i / VIEW_PAD, c = i % VIEW_PAD;
-      const long long g = min(row0 + r, n_rows - 1);
-      float v;
-      if constexpr (ST == Staging::XYZ || ST == Staging::XYZ_MXU) {
-        const float* d = in1 + 3 * (g / samples_per_ray);
-        v = ST == Staging::XYZ ? encode(d[0], d[1], d[2], s_view, p_view, VIEW_PAD, c)
-                               : encode_mxu(d[0], d[1], d[2], s_view, p_view, VIEW_PAD, c);
-      } else if constexpr (ST == Staging::ENC) {
-        v = in1[g * VIEW_PAD + c];
-      } else {
-        v = in1[(g / samples_per_ray) * VIEW_PAD + c];
-      }
-      sm.venc[r * LDV + c] = __float2bfloat16_rn(v);
-    }
+    if constexpr (B == Body::TWO_STREAM)  // the turn warpgroup 1 handed over last
+      if (c.wg == 0) bar_sync(BAR_TURN, CONSUMER_THREADS);
   }
-  __syncthreads();
-
-  if constexpr (B == Body::BASE)
-    mlp_forward<false>(sm, W, bias, out_rgb, out_sigma, row0, n_rows, nullptr);
-  else
-    variant_forward<B>(sm, W, bias, out_rgb, out_sigma, row0, n_rows);
 }
 
 // The f32 encoding alone, (n, width), by one of the three encoders: one
@@ -346,18 +263,19 @@ __global__ void posenc_kernel(const float* __restrict__ x, const float* __restri
                : encode(x[3 * r], x[3 * r + 1], x[3 * r + 2], s, p, width, col);
 }
 
-template <Staging ST, Body B = Body::BASE>
+// grid: the number of persistent blocks, at most one per SM and at most the
+// number of 128-row tiles (aon_tpu_torch/ops/fused_mlp.py::eval_launch_shape).
+template <Staging ST, Body B = MAIN_PATH>
 int launch(const float* in0, const float* in1, const float* s_pos, const float* p_pos,
            const float* s_view, const float* p_view, const void* weights, const float* biases,
-           float* out_rgb, float* out_sigma, long long n_rows, int samples_per_ray,
+           float* out_rgb, float* out_sigma, long long n_rows, int samples_per_ray, int grid,
            void* stream) {
   if (n_rows <= 0) return 0;
-  const int smem = static_cast<int>(sizeof(Smem));
-  cudaError_t err = cudaFuncSetAttribute(mlp_eval_kernel<ST, B>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (grid <= 0 || samples_per_ray <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      mlp_eval_kernel<ST, B>, cudaFuncAttributeMaxDynamicSharedMemorySize, sm90::SMEM_BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long blocks = (n_rows + TILE - 1) / TILE;
-  mlp_eval_kernel<ST, B><<<static_cast<unsigned>(blocks), THREADS, smem,
+  mlp_eval_kernel<ST, B><<<static_cast<unsigned>(grid), sm90::THREADS, sm90::SMEM_BYTES,
                            static_cast<cudaStream_t>(stream)>>>(
       in0, in1, s_pos, p_pos, s_view, p_view, static_cast<const bf16*>(weights), biases,
       out_rgb, out_sigma, n_rows, samples_per_ray);
@@ -366,6 +284,9 @@ int launch(const float* in0, const float* in1, const float* s_pos, const float* 
 
 }  // namespace
 
+// Every MLP launcher takes the eval blob as `weights` (trunk_sm90.cuh) and
+// `grid`, the number of persistent blocks.
+
 // raw_rgb (n_rows, 3) and raw_sigma (n_rows, 1) for n_rows = B * samples_per_ray
 // sample coordinates xyz (n_rows, 3) and per-ray viewdirs vdir (B, 3).
 // Kernel table row 1 (fused_nerf_mlp_xyz_eval).
@@ -373,9 +294,9 @@ extern "C" int aon_mlp_eval_launch(const float* xyz, const float* vdir, const fl
                                    const float* p_pos, const float* s_view, const float* p_view,
                                    const void* weights, const float* biases, float* out_rgb,
                                    float* out_sigma, long long n_rows, int samples_per_ray,
-                                   void* stream) {
+                                   int grid, void* stream) {
   return launch<Staging::XYZ>(xyz, vdir, s_pos, p_pos, s_view, p_view, weights, biases, out_rgb,
-                              out_sigma, n_rows, samples_per_ray, stream);
+                              out_sigma, n_rows, samples_per_ray, grid, stream);
 }
 
 // The same function from the same inputs, launched through its own entry so
@@ -385,18 +306,18 @@ extern "C" int aon_mlp_xyz_per_ray_launch(const float* xyz, const float* vdir,
                                           const float* s_view, const float* p_view,
                                           const void* weights, const float* biases,
                                           float* out_rgb, float* out_sigma, long long n_rows,
-                                          int samples_per_ray, void* stream) {
+                                          int samples_per_ray, int grid, void* stream) {
   return launch<Staging::XYZ>(xyz, vdir, s_pos, p_pos, s_view, p_view, weights, biases, out_rgb,
-                              out_sigma, n_rows, samples_per_ray, stream);
+                              out_sigma, n_rows, samples_per_ray, grid, stream);
 }
 
 // Pre-encoded inputs: enc (n_rows, 64) and venc (n_rows, 32) f32.  Kernel
 // table row 5 (fused_nerf_mlp, the forward of fused_mlp_train).
 extern "C" int aon_mlp_enc_launch(const float* enc, const float* venc, const void* weights,
                                   const float* biases, float* out_rgb, float* out_sigma,
-                                  long long n_rows, void* stream) {
+                                  long long n_rows, int grid, void* stream) {
   return launch<Staging::ENC>(enc, venc, nullptr, nullptr, nullptr, nullptr, weights, biases,
-                              out_rgb, out_sigma, n_rows, 1, stream);
+                              out_rgb, out_sigma, n_rows, 1, grid, stream);
 }
 
 // Pre-encoded inputs with per-ray view encodings: enc (n_rows, 64) and venc
@@ -405,9 +326,9 @@ extern "C" int aon_mlp_enc_launch(const float* enc, const float* venc, const voi
 extern "C" int aon_mlp_enc_per_ray_launch(const float* enc, const float* venc,
                                           const void* weights, const float* biases,
                                           float* out_rgb, float* out_sigma, long long n_rows,
-                                          int samples_per_ray, void* stream) {
+                                          int samples_per_ray, int grid, void* stream) {
   return launch<Staging::ENC_PER_RAY>(enc, venc, nullptr, nullptr, nullptr, nullptr, weights,
-                                      biases, out_rgb, out_sigma, n_rows, samples_per_ray,
+                                      biases, out_rgb, out_sigma, n_rows, samples_per_ray, grid,
                                       stream);
 }
 
@@ -416,20 +337,20 @@ extern "C" int aon_mlp_enc_per_ray_launch(const float* enc, const float* venc,
 // `_mlp_body_2s`, 2 `_mlp_body_bf16acc`.  Kernel table row 12 (`_make_fwd`).
 extern "C" int aon_mlp_body_launch(const float* enc, const float* venc, const void* weights,
                                    const float* biases, float* out_rgb, float* out_sigma,
-                                   long long n_rows, int body, void* stream) {
+                                   long long n_rows, int body, int grid, void* stream) {
   switch (body) {
     case 0:
       return launch<Staging::ENC, Body::BASE>(enc, venc, nullptr, nullptr, nullptr, nullptr,
                                               weights, biases, out_rgb, out_sigma, n_rows, 1,
-                                              stream);
+                                              grid, stream);
     case 1:
       return launch<Staging::ENC, Body::TWO_STREAM>(enc, venc, nullptr, nullptr, nullptr,
                                                     nullptr, weights, biases, out_rgb,
-                                                    out_sigma, n_rows, 1, stream);
+                                                    out_sigma, n_rows, 1, grid, stream);
     case 2:
       return launch<Staging::ENC, Body::BF16ACC>(enc, venc, nullptr, nullptr, nullptr, nullptr,
                                                  weights, biases, out_rgb, out_sigma, n_rows, 1,
-                                                 stream);
+                                                 grid, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -442,17 +363,17 @@ extern "C" int aon_mlp_xyz_body_launch(const float* xyz, const float* vdir, cons
                                        const float* p_pos, const float* s_view,
                                        const float* p_view, const void* weights,
                                        const float* biases, float* out_rgb, float* out_sigma,
-                                       long long n_rows, int encoder, void* stream) {
+                                       long long n_rows, int encoder, int grid, void* stream) {
   switch (encoder) {
     case ENCODER_ELEMENTWISE:
       return launch<Staging::XYZ>(xyz, vdir, s_pos, p_pos, s_view, p_view, weights, biases,
-                                  out_rgb, out_sigma, n_rows, 1, stream);
+                                  out_rgb, out_sigma, n_rows, 1, grid, stream);
     case ENCODER_MXU:
       return launch<Staging::XYZ_MXU>(xyz, vdir, s_pos, p_pos, s_view, p_view, weights, biases,
-                                      out_rgb, out_sigma, n_rows, 1, stream);
+                                      out_rgb, out_sigma, n_rows, 1, grid, stream);
     case ENCODER_DOUBLING:
       return launch<Staging::XYZ_DOUBLING>(xyz, vdir, s_pos, p_pos, s_view, p_view, weights,
-                                           biases, out_rgb, out_sigma, n_rows, 1, stream);
+                                           biases, out_rgb, out_sigma, n_rows, 1, grid, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

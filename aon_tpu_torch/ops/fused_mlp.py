@@ -10,8 +10,9 @@ Three entry points run one trunk and differ in how they take their input:
   * ``fused_nerf_mlp_xyz``: raw (B, S, 3) samples and per-ray (B, 3)
     viewdirs, both encoded in the kernel.
 
-Each launches its CUDA kernel (``ops/csrc/fused_mlp_eval.cu``) on CUDA
-tensors and runs its plain PyTorch twin (``*_plain``) on CPU tensors.  The
+Each launches its CUDA kernel (``ops/csrc/fused_mlp_eval.cu`` on the trunk
+of ``ops/csrc/trunk_sm90.cuh``) on CUDA tensors and runs its plain PyTorch
+twin (``*_plain``) on CPU tensors.  The
 twins take the packing's dtype as their compute dtype, as the JAX kernels
 do: float32 packing computes in float32, bf16 packing rounds operands and
 activations to bf16.  The CUDA kernels take bf16 weights only: float32-packed
@@ -26,6 +27,7 @@ concatenates.  Encoded-input K dims are zero-padded 63 -> 64 and 27 -> 32.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
@@ -197,8 +199,9 @@ class EncConstsCache:
 
 
 def kernel_blobs(packed: Mapping[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The packed bf16 weights and f32 biases as the two flat blobs the CUDA
-    kernel reads, after checking every shape and dtype."""
+    """The packed bf16 weights and f32 biases as the two flat blobs the
+    training kernels read (and the eval kernel's ``eval_blobs`` gather),
+    after checking every shape and dtype."""
     for k, shape in PACKED_SHAPES.items():
         v = packed[k]
         want = torch.bfloat16 if k.startswith("w") else torch.float32
@@ -208,6 +211,88 @@ def kernel_blobs(packed: Mapping[str, torch.Tensor]) -> Tuple[torch.Tensor, torc
     wblob = torch.cat([packed[k].reshape(-1) for k in _KERNEL_WEIGHTS])
     bblob = torch.cat([packed[k].reshape(-1) for k in _KERNEL_BIASES])
     return wblob, bblob
+
+
+# The eval kernel's weight blob (ops/csrc/trunk_sm90.cuh): every matrix of
+# the trunk and the view layer as wgmma reads it from shared memory, then the
+# two heads as in the kernel blob.  A (K, N) matrix becomes N rows of its K
+# zero-padded to a multiple of 64, cut into slabs of 64 K-columns (128 bytes
+# a row); in a slab, the 16-byte group g of row n holds K-columns
+# 8 * (g ^ (n % 8)) .. + 7 (the 128-byte swizzle).  Slabs follow the order the
+# layers read them.
+_EVAL_SLABS = ("w0", "w1", "w2", "w3", "w4", "w5a", "w5b", "w6", "w7", "wb", "wva", "wvb")
+_EVAL_HEADS = ("wd", "wrgb")
+EVAL_K_CHUNK = 64
+EVAL_SLAB_BYTES = 2 * sum(-(-PACKED_SHAPES[k][0] // EVAL_K_CHUNK) * EVAL_K_CHUNK
+                          * PACKED_SHAPES[k][1] for k in _EVAL_SLABS)  # 1,196,032
+N_EVAL_WEIGHTS = EVAL_SLAB_BYTES // 2 + sum(
+    PACKED_SHAPES[k][0] * PACKED_SHAPES[k][1] for k in _EVAL_HEADS)  # 598,656
+# The eval kernel's launch: persistent blocks, at most one per SM, over tiles
+# of this many sample rows; no thread-block clusters (each block streams the
+# weights from L2 itself).
+EVAL_TILE_ROWS = 128
+EVAL_CLUSTER = 1
+
+
+@functools.lru_cache(maxsize=None)
+def _eval_blob_index() -> np.ndarray:
+    """For each entry of the eval weight blob, its index in the kernel blob
+    (``kernel_blobs``), or ``N_KERNEL_WEIGHTS`` for a zero of the padding."""
+    offsets, o = {}, 0
+    for k in _KERNEL_WEIGHTS:
+        offsets[k] = o
+        o += PACKED_SHAPES[k][0] * PACKED_SHAPES[k][1]
+    parts = []
+    for name in _EVAL_SLABS:
+        K, N = PACKED_SHAPES[name]
+        s, n, g, e = np.meshgrid(np.arange(-(-K // EVAL_K_CHUNK)), np.arange(N), np.arange(8),
+                                 np.arange(8), indexing="ij")
+        k = EVAL_K_CHUNK * s + 8 * (g ^ (n % 8)) + e  # the K-column stored there
+        parts.append(np.where(k < K, offsets[name] + k * N + n, N_KERNEL_WEIGHTS).reshape(-1))
+    for name in _EVAL_HEADS:
+        parts.append(offsets[name] + np.arange(PACKED_SHAPES[name][0] * PACKED_SHAPES[name][1]))
+    index = np.concatenate(parts)
+    assert index.size == N_EVAL_WEIGHTS
+    return index
+
+
+@functools.lru_cache(maxsize=None)
+def _eval_index(device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(_eval_blob_index()).to(device)
+
+
+def eval_blobs(blobs: Tuple[torch.Tensor, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The eval kernel's two blobs from ``kernel_blobs``: the weights gathered
+    into the eval layout (``_eval_blob_index``), the biases as they are."""
+    wblob, bblob = blobs
+    return torch.cat([wblob, wblob.new_zeros(1)])[_eval_index(wblob.device)], bblob
+
+
+def eval_launch_shape(n_rows: int, sm_count: int) -> Tuple[int, int]:
+    """``(tiles, grid)`` of the eval kernel for ``n_rows``: 128-row tiles, the
+    last one ragged, and one persistent block per SM, never more blocks than
+    tiles; block b takes tiles b, b + grid, ..."""
+    tiles = -(-n_rows // EVAL_TILE_ROWS)
+    return tiles, min(tiles, sm_count)
+
+
+def eval_l2_weight_bytes(n_rows: int, sm_count: int) -> int:
+    """Bytes of weights the eval kernel streams from L2 into shared memory for
+    ``n_rows``: every slab once per tile (once per cluster of tiles, were the
+    blocks clustered), and the heads once per block."""
+    tiles, grid = eval_launch_shape(n_rows, sm_count)
+    heads = 2 * (N_EVAL_WEIGHTS - EVAL_SLAB_BYTES // 2)
+    return -(-tiles // EVAL_CLUSTER) * EVAL_SLAB_BYTES + grid * heads
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def eval_grid(n_rows: int, device: torch.device) -> int:
+    return eval_launch_shape(n_rows, sm_count(device))[1]
 
 
 def round_packed(packed: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -390,17 +475,24 @@ def _kernel_device(t: torch.Tensor) -> Optional[torch.device]:
 
 
 def launch_blobs(packed: Mapping[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The kernel's two blobs from bf16- or float32-packed weights (the latter
-    rounded to bf16 once)."""
+    """The eval kernel's two blobs (``eval_blobs``) from bf16- or
+    float32-packed weights (the latter rounded to bf16 once)."""
     if packed["w0"].dtype != torch.bfloat16:
         packed = round_packed(packed)
-    return kernel_blobs(packed)
+    return eval_blobs(kernel_blobs(packed))
 
 
 def _checked_blobs(packed, blobs, device: torch.device):
+    """The eval blobs given (``launch_blobs``) or made from ``packed``;
+    raises unless they are on ``device``, of the eval layout's size and type
+    and 16-byte aligned (the kernel copies the weights in 16-byte units)."""
     wblob, bblob = blobs if blobs is not None else launch_blobs(packed)
-    if wblob.device != device or bblob.device != device:
-        raise ValueError(f"packed weights must be on {device}")
+    for name, t, n, dtype in (("weights", wblob, N_EVAL_WEIGHTS, torch.bfloat16),
+                              ("biases", bblob, N_KERNEL_BIASES, torch.float32)):
+        if (t.device != device or t.dtype != dtype or t.numel() != n or not t.is_contiguous()
+                or t.data_ptr() % 16):
+            raise ValueError(f"the eval kernel's {name} must be a contiguous, 16-byte aligned "
+                             f"{dtype} blob of {n} on {device} (launch_blobs)")
     return wblob, bblob
 
 
@@ -422,7 +514,7 @@ def fused_nerf_mlp(
     ``pack_vanilla_mlp_params_f32``.  CUDA tensors launch the kernel (kernel
     table row 5) on the bf16-rounded weights; CPU tensors run the plain twin
     in the packing's dtype.  A caller that already holds the kernel's blobs
-    passes them as ``blobs``."""
+    (``launch_blobs``) passes them as ``blobs``."""
     device = _kernel_device(samples_enc)
     if device is None:
         return fused_nerf_mlp_plain(packed, samples_enc, viewdirs_enc)
@@ -433,7 +525,7 @@ def fused_nerf_mlp(
     raw_rgb, raw_sigma = _outputs(n, device)
     err = _build.library("fused_mlp_eval").aon_mlp_enc_launch(
         enc.data_ptr(), venc.data_ptr(), wblob.data_ptr(), bblob.data_ptr(),
-        raw_rgb.data_ptr(), raw_sigma.data_ptr(), n,
+        raw_rgb.data_ptr(), raw_sigma.data_ptr(), n, eval_grid(n, device),
         torch.cuda.current_stream(device).cuda_stream)
     _build.check(err, "fused_nerf_mlp")
     fused_nerf_mlp.launches += 1
@@ -463,7 +555,7 @@ def fused_nerf_mlp_per_ray(
     raw_rgb, raw_sigma = _outputs(B * S, device)
     err = _build.library("fused_mlp_eval").aon_mlp_enc_per_ray_launch(
         enc.data_ptr(), venc.data_ptr(), wblob.data_ptr(), bblob.data_ptr(),
-        raw_rgb.data_ptr(), raw_sigma.data_ptr(), B * S, S,
+        raw_rgb.data_ptr(), raw_sigma.data_ptr(), B * S, S, eval_grid(B * S, device),
         torch.cuda.current_stream(device).cuda_stream)
     _build.check(err, "fused_nerf_mlp_per_ray")
     fused_nerf_mlp_per_ray.launches += 1
@@ -486,7 +578,7 @@ def xyz_launch(entry: str, what: str, device: torch.device, packed, enc_consts, 
     err = getattr(_build.library("fused_mlp_eval"), entry)(
         samples.data_ptr(), viewdirs.data_ptr(), *(enc_consts[k].data_ptr() for k in ENC_ORDER),
         wblob.data_ptr(), bblob.data_ptr(), raw_rgb.data_ptr(), raw_sigma.data_ptr(),
-        B * S, S, torch.cuda.current_stream(device).cuda_stream)
+        B * S, S, eval_grid(B * S, device), torch.cuda.current_stream(device).cuda_stream)
     _build.check(err, what)
     return raw_rgb.reshape(B, S, 3), raw_sigma.reshape(B, S, 1)
 
@@ -503,7 +595,7 @@ def fused_nerf_mlp_xyz(
     S.  ``enc_consts`` comes from ``make_posenc_constants``.  CUDA tensors
     launch the kernel (kernel table row 8) on the bf16-rounded weights; CPU
     tensors run the plain twin in the packing's dtype.  A caller that already
-    holds the kernel's blobs passes them as ``blobs``."""
+    holds the kernel's blobs (``launch_blobs``) passes them as ``blobs``."""
     device = _kernel_device(samples)
     if device is None:
         return fused_nerf_mlp_xyz_plain(packed, enc_consts, samples, viewdirs)

@@ -38,6 +38,7 @@ from aon_tpu_torch.ops.fused_mlp import (  # noqa: F401  (TWO_PI, _mlp_compute: 
     _require_float32_reference,
     check_float32,
     encode_plain,
+    eval_blobs,
     fused_nerf_mlp,
     fused_nerf_mlp_xyz_plain,
     grads_from_blob,
@@ -99,7 +100,7 @@ def fused_nerf_mlp_xyz_eval(
     are rounded to bf16 for the launch), ``enc_consts`` from
     ``make_posenc_constants``.  CUDA tensors launch the kernel (kernel table
     row 1); CPU tensors run the plain twin.  A caller that already holds
-    ``kernel_blobs(packed)`` passes them as ``blobs``.
+    ``launch_blobs(packed)`` passes them as ``blobs``.
     """
     device = _kernel_device(samples)
     if device is None:
@@ -321,13 +322,15 @@ class _FusedMLPTrainXYZ(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, enc_consts, samples, viewdirs, names, *values):
-        # packed and rounded once per step: both launches read the same blobs
+        # packed and rounded once per step: both launches read the same
+        # weights, the forward in the eval kernel's layout
         packed = pack_vanilla_mlp_params_f32(dict(zip(names, values)))
         rounded = round_packed(packed)
         blobs = kernel_blobs(rounded)
         ctx.names, ctx.enc_consts, ctx.packed, ctx.blobs = names, enc_consts, packed, blobs
         ctx.save_for_backward(samples, viewdirs)
-        return fused_nerf_mlp_xyz_eval(rounded, enc_consts, samples, viewdirs, blobs=blobs)
+        return fused_nerf_mlp_xyz_eval(rounded, enc_consts, samples, viewdirs,
+                                       blobs=eval_blobs(blobs))
 
     @staticmethod
     def backward(ctx, g_rgb, g_sigma):
@@ -421,12 +424,14 @@ class _FusedMLPTrain(torch.autograd.Function):
     @staticmethod
     def forward(ctx, enc, venc, names, *values):
         packed = dict(zip(names, values))
-        # rounded once: both launches read the same blobs
+        # rounded once: both launches read the same weights, the forward in
+        # the eval kernel's layout
         rounded = round_packed(packed)
         blobs = kernel_blobs(rounded) if enc.is_cuda else None
         ctx.names, ctx.packed, ctx.blobs = names, packed, blobs
         ctx.save_for_backward(enc, venc)
-        return fused_nerf_mlp(rounded, enc, venc, blobs=blobs)
+        return fused_nerf_mlp(rounded, enc, venc,
+                              blobs=None if blobs is None else eval_blobs(blobs))
 
     @staticmethod
     def backward(ctx, g_rgb, g_sigma):

@@ -25,8 +25,14 @@ fixed random inputs after a warm-up launch:
     names, new here, are the only way row 13 is launched.
 
 The number in a name is the TPU kernel's tile of rows (``tpu_tile`` in the
-line).  The port's kernels take ``tile`` = 64 rows per block whatever the
-name, so variants that differ only in the TPU tile run the same launch.
+line).  The port's kernels take their own ``tile`` whatever the name: 128
+rows for the eval kernel (rows 1, 12 and 13: persistent blocks, one per SM,
+``grid`` of them, clusters of ``cluster``), 64 rows per block for the
+training kernels; so variants that differ only in the TPU tile run the same
+launch.  A line of the eval kernel alone also carries ``pct_bf16_peak`` and
+``l2_weight_bytes``, the weights it streamed from L2 into shared memory per
+call, with the rate ``l2_tb_s`` that implies at the measured time
+(``eval_fields``).
 ``wdtype`` float32 means float32-packed weights, rounded to bf16 once when
 the launch's weight blob is made (as ``fused_mlp_train_xyz`` does), outside
 the timed launches, so those variants launch what their bf16 twins launch.
@@ -58,11 +64,17 @@ import torch
 from aon_tpu_torch.models.mlp import NeRFMLP, xavier_init_
 from aon_tpu_torch.ops import bench_variants
 from aon_tpu_torch.ops.fused_mlp import (
+    EVAL_CLUSTER,
+    EVAL_TILE_ROWS,
     MLP_MACS_PER_SAMPLE,
+    eval_l2_weight_bytes,
+    eval_launch_shape,
     launch_blobs,
     make_posenc_constants,
     pack_vanilla_mlp_params,
     pack_vanilla_mlp_params_f32,
+    sm_count,
+    train_blobs,
 )
 from aon_tpu_torch.ops.fused_mlp_train import (
     fused_mlp_bwd_xyz,
@@ -71,7 +83,8 @@ from aon_tpu_torch.ops.fused_mlp_train import (
 )
 from aon_tpu_torch.utils.device import DeviceLike, resolve_device
 
-PORT_TILE = 64  # rows per block of every port kernel (ops/csrc/mlp_common.cuh TILE)
+PORT_TILE = 64  # rows per block of the training kernels (ops/csrc/mlp_common.cuh TILE)
+PEAK_BF16_FLOPS = 989e12  # H100 SXM, dense bf16 (NVIDIA's data sheet), at 700 W
 # scripts/bench_kernels.py:41-45, for comparison with its lines only
 JAX_BENCH_MACS_PER_SAMPLE = (
     64 * 256 + 6 * 256 * 256 + (256 + 64) * 256 + 2 * 256 * 256
@@ -147,13 +160,16 @@ def _setup_parts(device, n, wdtype, part):
     gout = torch.ones(B, S, 4, device=device)
     packed32 = pack_vanilla_mlp_params_f32(params)
     packed = packed32 if wdtype == "float32" else pack_vanilla_mlp_params(params)
-    blobs = launch_blobs(packed) if device.type == "cuda" else None  # hoisted out of the timing
+    # hoisted out of the timing: the eval kernel's blobs and the training kernels'
+    cuda = device.type == "cuda"
+    blobs = launch_blobs(packed) if cuda else None
+    train_b = train_blobs(packed32) if cuda else None
 
     def run():
         if "fwd" in part:
             fused_nerf_mlp_xyz_eval(packed, consts, samples, viewdirs, blobs)
         if "bwd" in part:
-            fused_mlp_bwd_xyz(packed32, consts, samples, viewdirs, gout, blobs)
+            fused_mlp_bwd_xyz(packed32, consts, samples, viewdirs, gout, train_b)
 
     return run, B * S
 
@@ -192,6 +208,20 @@ def _setup_train(device, n):
     return run, B * S
 
 
+def eval_fields(n_rows: int, ms_per_call: float, device: torch.device) -> dict:
+    """What one call of the eval kernel on ``n_rows`` rows in ``ms_per_call``
+    (measured on ``device``) did: TFLOP/s at the true count and their share
+    of the bf16 peak, the launch's tile, grid and cluster, and the weights it
+    streamed from L2 with the rate that implies."""
+    sms = sm_count(device)
+    tflops = n_rows * FLOPS_PER_SAMPLE / ms_per_call / 1e9
+    l2_bytes = eval_l2_weight_bytes(n_rows, sms)
+    return {"tflops": tflops, "pct_bf16_peak": 100 * tflops * 1e12 / PEAK_BF16_FLOPS,
+            "tile_rows": EVAL_TILE_ROWS, "grid": eval_launch_shape(n_rows, sms)[1],
+            "cluster": EVAL_CLUSTER, "l2_weight_bytes": l2_bytes,
+            "l2_tb_s": l2_bytes / ms_per_call / 1e9}
+
+
 def run_variant(name: str, device: torch.device, rows: Optional[int] = None,
                 calls: Optional[int] = None) -> dict:
     """Time one variant; returns its line."""
@@ -205,8 +235,9 @@ def run_variant(name: str, device: torch.device, rows: Optional[int] = None,
         run, n = _setup_xyz(device, n, opts["encoder"])
     else:
         run, n = _setup_train(device, n)
-    line = {"variant": name, "tile": PORT_TILE, "tpu_tile": tpu_tile, **opts,
-            "calls": k, "rows": n, "device": device.type}
+    eval_only = kind in ("fwd", "xyz") or opts.get("part") == "fwd"
+    line = {"variant": name, "tile": EVAL_TILE_ROWS if eval_only else PORT_TILE,
+            "tpu_tile": tpu_tile, **opts, "calls": k, "rows": n, "device": device.type}
     if device.type != "cuda":  # the twins' control flow only: no time is a device's
         for _ in range(k + 1):
             run()
@@ -217,6 +248,8 @@ def run_variant(name: str, device: torch.device, rows: Optional[int] = None,
     line["tflops_4x" if kind == "train" else "tflops"] = tflops
     line.update(tflops_jax_count=tflops * JAX_BENCH_MACS_PER_SAMPLE / MLP_MACS_PER_SAMPLE,
                 ms=1e3 * seconds, ms_per_call=1e3 * seconds / k, compile_s=compile_s)
+    if eval_only:
+        line.update(eval_fields(n, line["ms_per_call"], device))
     if opts.get("wdtype") == "float32":
         line["weights_at_launch"] = "bf16, rounded once from the float32 packing"
     return line

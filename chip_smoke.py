@@ -78,8 +78,11 @@ Phases, each printed as one JSON line on stdout (nothing else goes there):
            with every variant, its lines re-emitted with exact launch counts;
            then each variant of rows 12 (three bodies) and 13 (three
            encoders) against its twin on 65,536 rows, timed at the bench's
-           2^18 rows beside the twin, the library chain and the bound; the
-           two-stream body against the base body bit for bit;
+           2^18 rows beside the twin, the library chain and the bound (with
+           the eval kernel's tile, grid, share of the bf16 peak and L2 weight
+           rate); the two-stream body against the base body bit for bit; and
+           a ``trunk_grid_sweep`` line: rows 12 base and 2s at 2^20 rows on
+           33, 66 and 132 persistent blocks;
   bench    the port's bench.py at its defaults (vanilla 32,768 rays at 16 + 32
            samples on occupancy intervals, the auto-decoder 4,096 at 24 + 48
            on AABB intervals) and at --reference_contract --headline_only:
@@ -286,6 +289,21 @@ def launches_are(launches, **want) -> bool:
     return all(n == want.get(k, 0) for k, n in launches.items())
 
 
+def ptxas_spills(log: str, kernel: str) -> dict:
+    """Spill bytes (stores + loads) of each instance of ``kernel`` in a
+    ``-Xptxas -v`` log, by mangled name."""
+    spills, name = {}, None
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            name = line.split("Function properties for", 1)[1].strip()
+        elif name and "spill stores" in line:
+            if kernel in name:
+                nums = [int(w) for w in line.replace(",", " ").split() if w.isdigit()]
+                spills[name] = sum(nums[1:3])  # stack frame, spill stores, spill loads
+            name = None
+    return spills
+
+
 def time_ms(torch, fn, reps: int, warmup: int = 1) -> float:
     """Median milliseconds of ``fn`` over ``reps`` runs, by CUDA events."""
     for _ in range(warmup):
@@ -463,6 +481,8 @@ def main(argv=None) -> int:
         from aon_tpu_torch.ops import _build, bench_variants, fused_art
         from aon_tpu_torch.ops.fused_mlp import (
             ENCODERS,
+            EVAL_SLAB_BYTES,
+            EVAL_TILE_ROWS,
             MLP_MACS_PER_SAMPLE,
             fused_nerf_mlp,
             fused_nerf_mlp_per_ray,
@@ -470,6 +490,7 @@ def main(argv=None) -> int:
             fused_nerf_mlp_plain,
             fused_nerf_mlp_xyz,
             fused_nerf_mlp_xyz_plain,
+            launch_blobs,
             make_posenc_constants,
             pack_vanilla_mlp_params,
             pack_vanilla_mlp_params_f32,
@@ -521,6 +542,10 @@ def main(argv=None) -> int:
 
         # what the ``kernels`` line carries of every kernel's record
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+        # and of the eval kernel's rows (1, 5, 7, 8, 12, 13): its launch and
+        # the rates at the measured time
+        eval_keys = ("tflops", "pct_bf16_peak", "tile_rows", "grid", "cluster", "l2_weight_bytes",
+                     "l2_tb_s")
         # the plain twins are float32 references: no TF32 anywhere
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -541,11 +566,18 @@ def main(argv=None) -> int:
         logs = _build.build()
         for src in _build.KERNEL_SOURCES:
             _build.library(src)
+            logs.setdefault(src, _build.library_path(src).with_suffix(".log").read_text())
+        eval_spills = ptxas_spills(logs["fused_mlp_eval"], "mlp_eval_kernel")
         emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3), "arch": "sm_90a",
               "sources": [f"aon_tpu_torch/ops/csrc/{s}.cu" for s in _build.KERNEL_SOURCES],
               "flags": " ".join(_build.NVCC_FLAGS),
               "ptxas": {k: [ln.strip() for ln in v.splitlines()
-                            if "registers" in ln or "spill" in ln] for k, v in logs.items()}})
+                            if "registers" in ln or "spill" in ln] for k, v in logs.items()},
+              "warnings": {k: [ln.strip() for ln in v.splitlines() if "warning" in ln.lower()]
+                           for k, v in logs.items()},
+              "eval_kernel_spills": eval_spills})
+        require(len(eval_spills) == 7 and not any(eval_spills.values()),
+                "the eval kernel's seven instances must build without spills")
 
         # ---------------------------------------------------------- kernels
         phase = "kernel:fused_nerf_mlp_xyz_eval"
@@ -559,10 +591,14 @@ def main(argv=None) -> int:
             torch.randn(CHUNK_RAYS, 3, generator=gen, device=dev), dim=-1)
         origins = -4.0 * dirs + 0.3 * torch.randn(CHUNK_RAYS, 3, generator=gen, device=dev)
 
-        def forward_record(kname, fn, fn_plain, args_, library, rows, in_bytes, **extra):
-            """One ``kernel`` line of a vanilla MLP forward entry against its
-            twin, checked; ``in_bytes`` are the inputs it stages."""
-            rgb, sigma = fn(*args_)
+        def forward_record(kname, fn, fn_plain, args_, library, rows, in_bytes, kw=None,
+                           **extra):
+            """One ``kernel`` line of a vanilla MLP forward entry (the eval
+            kernel, rows 1, 5, 7, 8) against its twin, checked; ``in_bytes``
+            are the inputs it stages, ``kw`` the entry's own arguments (the
+            hoisted blobs)."""
+            kw = kw or {}
+            rgb, sigma = fn(*args_, **kw)
             torch.cuda.synchronize()
             rgb_p, sigma_p = fn_plain(*args_)
             err = torch.cat([(rgb - rgb_p).reshape(-1), (sigma - sigma_p).reshape(-1)]).abs()
@@ -574,7 +610,7 @@ def main(argv=None) -> int:
                 "max_abs_err": err.max().item(), "mean_abs_err": err.mean().item(),
                 "tol_max": TWIN_TOL_MAX, "tol_mean": TWIN_TOL_MEAN,
                 "finite": bool(torch.isfinite(rgb).all() and torch.isfinite(sigma).all()),
-                "ms": time_ms(torch, lambda: fn(*args_), 5),
+                "ms": time_ms(torch, lambda: fn(*args_, **kw), 5),
                 "plain_ms": time_ms(torch, lambda: fn_plain(*args_), 3),
                 "library_ms": time_ms(torch, library, 3),
                 "flop": flops, "bytes": nbytes,
@@ -583,7 +619,7 @@ def main(argv=None) -> int:
                              else "bytes"),
                 "card": card,
             }
-            rec["tflops"] = flops / rec["ms"] / 1e9
+            rec.update(port_bench_kernels.eval_fields(rows, rec["ms"], dev))
             emit(rec)
             require(rec["finite"], f"non-finite {kname} output")
             require(rec["max_abs_err"] <= TWIN_TOL_MAX and rec["mean_abs_err"] <= TWIN_TOL_MEAN,
@@ -667,7 +703,8 @@ def main(argv=None) -> int:
 
         def mlp_eval_record(packed_bf, samples, vdirs, kname="fused_nerf_mlp_xyz_eval"):
             """Kernel 1 (or 8, the same function from the same inputs) on raw
-            samples and per-ray viewdirs."""
+            samples and per-ray viewdirs; timed with the blobs packed once,
+            as extract_geometry packs them for row 8."""
             n_rays, n_samples = samples.shape[:2]
             fns = {"fused_nerf_mlp_xyz_eval": (fused_nerf_mlp_xyz_eval,
                                                fused_nerf_mlp_xyz_eval_plain),
@@ -676,7 +713,7 @@ def main(argv=None) -> int:
             return forward_record(
                 kname, *fns, args_, lambda: library_mlp(torch, *args_, encode_plain),
                 n_rays * n_samples, n_rays * n_samples * 12 + n_rays * 12,
-                shape=f"{n_rays}x{n_samples}")
+                kw={"blobs": launch_blobs(packed_bf)}, shape=f"{n_rays}x{n_samples}")
 
         def encodings(samples, vdirs):
             """Per-sample (N, 64) and per-ray (B, 32) float32 encodings, as a
@@ -1891,7 +1928,7 @@ def main(argv=None) -> int:
                        "plain_ms": time_ms(torch, lambda: plain(x_bench), 3),
                        "library_ms": time_ms(torch, lambda: library(x_bench), 3),
                        **bound_of(flops, nbytes), "card": card}
-                rec["tflops"] = flops / rec["ms"] / 1e9
+                rec.update(port_bench_kernels.eval_fields(n_bench, rec["ms"], dev))
                 emit(rec)
                 require(rec["finite"] and rec["max_abs_err"] <= TWIN_TOL_MAX
                         and rec["mean_abs_err"] <= TWIN_TOL_MEAN,
@@ -1918,6 +1955,34 @@ def main(argv=None) -> int:
               "checks": checks, "card": card})
         require(all(checks.values()), f"bench_kernels checks failed: {checks}")
         del gap
+
+        # What binds the eval kernel: row 12's base and two-stream bodies on
+        # 2^20 rows with a quarter, half and all of the SMs as persistent
+        # blocks (the launcher's own grid argument).  If L2's weight stream
+        # bound the card, the time per tile and block would fall with fewer
+        # blocks; if it stays, each SM's own pipeline binds.
+        enc_s = torch.randn(1 << 20, 64, generator=g, device=dev)
+        venc_s = torch.randn(1 << 20, 32, generator=g, device=dev)
+        blobs_s = launch_blobs(packed_b)
+        out_s = (torch.empty(1 << 20, 3, device=dev), torch.empty(1 << 20, 1, device=dev))
+        lib = _build.library("fused_mlp_eval")
+        sweep = []
+        for body in ("base", "2s"):
+            for grid in (33, 66, 132):
+                def launch(body=body, grid=grid):
+                    _build.check(lib.aon_mlp_body_launch(
+                        enc_s.data_ptr(), venc_s.data_ptr(), blobs_s[0].data_ptr(),
+                        blobs_s[1].data_ptr(), out_s[0].data_ptr(), out_s[1].data_ptr(),
+                        1 << 20, bench_variants.BODIES.index(body), grid,
+                        torch.cuda.current_stream(dev).cuda_stream), "grid sweep")
+
+                ms = time_ms(torch, launch, 5, warmup=2)
+                tiles = (1 << 20) // EVAL_TILE_ROWS
+                sweep.append({"body": body, "grid": grid, "ms": ms,
+                              "us_per_tile_per_block": 1e3 * ms * grid / tiles,
+                              "l2_tb_s": tiles * EVAL_SLAB_BYTES / (ms * 1e-3) / 1e12})
+        emit({"phase": "trunk_grid_sweep", "rows": 1 << 20, "runs": sweep, "card": card})
+        del enc_s, venc_s, blobs_s, out_s
         del variant_in, outs, packed_b
         torch.cuda.empty_cache()
 
@@ -2187,7 +2252,7 @@ def main(argv=None) -> int:
              + train_launches["fused_nerf_mlp_xyz_eval"],
              "launches_by_path": {"render": path_launches["fused_nerf_mlp_xyz_eval"],
                                   "train": train_launches["fused_nerf_mlp_xyz_eval"]},
-             "shape": fine["shape"], **{k: fine[k] for k in keys},
+             "shape": fine["shape"], **{k: fine[k] for k in keys + eval_keys},
              "coarse": {k: mlp_rows[N_COARSE + 1][k] for k in ("shape",) + keys},
              "train": [{k: train_rows["fused_nerf_mlp_xyz_eval", n][k] for k in ("shape",) + keys}
                        for n in (N_COARSE + 1, N_COARSE + 1 + N_FINE)]},
@@ -2240,7 +2305,7 @@ def main(argv=None) -> int:
                     "source": "aon_tpu_torch/ops/csrc/fused_mlp_eval.cu", "replaces": replaces,
                     "launches": api_launches[kname],
                     "launches_by_path": {"ops_api": api_launches[kname]},
-                    "shape": big["shape"], **{k: big[k] for k in keys},
+                    "shape": big["shape"], **{k: big[k] for k in keys + eval_keys},
                     "coarse": {k: enc_rows[kname, "render", N_COARSE + 1][k]
                                for k in ("shape",) + keys},
                     "train": {k: enc_rows[kname, "train", N_COARSE + 1 + N_FINE][k]
@@ -2260,7 +2325,7 @@ def main(argv=None) -> int:
              "replaces": "aon_tpu/ops/fused_mlp.py:223",
              "launches": geo_launches["fused_nerf_mlp_xyz"],
              "launches_by_path": {"geometry": geo_launches["fused_nerf_mlp_xyz"]},
-             "shape": xyz_rec["shape"], **{k: xyz_rec[k] for k in keys}},
+             "shape": xyz_rec["shape"], **{k: xyz_rec[k] for k in keys + eval_keys}},
         ]
         # kernel 2 also serves the auto-decoder's paths
         entries[1]["launches"] += (art_path_launches["resample_union"]
@@ -2299,7 +2364,7 @@ def main(argv=None) -> int:
                     "replaces": "scripts/bench_kernels.py:" + ("148" if row12 else "386"),
                     "launches": bk_launches[kname],
                     "launches_by_path": {"bench_kernels": bk_launches[kname]},
-                    "shape": rec["shape"], **{k: rec[k] for k in keys}}
+                    "shape": rec["shape"], **{k: rec[k] for k in keys + eval_keys}}
 
         entries += [variant_entry(k) for k in variant_rows]
         timed14 = row14["timed"][-1]  # at one extraction block

@@ -38,7 +38,11 @@ Tolerances, and why:
     often, each rounding as likely to flip as kernel 1's one per layer); the
     base and two-stream bodies bit-identical to row 5 (the same products,
     K in the same order), the elementwise encoder bit-identical to row 1;
-    row 14's wrapper with each encoder: the limits stated above its test.
+    row 14's wrapper with each encoder: the limits stated above its test;
+  * the eval kernel (rows 1, 5, 7, 8, 12, 13: one persistent wgmma kernel
+    on 128-row tiles) at row counts around its tiles and with rays that
+    straddle them: the limits of kernel 1, the two-stream body bit-identical
+    to the base body, rows 1 and 8 bit-identical to each other.
 """
 
 import numpy as np
@@ -611,3 +615,49 @@ def test_posenc_wrapper_with_each_encoder(cuda, encoder):
         if encoder == "doubling":
             cols = np.arange(n_real, width)
             assert torch.equal(got[:, n_real:], x[:, torch.from_numpy((cols - 3) % 3).to(cuda)])
+
+
+# ------------------------------------------- the eval kernel's tiles (sm_90a)
+# Every staging and body of the persistent wgmma kernel (ops/csrc/trunk_sm90.cuh)
+# against its twin at the limits of kernel 1, at row counts around its
+# 128-row tile: one row, a ragged single tile, one whole tile, one row into
+# the second, 65,536 + 17 (513 tiles on 132 blocks) and 132 x 128 x 5 + 77
+# (661 tiles: blocks walk five or six tiles each).
+
+
+@pytest.mark.parametrize("n", [1, 127, 128, 129, 65536 + 17, 132 * 128 * 5 + 77])
+def test_eval_kernel_every_staging_and_body_at_tile_edges(cuda, n):
+    packed = pack_vanilla_mlp_params(mlp_params(_params(cuda), "fine_mlp"))
+    consts = make_posenc_constants(device=cuda)
+    x = _bench_inputs(cuda, n, seed=41)
+    assert tfm.eval_launch_shape(n, tfm.sm_count(cuda))[0] == -(-n // 128)
+    outs = {}
+    for body, fn in bv.MLP_BODY.items():
+        outs[body] = fn(packed, x["enc"], x["venc"])
+        torch.cuda.synchronize()
+        _assert_twin(outs[body], bv.mlp_body_plain(x["enc"], x["venc"], packed, body))
+    for encoder, fn in bv.XYZ_BODY.items():
+        got = fn(packed, consts, x["xyz"], x["vdir"])
+        torch.cuda.synchronize()
+        _assert_twin(got, bv.xyz_body_plain(packed, consts, x["xyz"], x["vdir"], encoder))
+    # the two streams compute per row what the base body computes, bit for bit
+    assert torch.equal(outs["2s"][0], outs["base"][0])
+    assert torch.equal(outs["2s"][1], outs["base"][1])
+
+
+@pytest.mark.parametrize("S", [65, 193])  # rays straddle the 128-row tiles
+def test_eval_kernel_per_ray_stagings_across_tiles(cuda, S):
+    B = 700  # 45,500 / 135,100 rows: every block walks several tiles
+    packed = pack_vanilla_mlp_params(mlp_params(_params(cuda), "fine_mlp"))
+    consts, samples, vd, enc, venc, _ = _encodings(cuda, B, S, seed=42)
+    before = (fused_nerf_mlp_xyz_eval.launches, tfm.fused_nerf_mlp_xyz.launches,
+              tfm.fused_nerf_mlp_per_ray.launches)
+    row1 = fused_nerf_mlp_xyz_eval(packed, consts, samples, vd)
+    row8 = tfm.fused_nerf_mlp_xyz(packed, consts, samples, vd)
+    row7 = tfm.fused_nerf_mlp_per_ray(packed, enc.reshape(B, S, 64), venc)
+    torch.cuda.synchronize()
+    assert (fused_nerf_mlp_xyz_eval.launches, tfm.fused_nerf_mlp_xyz.launches,
+            tfm.fused_nerf_mlp_per_ray.launches) == tuple(b + 1 for b in before)
+    _assert_twin(row1, fused_nerf_mlp_xyz_eval_plain(packed, consts, samples, vd))
+    _assert_twin(row7, tfm.fused_nerf_mlp_per_ray_plain(packed, enc.reshape(B, S, 64), venc))
+    assert torch.equal(row1[0], row8[0]) and torch.equal(row1[1], row8[1])

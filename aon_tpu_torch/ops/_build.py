@@ -50,9 +50,10 @@ _SIGNATURES = {
         "aon_resample_launch": [_VOID_P] * 4 + [_LL, _VOID_P, _LL, _INT, _INT, _INT, _VOID_P],
     },
     "level_train": {
-        "aon_level_train_launch": [_VOID_P] * 19 + [_INT, _INT, _INT, _VOID_P],
-        "aon_mlp_bwd_launch": [_VOID_P] * 14 + [_LL, _INT, _VOID_P],
-        "aon_mlp_bwd_enc_launch": [_VOID_P] * 10 + [_LL, _VOID_P],
+        "aon_level_train_launch": [_VOID_P] * 21 + [_INT] * 5 + [_VOID_P],
+        "aon_mlp_bwd_launch": [_VOID_P] * 16 + [_INT, _LL, _INT, _INT, _VOID_P],
+        "aon_mlp_bwd_enc_launch": [_VOID_P] * 12 + [_INT, _LL, _INT, _VOID_P],
+        "aon_wgrad_run": [_VOID_P] * 4 + [_INT, _VOID_P],
     },
     "art": {
         "aon_art_fwd_launch": [_VOID_P] * 10 + [_LL, _INT, _VOID_P],

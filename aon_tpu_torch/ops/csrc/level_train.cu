@@ -5,60 +5,62 @@
 //   * `_level_kernel` (aon_tpu/ops/train_fused_level.py, reached through
 //     fused_level_train_grads): samples o + t*d, in-kernel encodings, MLP
 //     forward, compositing, squared error against the target, compositing
-//     VJP and the full MLP backward into the 26 weight gradients;
+//     VJP and the full MLP backward into the 26 weight gradients (row 3);
 //   * `_bwd_kernel_xyz_flat` (aon_tpu/ops/fused_mlp_train.py, reached through
 //     _bwd_call_xyz; body `_bwd_body`): forward recomputed from raw xyz, then
-//     the same backward from a cotangent g (N, 4);
+//     the same backward from a cotangent g (N, 4) (row 4);
 //   * `_bwd_kernel` (aon_tpu/ops/fused_mlp_train.py, reached through _bwd_call,
 //     the backward of fused_mlp_train): the same from given f32 encodings
 //     (N, 64) and (N, 32), rounded to bf16 where they are staged, so the
-//     w0 / w5b / wvb gradients read them as `dot_tn(enc, da)` does.
+//     w0 / w5b / wvb gradients read them as `dot_tn(enc, da)` does (row 6).
 //
 // Bound on the H100: operations (about 3.6 MFLOP per sample row against a
-// few dozen bytes of input), so the tensor cores set the floor.
+// few dozen bytes of input), so the tensor cores set the floor; the
+// workspaces the stages hand each other (about 10 KB a row, written once and
+// read once or twice) add a byte floor of roughly twice the flop floor.
 //
 // Design.  The TPU keeps a tile of 1024-2048 rows of activations and all 26
 // gradient accumulators in VMEM and walks its grid in order.  A block here
-// has 227 KB of shared memory, a fine ray alone is 193 rows, and blocks run
-// concurrently, so the level is four kernels on one stream, sharing two bf16
-// workspaces in global memory (activations, LDA columns per row; gradients of
-// the pre-activations, LDG columns per row):
+// has 227 KB of shared memory and blocks run concurrently, so a level is four
+// kernels on one stream that hand each other workspaces in global memory
+// (train_sm90.cuh):
 //
-//   1. train_fwd_kernel   64-row tiles: encodings and the WMMA forward of
-//                         mlp_common.cuh, every activation also written to
-//                         the workspace as the bf16 value the next layer read;
-//   2. composite_kernel   one warp per ray: compositing, error, and the
-//                         compositing VJP into g = (g_rgb, g_sigma), with
-//                         warp-shuffle scans for the exclusive product and
-//                         the exclusive suffix sum (level route only);
-//   3. bwd_data_kernel    64-row tiles: the chain dv, dbott, D7..D0 of
-//                         `_bwd_from_acts` with W^T read as column-major WMMA
-//                         fragments; relu masks from the stored activations;
-//                         each D goes to the gradient workspace as bf16 (the
-//                         rounding `dot_tn` applies to it), and the f32 column
-//                         sums (bias gradients) and the two narrow heads'
-//                         gradients go out by atomicAdd;
-//   4. wgrad_kernel       dW = X^T D for the 12 wide weight matrices as
-//                         split-K WMMA products over the workspaces, output
-//                         tiles of up to 128x128, partial sums added by
-//                         atomicAdd.
+//   1. fwd_kernel        persistent wgmma forward over 128-row tiles (the eval
+//                        trunk's two-stream body), the inputs staged three ways
+//                        (Stage): t_vals on the rays (row 3), raw xyz (row 4),
+//                        f32 encodings (row 6); every activation and its relu
+//                        mask stored;
+//   2. composite_kernel  one warp per ray: compositing, error, and the
+//                        compositing VJP into g = (g_rgb, g_sigma), with
+//                        warp-shuffle scans for the exclusive product and
+//                        the exclusive suffix sum (level route only);
+//   3. bwd_kernel        persistent wgmma backward, data path: dv, dbott,
+//                        D7..D0 with W^T streamed from the backward blob, each
+//                        D to the gradient workspace, the bias and head
+//                        gradients summed per block;
+//   4. wgrad_kernel      dW = X^T D for the 12 wide weight matrices, one block
+//                        per (output tile, row range), sums in registers.
 //
-// Kernels 3 and 4 are built from train_common.cuh, which the articulated
-// kernels (art.cu) share.
-//
-// The gradient blob must be zeroed on the same stream before every launch.
-// float atomicAdd makes the gradients (and sq_err_sum) differ in the last
-// bits from run to run.  Rows past n_rows in the last tile carry g = 0, so
-// every D of theirs is 0 and they add nothing to any gradient.
+// The weights are the training blob (ops/train_sm90.py: the eval blob, then
+// the backward blob); the gradient blob must be zeroed on the same stream
+// before every launch.  float atomicAdd makes the gradients (and
+// sq_err_sum) differ in the last bits from run to run.  Rows past n_rows in
+// the last tile carry g = 0, so every D of theirs is 0 and they add nothing
+// to any gradient.
 //
 // Roundings follow the TPU kernel: bf16 operands and f32 accumulation in
 // every product, including the f32 gradients g_rgb, g_sigma, dv and da that
-// `dot_tn`/`dot_nt` cast to bf16; bias gradients are sums of the unrounded
-// f32 values.  IEEE division and accurate expf/sinf: no --use_fast_math.
+// `dot_tn`/`dot_nt` cast to bf16; relu masks from the stored bf16
+// activations; bias gradients are sums of the unrounded f32 values.  IEEE
+// division and accurate expf/sinf: no --use_fast_math.
 
-#include "train_common.cuh"
+#include "train_sm90.cuh"
 
 using namespace aon;
+using sm90::Stage;
+
+extern "C" int aon_wgrad_run(const void* act, const void* grad, float* gw, const int* items,
+                             int n_items, void* stream_);
 
 namespace {
 
@@ -66,68 +68,27 @@ constexpr int MAX_SAMPLES_PER_LANE = 8;  // composite_kernel: S <= 256
 
 // ---------------------------------------------------------------- 1. forward
 
-// The encodings come either from enc_in (n_rows, 64) and venc_in (n_rows, 32)
-// f32 or, where enc_in is null, are computed from sample coordinates and the
-// per-ray vdir: from xyz (n_rows, 3) or, where xyz is null too, from t_vals
-// (n_rows) and per-ray origins and directions as o + t * d, the product and
-// the sum rounded separately as the plain version rounds them.
-__global__ void __launch_bounds__(THREADS, 2)
-train_fwd_kernel(const float* __restrict__ enc_in, const float* __restrict__ venc_in,
-                 const float* __restrict__ xyz, const float* __restrict__ t_vals,
-                 const float* __restrict__ rays_o, const float* __restrict__ rays_d,
-                 const float* __restrict__ vdir, const float* __restrict__ s_pos,
-                 const float* __restrict__ p_pos, const float* __restrict__ s_view,
-                 const float* __restrict__ p_view, const bf16* __restrict__ W,
-                 const float* __restrict__ bias, float* __restrict__ out_rgb,
-                 float* __restrict__ out_sigma, bf16* __restrict__ act, long long n_rows,
-                 int samples_per_ray) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
-  const int tid = threadIdx.x;
-  const long long row0 = static_cast<long long>(blockIdx.x) * TILE;
-  bf16* act_tile = act + static_cast<size_t>(row0) * LDA;
-
-  // Encodings of this tile's samples; rows past the end repeat the last row.
-  for (int i = tid; i < TILE * POS_PAD; i += THREADS) {
-    const int r = i / POS_PAD, c = i % POS_PAD;
-    const long long g = min(row0 + r, n_rows - 1);
-    float e;
-    if (enc_in != nullptr) {
-      e = enc_in[g * POS_PAD + c];
-    } else {
-      float x0, x1, x2;
-      if (xyz != nullptr) {
-        x0 = xyz[3 * g], x1 = xyz[3 * g + 1], x2 = xyz[3 * g + 2];
-      } else {
-        const long long ray = g / samples_per_ray;
-        const float t = t_vals[g];
-        x0 = __fadd_rn(rays_o[3 * ray + 0], __fmul_rn(t, rays_d[3 * ray + 0]));
-        x1 = __fadd_rn(rays_o[3 * ray + 1], __fmul_rn(t, rays_d[3 * ray + 1]));
-        x2 = __fadd_rn(rays_o[3 * ray + 2], __fmul_rn(t, rays_d[3 * ray + 2]));
-      }
-      e = encode(x0, x1, x2, s_pos, p_pos, POS_PAD, c);
-    }
-    const bf16 h = __float2bfloat16_rn(e);
-    sm.enc[r * LDE + c] = h;
-    act_tile[static_cast<size_t>(r) * LDA + ACT_ENC + c] = h;
+// One persistent block per SM over the 128-row tiles blockIdx.x, + gridDim.x, ...
+template <Stage ST>
+__global__ void __launch_bounds__(sm90::THREADS, 1) sm90_train_fwd(sm90::FwdArgs a) {
+  using namespace sm90;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const Block blk = block_setup(smem_raw, a.W);
+  const int n_tiles = static_cast<int>((a.n_rows + TILE_ROWS - 1) / TILE_ROWS);
+  // one branch per role for the kernel's whole life, as setmaxnreg needs
+  if (threadIdx.x >= CONSUMER_THREADS) {
+    producer_registers();
+    if (threadIdx.x == CONSUMER_THREADS) produce(blk, a.W, n_tiles);
+  } else {
+    consumer_registers();
+    Consumer c(blk);
+    float acc[128];  // each layer's first wgmma writes it whole
+    if (c.wg == 1) bar_arrive(BAR_TURN, CONSUMER_THREADS);  // warpgroup 0 takes the first turn
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x)
+      forward_tile<ST>(c, acc, a, static_cast<long long>(tile) * TILE_ROWS + c.wg * WG_ROWS);
+    if (c.wg == 0) bar_sync(BAR_TURN, CONSUMER_THREADS);  // the turn warpgroup 1 handed over last
+    if (c.t == 0) bulk_wait();  // the tile stores are complete before the block's memory goes
   }
-  for (int i = tid; i < TILE * VIEW_PAD; i += THREADS) {
-    const int r = i / VIEW_PAD, c = i % VIEW_PAD;
-    const long long g = min(row0 + r, n_rows - 1);
-    float e;
-    if (venc_in != nullptr) {
-      e = venc_in[g * VIEW_PAD + c];
-    } else {
-      const float* v = vdir + 3 * (g / samples_per_ray);
-      e = encode(v[0], v[1], v[2], s_view, p_view, VIEW_PAD, c);
-    }
-    const bf16 h = __float2bfloat16_rn(e);
-    sm.venc[r * LDV + c] = h;
-    act_tile[static_cast<size_t>(r) * LDA + ACT_VENC + c] = h;
-  }
-  __syncthreads();
-
-  mlp_forward<true>(sm, W, bias, out_rgb, out_sigma, row0, n_rows, act_tile);
 }
 
 // ------------------------------------------------------------- 2. compositing
@@ -248,83 +209,70 @@ __global__ void composite_kernel(const float* __restrict__ raw_rgb,
 
 // ------------------------------------------------------ 3. backward, data path
 
-// gw: the f32 gradient blob, weights at the offsets of the weight blob, then
-// the biases at N_WEIGHTS.  The chain itself is train_common.cuh's.
-__global__ void __launch_bounds__(THREADS, 2)
-bwd_data_kernel(const float* __restrict__ g, const bf16* __restrict__ W,
-                const bf16* __restrict__ act, bf16* __restrict__ grad, float* __restrict__ gw,
-                long long n_rows) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  SmemBwd& sm = *reinterpret_cast<SmemBwd*>(smem_raw);
-  const int tid = threadIdx.x;
-  const long long row0 = static_cast<long long>(blockIdx.x) * TILE;
-  const bf16* act_tile = act + static_cast<size_t>(row0) * LDA;
-  bf16* grad_tile = grad + static_cast<size_t>(row0) * LDG;
-  float* gb = gw + N_WEIGHTS;
-
-  {  // cotangent rows; rows past the end are 0 and so is everything after them
-    const int r = tid >> 2;
-    sm.g[tid] = row0 + r < n_rows ? g[4 * row0 + tid] : 0.0f;
-  }
+// The same persistent shape over the same tiles; the block's sums (bias and
+// head gradients) live in the eval layout's view-encoding tiles.
+__global__ void __launch_bounds__(sm90::THREADS, 1) sm90_train_bwd(sm90::BwdArgs a) {
+  using namespace sm90;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const Block blk = block_setup(smem_raw, a.W);
+  float* sums = reinterpret_cast<float*>(blk.smem + SM_VENC);
+  for (int i = threadIdx.x; i < N_SUMS; i += sm90::THREADS) sums[i] = 0.0f;
   __syncthreads();
-  if (tid < 4) {  // brgb, bd: sums of the unrounded g
-    float s = 0.0f;
-    for (int r = 0; r < TILE; ++r) s += sm.g[4 * r + tid];
-    atomicAdd(gb + (tid < 3 ? OFF_BRGB + tid : OFF_BD), s);
+  const int n_tiles = static_cast<int>((a.n_rows + TILE_ROWS - 1) / TILE_ROWS);
+  if (threadIdx.x >= CONSUMER_THREADS) {
+    producer_registers();
+    if (threadIdx.x == CONSUMER_THREADS) produce_backward(blk, a.W, n_tiles);
+  } else {
+    consumer_registers();
+    Consumer c(blk);
+    float acc[128];
+    if (c.wg == 1) bar_arrive(BAR_TURN, CONSUMER_THREADS);
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x)
+      backward_tile(c, acc, a, static_cast<long long>(tile) * TILE_ROWS + c.wg * WG_ROWS,
+                    sums);
+    if (c.wg == 0) bar_sync(BAR_TURN, CONSUMER_THREADS);
+    if (c.t == 0) bulk_wait();
+    flush_sums(sums, a.gw);
   }
-
-  // rgb head and view layer: dv = (bf16(g_rgb) @ wrgb^T) * relu'(v)
-  head3_bwd(sm.g, W + OFF_WRGB, 3, act_tile + ACT_V, LDA, gb + OFF_BV, gw + OFF_WRGB, sm.h[0],
-            grad_tile + GR_V, LDG);
-  __syncthreads();
-  trunk_backward(sm, W, act_tile, LDA, grad_tile, LDG, gw, gb);
 }
 
-// -------------------------------------------------- 4. backward, weight grads
+// ------------------------------------------------------------------ launches
 
-int launch_forward(const float* enc, const float* venc, const float* xyz, const float* t_vals,
-                   const float* rays_o, const float* rays_d, const float* vdir,
-                   const float* s_pos, const float* p_pos, const float* s_view,
-                   const float* p_view, const void* weights, const float* biases,
-                   float* raw_rgb, float* raw_sigma, void* act, long long n_rows,
-                   int samples_per_ray, cudaStream_t stream) {
-  const int smem = static_cast<int>(sizeof(Smem));
-  cudaError_t err =
-      cudaFuncSetAttribute(train_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+template <Stage ST>
+int launch_forward(const sm90::FwdArgs& a, int grid, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(sm90_train_fwd<ST>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         sm90::SMEM_BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long blocks = (n_rows + TILE - 1) / TILE;
-  train_fwd_kernel<<<static_cast<unsigned>(blocks), THREADS, smem, stream>>>(
-      enc, venc, xyz, t_vals, rays_o, rays_d, vdir, s_pos, p_pos, s_view, p_view,
-      static_cast<const bf16*>(weights), biases, raw_rgb, raw_sigma, static_cast<bf16*>(act),
-      n_rows, samples_per_ray);
+  sm90_train_fwd<ST><<<static_cast<unsigned>(grid), sm90::THREADS, sm90::SMEM_BYTES, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch_backward(const float* g, const void* weights, const void* act, void* grad, float* gw,
-                    long long n_rows, cudaStream_t stream) {
-  const int smem = static_cast<int>(sizeof(SmemBwd));
-  cudaError_t err =
-      cudaFuncSetAttribute(bwd_data_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+// The backward data path, then the weight gradients over its workspaces.
+int launch_backward(const sm90::BwdArgs& a, const int* items, int n_items, int grid,
+                    cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(sm90_train_bwd,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         sm90::SMEM_BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long blocks = (n_rows + TILE - 1) / TILE;
-  bwd_data_kernel<<<static_cast<unsigned>(blocks), THREADS, smem, stream>>>(
-      g, static_cast<const bf16*>(weights), static_cast<const bf16*>(act),
-      static_cast<bf16*>(grad), gw, n_rows);
+  sm90_train_bwd<<<static_cast<unsigned>(grid), sm90::THREADS, sm90::SMEM_BYTES, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-
-  WgradJobs<N_TRUNK_JOBS> jobs;
-  trunk_wgrad_jobs(jobs.job);
-  return launch_wgrad(static_cast<const bf16*>(act), LDA, static_cast<const bf16*>(grad), LDG, gw,
-                      blocks * TILE, jobs, stream);
+  return aon_wgrad_run(a.act, a.grad, a.gw, items, n_items, stream);
 }
 
 }  // namespace
 
-// Workspaces (caller-allocated, any contents): act bf16 (n_pad, 2528) and grad
-// bf16 (n_pad, 2432) with n_pad = n_rows rounded up to 64; raw_rgb (n_rows, 3),
-// raw_sigma (n_rows), g (n_rows, 4) f32.  gw: f32 (594560 + 2436), zeroed by
-// the caller on this stream.
+// Workspaces (caller-allocated, any contents; ops/fused_mlp_train.py
+// train_workspaces), n_pad = n_rows rounded up to 128: act bf16 in blocks of
+// 64 rows x 40 swizzled chunks, grad bf16 in blocks of 64 rows x 38 chunks
+// (train_sm90.cuh), mask u8 (n_pad, 256); raw_rgb (n_rows, 3),
+// raw_sigma (n_rows), g (n_rows, 4) f32.  weights: the training blob
+// (ops/train_sm90.py), 16-byte aligned.  gw: f32 (594560 + 2436), zeroed by
+// the caller on this stream.  items: the weight gradients' work list
+// (ops/train_sm90.py wgrad_items) for n_pad, on the device.  grid: the
+// persistent blocks of the forward and the backward, at most one per SM and
+// at most the number of 128-row tiles.
 
 // One training level.  t_vals (B, S) ascending, rays_o / rays_d (unit) /
 // vdir / target (B, 3).  Outputs: sq_err_sum (1, zeroed by the caller),
@@ -333,15 +281,19 @@ extern "C" int aon_level_train_launch(
     const float* t_vals, const float* rays_o, const float* rays_d, const float* vdir,
     const float* target, const float* s_pos, const float* p_pos, const float* s_view,
     const float* p_view, const void* weights, const float* biases, float* raw_rgb,
-    float* raw_sigma, float* g, void* act, void* grad, float* out_weights, float* sq_err_sum,
-    float* gw, int n_rays, int samples_per_ray, int white_bkgd, void* stream_) {
+    float* raw_sigma, float* g, void* act, void* grad, void* mask, float* out_weights,
+    float* sq_err_sum, float* gw, const int* items, int n_items, int n_rays,
+    int samples_per_ray, int white_bkgd, int grid, void* stream_) {
   if (n_rays <= 0 || samples_per_ray <= 0) return 0;
-  if (samples_per_ray > 32 * MAX_SAMPLES_PER_LANE) return static_cast<int>(cudaErrorInvalidValue);
+  if (samples_per_ray > 32 * MAX_SAMPLES_PER_LANE || grid <= 0 || n_items <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
   const long long n_rows = static_cast<long long>(n_rays) * samples_per_ray;
-  int err = launch_forward(nullptr, nullptr, nullptr, t_vals, rays_o, rays_d, vdir, s_pos, p_pos,
-                           s_view, p_view, weights, biases, raw_rgb, raw_sigma, act, n_rows,
-                           samples_per_ray, stream);
+  const sm90::FwdArgs fa{nullptr, nullptr, nullptr, t_vals, rays_o, rays_d, vdir, s_pos, p_pos,
+                         s_view, p_view, static_cast<const bf16*>(weights), biases, raw_rgb,
+                         raw_sigma, static_cast<bf16*>(act), static_cast<uint8_t*>(mask), n_rows,
+                         samples_per_ray};
+  int err = launch_forward<Stage::T_VALS>(fa, grid, stream);
   if (err != 0) return err;
   const int rays_per_block = 4;
   const float dcomp_scale = static_cast<float>(2.0 / (n_rays * 3.0));
@@ -350,7 +302,9 @@ extern "C" int aon_level_train_launch(
                                n_rays, samples_per_ray, white_bkgd, dcomp_scale);
   err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
-  return launch_backward(g, weights, act, grad, gw, n_rows, stream);
+  const sm90::BwdArgs ba{g, static_cast<const bf16*>(weights), static_cast<const bf16*>(act),
+                         static_cast<const uint8_t*>(mask), static_cast<bf16*>(grad), gw, n_rows};
+  return launch_backward(ba, items, n_items, grid, stream);
 }
 
 // The MLP backward alone: forward recomputed from xyz (n_rows, 3) and per-ray
@@ -360,29 +314,58 @@ extern "C" int aon_mlp_bwd_launch(const float* xyz, const float* vdir, const flo
                                   const float* s_pos, const float* p_pos, const float* s_view,
                                   const float* p_view, const void* weights, const float* biases,
                                   float* raw_rgb, float* raw_sigma, void* act, void* grad,
-                                  float* gw, long long n_rows, int samples_per_ray,
-                                  void* stream_) {
+                                  void* mask, float* gw, const int* items, int n_items,
+                                  long long n_rows, int samples_per_ray, int grid, void* stream_) {
   if (n_rows <= 0) return 0;
+  if (samples_per_ray <= 0 || grid <= 0 || n_items <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
-  const int err = launch_forward(nullptr, nullptr, xyz, nullptr, nullptr, nullptr, vdir, s_pos,
-                                 p_pos, s_view, p_view, weights, biases, raw_rgb, raw_sigma, act,
-                                 n_rows, samples_per_ray, stream);
+  const sm90::FwdArgs fa{nullptr, nullptr, xyz, nullptr, nullptr, nullptr, vdir, s_pos, p_pos,
+                         s_view, p_view, static_cast<const bf16*>(weights), biases, raw_rgb,
+                         raw_sigma, static_cast<bf16*>(act), static_cast<uint8_t*>(mask), n_rows,
+                         samples_per_ray};
+  const int err = launch_forward<Stage::XYZ>(fa, grid, stream);
   if (err != 0) return err;
-  return launch_backward(g, weights, act, grad, gw, n_rows, stream);
+  const sm90::BwdArgs ba{g, static_cast<const bf16*>(weights), static_cast<const bf16*>(act),
+                         static_cast<const uint8_t*>(mask), static_cast<bf16*>(grad), gw, n_rows};
+  return launch_backward(ba, items, n_items, grid, stream);
 }
 
 // The MLP backward from given encodings enc (n_rows, 64) and venc (n_rows, 32)
 // f32 (kernel table row 6): the forward recomputed from them, then gw as for
-// aon_mlp_bwd_launch.  Rows past n_rows in the last tile carry g = 0.
+// aon_mlp_bwd_launch.
 extern "C" int aon_mlp_bwd_enc_launch(const float* enc, const float* venc, const float* g,
                                       const void* weights, const float* biases, float* raw_rgb,
-                                      float* raw_sigma, void* act, void* grad, float* gw,
-                                      long long n_rows, void* stream_) {
+                                      float* raw_sigma, void* act, void* grad, void* mask,
+                                      float* gw, const int* items, int n_items, long long n_rows,
+                                      int grid, void* stream_) {
   if (n_rows <= 0) return 0;
+  if (grid <= 0 || n_items <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
-  const int err = launch_forward(enc, venc, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-                                 nullptr, nullptr, nullptr, weights, biases, raw_rgb, raw_sigma,
-                                 act, n_rows, 1, stream);
+  const sm90::FwdArgs fa{enc, venc, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                         nullptr, nullptr, nullptr, static_cast<const bf16*>(weights), biases,
+                         raw_rgb, raw_sigma, static_cast<bf16*>(act),
+                         static_cast<uint8_t*>(mask), n_rows, 1};
+  const int err = launch_forward<Stage::ENC>(fa, grid, stream);
   if (err != 0) return err;
-  return launch_backward(g, weights, act, grad, gw, n_rows, stream);
+  const sm90::BwdArgs ba{g, static_cast<const bf16*>(weights), static_cast<const bf16*>(act),
+                         static_cast<const uint8_t*>(mask), static_cast<bf16*>(grad), gw, n_rows};
+  return launch_backward(ba, items, n_items, grid, stream);
+}
+
+// The weight gradients alone over given blocked workspaces act and grad:
+// gw += X^T D for every item (ops/train_sm90.py
+// weight_grads, the check of the wgmma layouts it reads).
+extern "C" int aon_wgrad_run(const void* act, const void* grad, float* gw, const int* items,
+                             int n_items, void* stream_) {
+  if (n_items <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+  cudaError_t err = cudaFuncSetAttribute(sm90::wgrad_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         sm90::WGRAD_SMEM_BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  sm90::wgrad_kernel<<<static_cast<unsigned>(n_items), sm90::WGRAD_THREADS,
+                       sm90::WGRAD_SMEM_BYTES, stream>>>(
+      static_cast<const bf16*>(act), static_cast<const bf16*>(grad), gw, items);
+  return static_cast<int>(cudaGetLastError());
 }

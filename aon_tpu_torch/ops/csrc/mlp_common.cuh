@@ -286,16 +286,4 @@ __device__ __forceinline__ void rgb_head(const bf16* v_tile, const bf16* __restr
   }
 }
 
-// The whole vanilla MLP forward over the tile: trunk_forward, then the rgb
-// head on its v.
-template <bool SAVE>
-__device__ __forceinline__ void mlp_forward(Smem& sm, const bf16* __restrict__ W,
-                                            const float* __restrict__ bias,
-                                            float* __restrict__ out_rgb,
-                                            float* __restrict__ out_sigma, long long row0,
-                                            long long n_rows, bf16* act) {
-  trunk_forward<SAVE>(sm, W, bias, out_sigma, row0, n_rows, act);
-  rgb_head(sm.h[1], W, bias, out_rgb, row0, n_rows);
-}
-
 }  // namespace aon

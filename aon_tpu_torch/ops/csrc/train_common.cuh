@@ -1,6 +1,7 @@
-// Shared device code of the training kernels (level_train.cu, art.cu): the
+// Shared device code of the articulated training kernels (art.cu): the
 // backward of the vanilla-shaped trunk over one tile of TILE sample rows and
-// the split-K weight-gradient kernel.
+// the split-K weight-gradient kernel.  The vanilla training kernels
+// (train_sm90.cuh) take its gradient workspace layout (GR_*, LDG).
 //
 // Both run over two bf16 workspaces in global memory, one row per sample:
 // the activations the forward wrote (`lda` columns, head in the ACT_* layout

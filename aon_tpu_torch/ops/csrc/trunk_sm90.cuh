@@ -1,7 +1,8 @@
 // The vanilla NeRF MLP trunk for Hopper (sm_90a): weights streamed through
 // shared memory, products on wgmma warpgroups, persistent blocks.  The eval
-// kernel of fused_mlp_eval.cu runs it; the training and articulated kernels
-// (level_train.cu, art.cu) still run the WMMA trunk of mlp_common.cuh.
+// kernel of fused_mlp_eval.cu runs it, and the vanilla training kernels
+// (level_train.cu) build on it through train_sm90.cuh; the articulated
+// kernels (art.cu) still run the WMMA trunk of mlp_common.cuh.
 //
 // Block: three warpgroups, one per SM, walking tiles of TILE_ROWS = 128
 // sample rows (blockIdx.x, + gridDim.x, ...).  Warpgroups 0 and 1 are the
@@ -399,12 +400,12 @@ struct Consumer {
   __device__ __forceinline__ void sync() const { bar_sync(BAR_WG + wg, WG_THREADS); }
 };
 
-// Issues acc (+)= A @ slabs for NS slabs of N columns, A's K-chunks at a,
-// a + A_CHUNK_BYTES, ...; the last slab with KLAST 16-deep steps.  Frees each
-// slab once the group after it is committed; the last stays pending.
+// Issues acc (+)= A @ slabs for NS slabs of N columns, A's K-chunks at
+// shared address a0, a0 + A_CHUNK_BYTES, ...; the last slab with KLAST
+// 16-deep steps.  Frees each slab once the group after it is committed; the
+// last stays pending.
 template <int N, int NS, int KLAST = KCHUNK / 16, bool ACCUMULATE = false>
-__device__ __forceinline__ void issue(Consumer& c, float (&acc)[128], const uint8_t* a) {
-  const uint32_t a0 = smem_addr(a);
+__device__ __forceinline__ void issue(Consumer& c, float (&acc)[128], uint32_t a0) {
   if constexpr (ACCUMULATE) acc_fence(acc);  // a fresh sum reads nothing of acc
 #pragma unroll
   for (int s = 0; s < NS; ++s) {
@@ -434,6 +435,11 @@ __device__ __forceinline__ void issue(Consumer& c, float (&acc)[128], const uint
   }
 }
 
+template <int N, int NS, int KLAST = KCHUNK / 16, bool ACCUMULATE = false>
+__device__ __forceinline__ void issue(Consumer& c, float (&acc)[128], const uint8_t* a) {
+  issue<N, NS, KLAST, ACCUMULATE>(c, acc, smem_addr(a));
+}
+
 // Waits for every product issued and frees the last slab.
 __device__ __forceinline__ void finish(Consumer& c, float (&acc)[128]) {
   wgmma_wait<0>();
@@ -442,9 +448,10 @@ __device__ __forceinline__ void finish(Consumer& c, float (&acc)[128]) {
   c.pending = -1;
 }
 
-// One product of a layer, in the body's turn.
-template <Body B, int N, int NS, int KLAST = KCHUNK / 16, bool ACCUMULATE = false>
-__device__ __forceinline__ void product(Consumer& c, float (&acc)[128], const uint8_t* a) {
+// One product of a layer, in the body's turn; A a tile's pointer or its
+// shared address.
+template <Body B, int N, int NS, int KLAST = KCHUNK / 16, bool ACCUMULATE = false, class A>
+__device__ __forceinline__ void product(Consumer& c, float (&acc)[128], A a) {
   if constexpr (B == Body::TWO_STREAM) bar_sync(BAR_TURN + c.wg, CONSUMER_THREADS);
   issue<N, NS, KLAST, ACCUMULATE>(c, acc, a);
   if constexpr (B == Body::TWO_STREAM) bar_arrive(BAR_TURN + (c.wg ^ 1), CONSUMER_THREADS);
@@ -489,22 +496,37 @@ __device__ __forceinline__ float out_value(float a, float bias, float parked) {
 // A layer's epilogue on the accumulator of its N columns (lb: its biases):
 // HIDDEN and BOTTLENECK write the bf16 tile over the layer's input; DENSITY
 // also sums the density head on it into out_sigma; RGB sums the rgb head on
-// v into out_rgb and writes nothing to shared memory.  Rows at or past
-// n_rows are not written.
-template <Body B, Epi E, int N, bool ADD = false>
+// v into out_rgb and writes nothing to shared memory, unless KEEP (the
+// training forward, which stores v).  Rows at or past n_rows are not written.
+// With a `mask` (the training forward: the warpgroup's first row of this
+// layer's relu-mask bytes, `ldm` bytes a row; N = WIDTH) the output's relu
+// mask goes there too, in fragment order: the 8 bytes at 8q of a row hold the
+// bits of the columns lane quad position q holds, bit 2i + p for column
+// 8i + 2q + p, where the backward's lane of the same position reads them.
+// A column's bit is set where its bf16 value is > 0, that is where the f32
+// value rounded to it exceeds 2^-134 (half the least bf16 subnormal rounds
+// to even, to 0).  The compiler would load all N / 4 bias pairs up front;
+// with the mask (MASKS) it loads them a half at a time, which leaves the
+// registers the bits need beside the accumulator.
+template <Body B, Epi E, int N, bool ADD = false, bool KEEP = false, bool MASKS = false>
 __device__ __forceinline__ void epilogue(const Consumer& c, const float (&acc)[128],
                                          const float* __restrict__ lb,
                                          const float* __restrict__ bias,
                                          float* __restrict__ out_rgb,
                                          float* __restrict__ out_sigma, long long row0,
-                                         long long n_rows) {
+                                         long long n_rows, uint8_t* __restrict__ mask = nullptr,
+                                         int ldm = 0) {
   constexpr int HEADS = E == Epi::DENSITY ? 1 : E == Epi::RGB ? 3 : 0;
   const int x = c.lane >> 2, q = c.lane & 3, r0 = 16 * c.warp + x;
   uint8_t* act = c.act();
   const bf16* heads = reinterpret_cast<const bf16*>(c.b.smem + SM_HEADS);
   float s_lo[3] = {0.0f, 0.0f, 0.0f}, s_hi[3] = {0.0f, 0.0f, 0.0f};
+  uint32_t m_lo[2] = {0u, 0u}, m_hi[2] = {0u, 0u};  // the mask bits of rows r0, r0 + 8
+  const float positive = __int_as_float(0x00008000);  // 2^-134
 #pragma unroll
   for (int i = 0; i < N / 8; ++i) {
+    if constexpr (MASKS)
+      if (i == N / 16) asm volatile("" ::: "memory");
     const int col = 8 * i + 2 * q;
     const float2 bv = __ldg(reinterpret_cast<const float2*>(lb + col));
     const uint32_t o_lo = pair_offset(i, r0, x, q), o_hi = pair_offset(i, r0 + 8, x, q);
@@ -513,13 +535,21 @@ __device__ __forceinline__ void epilogue(const Consumer& c, const float (&acc)[1
       p_lo = unpack_bf16(*reinterpret_cast<const uint32_t*>(act + o_lo));
       p_hi = unpack_bf16(*reinterpret_cast<const uint32_t*>(act + o_hi));
     }
-    const uint32_t lo = pack_bf16(out_value<B, E, ADD>(acc[4 * i], bv.x, p_lo.x),
-                                  out_value<B, E, ADD>(acc[4 * i + 1], bv.y, p_lo.y));
-    const uint32_t hi = pack_bf16(out_value<B, E, ADD>(acc[4 * i + 2], bv.x, p_hi.x),
-                                  out_value<B, E, ADD>(acc[4 * i + 3], bv.y, p_hi.y));
-    if constexpr (E != Epi::RGB) {
+    const float f0 = out_value<B, E, ADD>(acc[4 * i], bv.x, p_lo.x);
+    const float f1 = out_value<B, E, ADD>(acc[4 * i + 1], bv.y, p_lo.y);
+    const float f2 = out_value<B, E, ADD>(acc[4 * i + 2], bv.x, p_hi.x);
+    const float f3 = out_value<B, E, ADD>(acc[4 * i + 3], bv.y, p_hi.y);
+    const uint32_t lo = pack_bf16(f0, f1), hi = pack_bf16(f2, f3);
+    if constexpr (E != Epi::RGB || KEEP) {
       *reinterpret_cast<uint32_t*>(act + o_lo) = lo;
       *reinterpret_cast<uint32_t*>(act + o_hi) = hi;
+    }
+    if constexpr (MASKS) {
+      const int b = 2 * (i & 15);
+      if (f0 > positive) m_lo[i >> 4] |= 1u << b;
+      if (f1 > positive) m_lo[i >> 4] |= 2u << b;
+      if (f2 > positive) m_hi[i >> 4] |= 1u << b;
+      if (f3 > positive) m_hi[i >> 4] |= 2u << b;
     }
     if constexpr (HEADS > 0) {
       const float2 v_lo = unpack_bf16(lo), v_hi = unpack_bf16(hi);
@@ -540,6 +570,11 @@ __device__ __forceinline__ void epilogue(const Consumer& c, const float (&acc)[1
         }
       }
     }
+  }
+  if constexpr (MASKS) {
+    uint8_t* lo_row = mask + static_cast<size_t>(r0) * ldm + 8 * q;
+    *reinterpret_cast<uint2*>(lo_row) = make_uint2(m_lo[0], m_lo[1]);
+    *reinterpret_cast<uint2*>(lo_row + 8 * ldm) = make_uint2(m_hi[0], m_hi[1]);
   }
   if constexpr (HEADS > 0) {
 #pragma unroll

@@ -21,7 +21,7 @@ from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 
-from aon_tpu_torch.ops import _build
+from aon_tpu_torch.ops import _build, train_sm90
 from aon_tpu_torch.ops.bench_variants import encode_plain as encode_variant_plain
 from aon_tpu_torch.ops.fused_mlp import (  # noqa: F401  (TWO_PI, _mlp_compute: shared names)
     ENC_ORDER,
@@ -74,12 +74,6 @@ GRAD_TOL_REL = 1e-1
 GRAD_TOL_MEAN_REL = 2e-2
 # the same launch twice: only the atomicAdd order differs
 GRAD_TOL_REPEAT = 1e-4
-
-# columns per row of the training kernels' two bf16 workspaces
-# (ops/csrc/mlp_common.cuh LDA, ops/csrc/level_train.cu LDG)
-_WS_ACT_COLS = 2528
-_WS_GRAD_COLS = 2432
-_TILE_ROWS = 64
 
 # Rows 1 and 8 of the kernel table compute the same function from the same
 # inputs (the TPU laid their inputs out differently): one twin serves both.
@@ -257,16 +251,22 @@ def grad_errors(got: Mapping[str, torch.Tensor], want: Mapping[str, torch.Tensor
 
 
 def train_workspaces(n_rows: int, device: torch.device):
-    """Scratch of one launch of a training kernel: the bf16 activation and
-    gradient workspaces (rows padded to whole 64-row tiles) and the float32
-    raw outputs; ``torch.empty``, so the caching allocator hands the same
-    blocks back every step."""
-    n_pad = -(-n_rows // _TILE_ROWS) * _TILE_ROWS
-    act = torch.empty(n_pad, _WS_ACT_COLS, dtype=torch.bfloat16, device=device)
-    grad = torch.empty(n_pad, _WS_GRAD_COLS, dtype=torch.bfloat16, device=device)
+    """Scratch of one launch of a vanilla training kernel
+    (``ops/csrc/train_sm90.cuh``): the blocked bf16 activation and gradient
+    workspaces (``train_sm90.to_blocked``) and the relu-mask bytes, rows
+    padded to whole 128-row tiles (``train_sm90.padded_rows``), and the
+    float32 raw outputs; ``torch.empty``, so the caching allocator hands the
+    same blocks back every step."""
+    n_pad = train_sm90.padded_rows(n_rows)
+    blocks = (n_pad // train_sm90.BLOCK_ROWS, train_sm90.BLOCK_ROWS, train_sm90.K_CHUNK)
+    act = torch.empty(blocks[0], train_sm90.ACT_CHUNKS, *blocks[1:], dtype=torch.bfloat16,
+                      device=device)
+    grad = torch.empty(blocks[0], train_sm90.GRAD_CHUNKS, *blocks[1:], dtype=torch.bfloat16,
+                       device=device)
+    mask = torch.empty(n_pad, train_sm90.MASK_BYTES, dtype=torch.uint8, device=device)
     raw_rgb = torch.empty(n_rows, 3, dtype=torch.float32, device=device)
     raw_sigma = torch.empty(n_rows, 1, dtype=torch.float32, device=device)
-    return act, grad, raw_rgb, raw_sigma
+    return act, grad, mask, raw_rgb, raw_sigma
 
 
 def fused_mlp_bwd_xyz(
@@ -294,18 +294,17 @@ def fused_mlp_bwd_xyz(
     check_float32(device, samples=(samples, (B, S, 3)), viewdirs=(viewdirs, (B, 3)),
                   g=(g, (B, S, 4)))
     _check_enc_consts(enc_consts, device)
-    wblob, bblob = blobs if blobs is not None else train_blobs(packed)
-    if wblob.device != device:
-        raise ValueError(f"packed weights must be on {device}")
-    act, grad, raw_rgb, raw_sigma = train_workspaces(B * S, device)
+    tblob, bblob, items, n_items, grid = train_sm90.launch_inputs(
+        blobs if blobs is not None else train_blobs(packed), B * S, device)
+    act, grad, mask, raw_rgb, raw_sigma = train_workspaces(B * S, device)
     # zeroed on the launch's stream: the kernels add into it
     gw = torch.zeros(N_KERNEL_WEIGHTS + N_KERNEL_BIASES, dtype=torch.float32, device=device)
     err = _build.library("level_train").aon_mlp_bwd_launch(
         samples.data_ptr(), viewdirs.data_ptr(), g.data_ptr(),
         *(enc_consts[k].data_ptr() for k in ENC_ORDER),
-        wblob.data_ptr(), bblob.data_ptr(), raw_rgb.data_ptr(), raw_sigma.data_ptr(),
-        act.data_ptr(), grad.data_ptr(), gw.data_ptr(), B * S, S,
-        torch.cuda.current_stream(device).cuda_stream,
+        tblob.data_ptr(), bblob.data_ptr(), raw_rgb.data_ptr(), raw_sigma.data_ptr(),
+        act.data_ptr(), grad.data_ptr(), mask.data_ptr(), gw.data_ptr(), items.data_ptr(),
+        n_items, B * S, S, grid, torch.cuda.current_stream(device).cuda_stream,
     )
     _build.check(err, "fused_mlp_bwd_xyz")
     fused_mlp_bwd_xyz.launches += 1
@@ -397,16 +396,16 @@ def fused_mlp_bwd(
     n = enc.shape[0]
     enc, venc = (t.float().contiguous() for t in pad_features(enc, venc))
     check_float32(device, enc=(enc, (n, POS_PAD)), venc=(venc, (n, VIEW_PAD)), g=(g, (n, 4)))
-    wblob, bblob = blobs if blobs is not None else train_blobs(packed)
-    if wblob.device != device:
-        raise ValueError(f"packed weights must be on {device}")
-    act, grad, raw_rgb, raw_sigma = train_workspaces(n, device)
+    tblob, bblob, items, n_items, grid = train_sm90.launch_inputs(
+        blobs if blobs is not None else train_blobs(packed), n, device)
+    act, grad, mask, raw_rgb, raw_sigma = train_workspaces(n, device)
     # zeroed on the launch's stream: the kernels add into it
     gw = torch.zeros(N_KERNEL_WEIGHTS + N_KERNEL_BIASES, dtype=torch.float32, device=device)
     err = _build.library("level_train").aon_mlp_bwd_enc_launch(
-        enc.data_ptr(), venc.data_ptr(), g.data_ptr(), wblob.data_ptr(), bblob.data_ptr(),
-        raw_rgb.data_ptr(), raw_sigma.data_ptr(), act.data_ptr(), grad.data_ptr(), gw.data_ptr(),
-        n, torch.cuda.current_stream(device).cuda_stream,
+        enc.data_ptr(), venc.data_ptr(), g.data_ptr(), tblob.data_ptr(), bblob.data_ptr(),
+        raw_rgb.data_ptr(), raw_sigma.data_ptr(), act.data_ptr(), grad.data_ptr(),
+        mask.data_ptr(), gw.data_ptr(), items.data_ptr(), n_items, n, grid,
+        torch.cuda.current_stream(device).cuda_stream,
     )
     _build.check(err, "fused_mlp_bwd")
     fused_mlp_bwd.launches += 1

@@ -2,9 +2,11 @@
 compositing, MSE loss and the full backward (port of
 ``aon_tpu/ops/train_fused_level.py``, the v3 train path).
 
-``fused_level_train_grads`` launches ``ops/csrc/level_train.cu`` on CUDA
-tensors and runs its plain twin, ``fused_level_train_grads_plain``, on CPU
-tensors.  The twin writes the compositing backward and the MLP backward out
+``fused_level_train_grads`` launches ``ops/csrc/level_train.cu`` (its four
+kernels on ``ops/csrc/train_sm90.cuh``: the persistent wgmma forward and
+backward, the compositing, the weight gradients) on CUDA tensors and runs
+its plain twin, ``fused_level_train_grads_plain``, on CPU tensors.  The twin
+writes the compositing backward and the MLP backward out
 by hand, with the kernel's roundings, instead of calling autograd.
 
 Contracts (the loss-relevant parts of reference helper.py:157-195 and the MSE
@@ -26,7 +28,7 @@ import torch
 
 from aon_tpu_torch.core import sampling
 from aon_tpu_torch.core.rays import effective_intervals
-from aon_tpu_torch.ops import _build
+from aon_tpu_torch.ops import _build, train_sm90
 from aon_tpu_torch.ops.fused_mlp import (
     ENC_ORDER,
     N_KERNEL_BIASES,
@@ -139,10 +141,9 @@ def fused_level_train_grads(
     check_float32(device, t_vals=(t_vals, (B, S)), rays_o=(rays_o, (B, 3)), rays_d=(rays_d, (B, 3)),
                   viewdirs=(viewdirs, (B, 3)), target=(target, (B, 3)))
     _check_enc_consts(enc_consts, device)
-    wblob, bblob = train_blobs(packed)
-    if wblob.device != device:
-        raise ValueError(f"packed weights must be on {device}")
-    act, grad, raw_rgb, raw_sigma = train_workspaces(B * S, device)
+    tblob, bblob, items, n_items, grid = train_sm90.launch_inputs(
+        train_blobs(packed), B * S, device)
+    act, grad, mask, raw_rgb, raw_sigma = train_workspaces(B * S, device)
     g = torch.empty(B * S, 4, dtype=torch.float32, device=device)
     weights = torch.empty(B, S, dtype=torch.float32, device=device)
     # zeroed on the launch's stream: the kernels add into both
@@ -151,10 +152,10 @@ def fused_level_train_grads(
     err = _build.library("level_train").aon_level_train_launch(
         t_vals.data_ptr(), rays_o.data_ptr(), rays_d.data_ptr(), viewdirs.data_ptr(),
         target.data_ptr(), *(enc_consts[k].data_ptr() for k in ENC_ORDER),
-        wblob.data_ptr(), bblob.data_ptr(), raw_rgb.data_ptr(), raw_sigma.data_ptr(),
-        g.data_ptr(), act.data_ptr(), grad.data_ptr(), weights.data_ptr(),
-        sq_err_sum.data_ptr(), gw.data_ptr(), B, S, int(bool(white_bkgd)),
-        torch.cuda.current_stream(device).cuda_stream,
+        tblob.data_ptr(), bblob.data_ptr(), raw_rgb.data_ptr(), raw_sigma.data_ptr(),
+        g.data_ptr(), act.data_ptr(), grad.data_ptr(), mask.data_ptr(), weights.data_ptr(),
+        sq_err_sum.data_ptr(), gw.data_ptr(), items.data_ptr(), n_items, B, S,
+        int(bool(white_bkgd)), grid, torch.cuda.current_stream(device).cuda_stream,
     )
     _build.check(err, "fused_level_train_grads")
     fused_level_train_grads.launches += 1

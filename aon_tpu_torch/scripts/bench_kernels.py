@@ -27,8 +27,8 @@ fixed random inputs after a warm-up launch:
 The number in a name is the TPU kernel's tile of rows (``tpu_tile`` in the
 line).  The port's kernels take their own ``tile`` whatever the name: 128
 rows for the eval kernel (rows 1, 12 and 13: persistent blocks, one per SM,
-``grid`` of them, clusters of ``cluster``), 64 rows per block for the
-training kernels; so variants that differ only in the TPU tile run the same
+``grid`` of them, clusters of ``cluster``), and 128-row tiles on the same
+persistent grid for the training kernels' forward and backward; so variants that differ only in the TPU tile run the same
 launch.  A line of the eval kernel alone also carries ``pct_bf16_peak`` and
 ``l2_weight_bytes``, the weights it streamed from L2 into shared memory per
 call, with the rate ``l2_tb_s`` that implies at the measured time
@@ -62,7 +62,7 @@ import numpy as np
 import torch
 
 from aon_tpu_torch.models.mlp import NeRFMLP, xavier_init_
-from aon_tpu_torch.ops import bench_variants
+from aon_tpu_torch.ops import bench_variants, train_sm90
 from aon_tpu_torch.ops.fused_mlp import (
     EVAL_CLUSTER,
     EVAL_TILE_ROWS,
@@ -83,7 +83,7 @@ from aon_tpu_torch.ops.fused_mlp_train import (
 )
 from aon_tpu_torch.utils.device import DeviceLike, resolve_device
 
-PORT_TILE = 64  # rows per block of the training kernels (ops/csrc/mlp_common.cuh TILE)
+PORT_TILE = train_sm90.TILE_ROWS  # rows per tile of the training kernels (ops/csrc/train_sm90.cuh)
 PEAK_BF16_FLOPS = 989e12  # H100 SXM, dense bf16 (NVIDIA's data sheet), at 700 W
 # scripts/bench_kernels.py:41-45, for comparison with its lines only
 JAX_BENCH_MACS_PER_SAMPLE = (

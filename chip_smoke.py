@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Quickest proof that the PyTorch/CUDA port runs on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N] [--seeds K] [--profile]
+    python3 chip_smoke.py [--seed N] [--seeds K] [--profile] [--parent DIR]
 
 Phases, each printed as one JSON line on stdout (nothing else goes there):
 
@@ -21,6 +21,15 @@ Phases, each printed as one JSON line on stdout (nothing else goes there):
            library yardstick (the same function as bf16 torch calls, under
            autograd for the training kernels) that the port never calls, and
            beside its bound on the H100;
+  wgrad    the training kernels' weight gradients alone (train_sm90.cuh's
+           MN-major wgmma operands) on random blocked workspaces of the fine
+           level's 395,264 rows, against torch.matmul, timed;
+  level_split  the device time of each of a training level's four stages
+           (forward, compositing, backward data path, weight gradients; by
+           kernel name under torch.profiler) at 2,048 x 193 and x 49 beside
+           each stage's flop bound and workspace bytes at the HBM rate, for
+           this tree and, with --parent DIR, for another checkout
+           (aon_tpu_torch/scripts/level_split.py);
   posenc   the in-kernel encoding's range reduction at the 2^9 frequency, and
            kernel table row 14 (the TPU suite's range-reduction test): its
            256 x 3 inputs through each of the kernels' three encoders, column
@@ -144,6 +153,12 @@ FOVY_DEG = 35.0  # the SAPIEN laptop dataset's camera (datagen/data_gen.py)
 # tolerances, with the reason for each; the MLP kernel's against its twin are
 # TWIN_TOL_MAX and TWIN_TOL_MEAN of aon_tpu_torch/ops/fused_mlp_train.py
 TOL_RESAMPLE = 1e-6  # same f32 operations in the same order: bit-identical expected
+# the weight gradients alone against torch.matmul on random bf16 workspaces,
+# the largest error relative to the largest entry: each block sums its ~58k
+# rows in the tensor cores' f32 accumulator, whose rounding grows with the
+# chain (1.6e-4 at 395,264 rows on an H100); a layout fault moves entries by
+# their own size
+TOL_WGRAD_REL = 1e-3
 TOL_POSENC_TWIN = 1e-6  # an ulp of the sine
 TOL_POSENC_EXACT = 2e-3  # float32 range reduction at ~3000 rad (the TPU suite's bound)
 # the doubling encoder against its twin: nine doublings carry an ulp of the
@@ -458,6 +473,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seeds", type=int, default=1,
                     help="also run the articulated, bench-shape and interval checks on this "
                          "many seeds in all")
+    ap.add_argument("--parent", default=None,
+                    help="a checkout of another tree: its level split beside this tree's")
     ap.add_argument("--profile", action="store_true",
                     help="also trace five warm v3 train steps with torch.profiler")
     args = ap.parse_args(argv)
@@ -478,7 +495,7 @@ def main(argv=None) -> int:
         from aon_tpu_torch.data.analytic import analytic_scene
         from aon_tpu_torch.eval.render import render_frame
         from aon_tpu_torch.data.analytic import articulated_scene
-        from aon_tpu_torch.ops import _build, bench_variants, fused_art
+        from aon_tpu_torch.ops import _build, bench_variants, fused_art, train_sm90
         from aon_tpu_torch.ops.fused_mlp import (
             ENCODERS,
             EVAL_SLAB_BYTES,
@@ -515,7 +532,7 @@ def main(argv=None) -> int:
         from aon_tpu_torch.core.rendering import volumetric_rendering
         from aon_tpu_torch.scripts import bench as port_bench
         from aon_tpu_torch.scripts import bench_kernels as port_bench_kernels
-        from aon_tpu_torch.scripts import extract_geometry
+        from aon_tpu_torch.scripts import extract_geometry, level_split
         from aon_tpu_torch.train.checkpoint import CheckpointManager
         from aon_tpu_torch.ops.render_fused import mlp_params
         from aon_tpu_torch.ops.resample import (
@@ -568,6 +585,9 @@ def main(argv=None) -> int:
             _build.library(src)
             logs.setdefault(src, _build.library_path(src).with_suffix(".log").read_text())
         eval_spills = ptxas_spills(logs["fused_mlp_eval"], "mlp_eval_kernel")
+        # the vanilla training kernels of train_sm90.cuh: the forward's three
+        # stagings, the backward and the weight gradients
+        train_spills = ptxas_spills(logs["level_train"], "sm90")
         emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3), "arch": "sm_90a",
               "sources": [f"aon_tpu_torch/ops/csrc/{s}.cu" for s in _build.KERNEL_SOURCES],
               "flags": " ".join(_build.NVCC_FLAGS),
@@ -575,9 +595,11 @@ def main(argv=None) -> int:
                             if "registers" in ln or "spill" in ln] for k, v in logs.items()},
               "warnings": {k: [ln.strip() for ln in v.splitlines() if "warning" in ln.lower()]
                            for k, v in logs.items()},
-              "eval_kernel_spills": eval_spills})
+              "eval_kernel_spills": eval_spills, "train_kernel_spills": train_spills})
         require(len(eval_spills) == 7 and not any(eval_spills.values()),
                 "the eval kernel's seven instances must build without spills")
+        require(len(train_spills) == 5 and not any(train_spills.values()),
+                "the training kernels' five instances must build without spills")
 
         # ---------------------------------------------------------- kernels
         phase = "kernel:fused_nerf_mlp_xyz_eval"
@@ -975,6 +997,48 @@ def main(argv=None) -> int:
             del samples, cot, level_args, bwd_args, runs
             t_lvl = t_next
         torch.cuda.empty_cache()
+
+        # the weight gradients alone on random workspaces of the fine level's
+        # rows: the MN-major wgmma operands against torch.matmul
+        phase = "wgrad"
+        n_pad = train_sm90.padded_rows(TRAIN_RAYS * (N_COARSE + 1 + N_FINE))
+        ws_act = torch.randn(n_pad // 64, train_sm90.ACT_CHUNKS, 64, 64, generator=gen,
+                             device=dev).bfloat16()
+        ws_grad = torch.randn(n_pad // 64, train_sm90.GRAD_CHUNKS, 64, 64, generator=gen,
+                              device=dev).bfloat16()
+        got = train_sm90.weight_grads(ws_act, ws_grad)
+        torch.cuda.synchronize()
+        want = train_sm90.weight_grads_plain(ws_act, ws_grad)
+        wgrad_flops = 2.0 * n_pad * level_split.STAGE_MACS["weight_grads"]
+        rec = {"phase": "wgrad", "rows": n_pad, "items": int(train_sm90.items_on(n_pad, dev)[1]),
+               "max_abs_err": (got - want).abs().max().item(),
+               "max_rel_err": ((got - want).abs().max() / want.abs().max()).item(),
+               "tol_rel": TOL_WGRAD_REL,
+               "entries_written_as_plain": bool(torch.equal(got == 0, want == 0)),
+               "ms": time_ms(torch, lambda: train_sm90.weight_grads(ws_act, ws_grad), 7, warmup=2),
+               "plain_ms": time_ms(torch, lambda: train_sm90.weight_grads_plain(ws_act, ws_grad), 3),
+               **bound_of(wgrad_flops, ws_act.numel() * 2 + ws_grad.numel() * 2),
+               "card": card}
+        rec["tflops"] = wgrad_flops / rec["ms"] / 1e9
+        emit(rec)
+        require(rec["max_rel_err"] <= TOL_WGRAD_REL and rec["entries_written_as_plain"],
+                "the weight gradients disagree with torch.matmul")
+        del ws_act, ws_grad, got, want
+        torch.cuda.empty_cache()
+
+        # the level's four stages by device time, at the fine level's and the
+        # bench's fine sample counts, for this tree and (--parent) another
+        phase = "level_split"
+        split = {"phase": "level_split", "tree": level_split.measure([N_COARSE + 1 + N_FINE, 49]),
+                 "card": card}
+        if args.parent:
+            proc = subprocess.run(
+                [sys.executable, str(ROOT / "aon_tpu_torch" / "scripts" / "level_split.py"),
+                 "--root", str(Path(args.parent).resolve()), "--samples",
+                 str(N_COARSE + 1 + N_FINE), "49"], capture_output=True, text=True, timeout=600)
+            require(proc.returncode == 0, f"level_split of the parent failed: {proc.stderr[-2000:]}")
+            split["parent"] = json.loads(proc.stdout.strip().splitlines()[-1])
+        emit(split)
 
         # ------------------------------------------------------------- path
         phase = "path"

@@ -114,14 +114,13 @@ def test_bench_kernels_runs_every_variant():
     # there); main picks variants by the JAX bench's names
     lines = [port_bench_kernels.run_variant(name, torch.device("cpu"), rows=128, calls=1)
              for name in port_bench_kernels.VARIANTS]
-    # the eval kernel's variants run 128-row tiles, the training kernels' 64
+    # the eval kernel's variants and the training kernels' both run 128-row tiles
     eval_only = {n for n, (kind, _, opts) in port_bench_kernels.VARIANTS.items()
                  if kind in ("fwd", "xyz") or opts.get("part") == "fwd"}
     assert eval_only == {"fwdxyz512", "fwdxyz1024", "body_base512", "body_2s512", "body_2s1024",
                          "body_bf16acc512", "xyzbody_base512", "xyzbody_mxu512",
                          "xyzbody_doubling512"}
-    assert all(ln["tile"] == (128 if ln["variant"] in eval_only else 64) and "tflops" not in ln
-               for ln in lines)
+    assert all(ln["tile"] == 128 and "tflops" not in ln for ln in lines)
     assert port_bench_kernels.JAX_BENCH_MACS_PER_SAMPLE == jax_bench_kernels.MACS_PER_SAMPLE
     assert {n: v[1] for n, v in port_bench_kernels.VARIANTS.items() if not n.startswith("xyz")} \
         == {"fwdxyz512": 512, "fwdxyz1024": 1024, "bwd512f32": 512, "bwd512bf16": 512,

@@ -59,6 +59,7 @@ from aon_tpu_torch.ops import bench_variants as bv
 from aon_tpu_torch.ops import fused_art
 from aon_tpu_torch.ops import fused_mlp as tfm
 from aon_tpu_torch.ops import fused_mlp_train as tfmt
+from aon_tpu_torch.ops import train_sm90 as ts
 from aon_tpu_torch.ops.fused_mlp import (
     SHAPES,
     make_posenc_constants,
@@ -661,3 +662,56 @@ def test_eval_kernel_per_ray_stagings_across_tiles(cuda, S):
     _assert_twin(row1, fused_nerf_mlp_xyz_eval_plain(packed, consts, samples, vd))
     _assert_twin(row7, tfm.fused_nerf_mlp_per_ray_plain(packed, enc.reshape(B, S, 64), venc))
     assert torch.equal(row1[0], row8[0]) and torch.equal(row1[1], row8[1])
+
+
+# ------------------------------- the vanilla training kernels' tiles (sm_90a)
+# The persistent wgmma forward and backward (128-row tiles) and the weight
+# gradients (64-row chunks, row ranges per block) of ops/csrc/train_sm90.cuh,
+# at row counts around their tiles and at the samples per ray of the render,
+# the bench and the largest level: the limits of kernels 3, 4 and 6 above.
+
+
+@pytest.mark.parametrize("n_pad", [64, 1024, 65664])  # one chunk; ragged ranges; 132 items
+def test_weight_grads_kernel_matches_matmul(cuda, n_pad):
+    """The weight gradients' MN-major wgmma operands (X^T, D) against
+    torch.matmul on random bf16 workspaces: only the f32 sums' order differs."""
+    g = torch.Generator(device=cuda).manual_seed(51)
+    act = torch.randn(n_pad // 64, ts.ACT_CHUNKS, 64, 64, generator=g, device=cuda).bfloat16()
+    grad = torch.randn(n_pad // 64, ts.GRAD_CHUNKS, 64, 64, generator=g, device=cuda).bfloat16()
+    before = ts.weight_grads.launches
+    got = ts.weight_grads(act, grad)
+    torch.cuda.synchronize()
+    assert ts.weight_grads.launches == before + 1
+    want = ts.weight_grads_plain(act, grad)
+    # f32 sums of n_pad products of magnitude ~1 in another order: their
+    # rounding grows with n_pad (a layout fault moves entries by O(sqrt(n_pad)))
+    assert (got - want).abs().max().item() <= 1e-6 * n_pad
+    assert torch.equal(got == 0, want == 0)  # every entry of every dW written, nothing else
+
+
+@pytest.mark.parametrize("B,S", [(59, 17), (1338, 49), (37, 193), (256, 256)])
+def test_level_kernel_at_tile_edges(cuda, B, S):
+    """Row 3 at 1,003 / 65,562 / 7,141 / 65,536 rows."""
+    packed, consts, t, o, d, target = _level_inputs(cuda, B, S, seed=52)
+    sq, wgt, grads = fused_level_train_grads(packed, consts, t, o, d, d, target, True)
+    torch.cuda.synchronize()
+    sq_p, wgt_p, grads_p = fused_level_train_grads_plain(packed, consts, t, o, d, d, target, True)
+    assert (wgt - wgt_p).abs().max().item() <= TWIN_TOL_MAX
+    assert abs(sq.item() - sq_p.item()) <= TWIN_TOL_MAX * sq_p.item()
+    assert_grads_close(grads, grads_p)
+
+
+@pytest.mark.parametrize("n", [1000, 65553])
+def test_mlp_bwd_kernels_at_tile_edges(cuda, n):
+    """Rows 4 (as n rays of one sample) and 6 on the same samples."""
+    packed, consts, t, o, d, _ = _level_inputs(cuda, n, 1, seed=53)
+    g = torch.Generator(device=cuda).manual_seed(54)
+    samples = (o[:, None, :] + t[..., None] * d[:, None, :]).contiguous()
+    cot = torch.randn(n, 1, 4, generator=g, device=cuda) / n
+    row4 = fused_mlp_bwd_xyz(packed, consts, samples, d, cot)
+    enc = encode_plain(samples.reshape(-1, 3), consts["s_pos"], consts["p_pos"])
+    venc = encode_plain(d, consts["s_view"], consts["p_view"])
+    row6 = tfmt.fused_mlp_bwd(packed, enc, venc, cot.reshape(-1, 4))
+    torch.cuda.synchronize()
+    assert_grads_close(row4, fused_mlp_bwd_xyz_plain(packed, consts, samples, d, cot))
+    assert_grads_close(row6, tfmt.fused_mlp_bwd_plain(packed, enc, venc, cot.reshape(-1, 4)))

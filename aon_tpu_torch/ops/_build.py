@@ -56,10 +56,10 @@ _SIGNATURES = {
         "aon_wgrad_run": [_VOID_P] * 4 + [_INT, _VOID_P],
     },
     "art": {
-        "aon_art_fwd_launch": [_VOID_P] * 10 + [_LL, _INT, _VOID_P],
-        "aon_art_bwd_launch": [_VOID_P] * 15 + [_LL, _INT, _VOID_P],
-        "aon_art_level_launch": ([_VOID_P] * 23 + [_INT, _INT, _INT]
-                                 + [_FLOAT, _FLOAT, _FLOAT, _INT, _VOID_P]),
+        "aon_art_fwd_launch": [_VOID_P] * 10 + [_LL, _INT, _INT, _VOID_P],
+        "aon_art_bwd_launch": [_VOID_P] * 17 + [_INT, _LL, _INT, _INT, _VOID_P],
+        "aon_art_level_launch": ([_VOID_P] * 25 + [_INT, _INT, _INT, _INT]
+                                 + [_FLOAT, _FLOAT, _FLOAT, _INT, _INT, _VOID_P]),
     },
 }
 

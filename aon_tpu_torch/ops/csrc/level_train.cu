@@ -360,11 +360,11 @@ extern "C" int aon_wgrad_run(const void* act, const void* grad, float* gw, const
                              int n_items, void* stream_) {
   if (n_items <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
-  cudaError_t err = cudaFuncSetAttribute(sm90::wgrad_kernel,
+  cudaError_t err = cudaFuncSetAttribute(sm90::wgrad_kernel<>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          sm90::WGRAD_SMEM_BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
-  sm90::wgrad_kernel<<<static_cast<unsigned>(n_items), sm90::WGRAD_THREADS,
+  sm90::wgrad_kernel<> <<<static_cast<unsigned>(n_items), sm90::WGRAD_THREADS,
                        sm90::WGRAD_SMEM_BYTES, stream>>>(
       static_cast<const bf16*>(act), static_cast<const bf16*>(grad), gw, items);
   return static_cast<int>(cudaGetLastError());

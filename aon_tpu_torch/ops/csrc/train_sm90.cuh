@@ -2,8 +2,9 @@
 // persistent wgmma trunk of trunk_sm90.cuh: a forward that stores its
 // activations, the backward's data path (the chain dv, dbott, D7..D0), and
 // the weight gradients dW = X^T D.  level_train.cu runs them for kernel table
-// rows 3, 4 and 6; they are written so that the articulated kernels can take
-// the backward and the weight gradients after their deformation prefix.
+// rows 3, 4 and 6.  The articulated kernels (art_sm90.cuh) run the same
+// pieces around their deformation prefix and view branch, in a workspace
+// layout that appends their columns (the template argument L).
 //
 // Workspaces.  n_pad = n_rows rounded up to TILE_ROWS; the forward and the
 // backward write every row of every tile (rows past n_rows repeat the last
@@ -58,7 +59,7 @@
 //    mbarriers.  Both are operands in the MN-major layout (a sample row is a
 //    K-line), which wgmma reads with its transpose bits.
 //
-// Roundings (train_common.cuh): bf16 operands and f32 sums in every product,
+// Roundings: bf16 operands and f32 sums in every product,
 // the f32 gradients g_rgb, g_sigma, dv and D included; relu masks from the
 // stored bf16 activations; D rounded to bf16 where it is stored.
 
@@ -103,6 +104,20 @@ constexpr int SUM_WRGB = SUM_WD + WIDTH;
 constexpr int N_SUMS = SUM_WRGB + COND * 3;
 static_assert(N_SUMS * 4 <= 2 * A_CHUNK_BYTES, "block sums fit the view-encoding tiles");
 constexpr int BAR_CONSUMERS = 5;  // named barrier of both consumer warpgroups
+
+// A workspace layout, the template argument of the pieces the articulated
+// kernels share (art_sm90.cuh appends its columns to these): chunks a block
+// of the act and grad workspaces, where the block's sums keep the heads'
+// weight gradients, and whether the view layer ends the MLP (the rgb head)
+// or feeds the articulated kernels' view branch.  Both keep the mask
+// workspace's layout.
+struct VanillaLayout {
+  static constexpr int ACT_CHUNKS = sm90::ACT_CHUNKS;
+  static constexpr int GRAD_CHUNKS = sm90::GRAD_CHUNKS;
+  static constexpr int SUM_WD = sm90::SUM_WD;
+  static constexpr int SUM_WRGB = sm90::SUM_WRGB;
+  static constexpr bool ART = false;
+};
 
 // ------------------------------------------------------------ bulk stores
 
@@ -149,7 +164,10 @@ __device__ __forceinline__ uint8_t* ws_block(const bf16* ws, int chunks, long lo
 
 // ------------------------------------------------------------ forward
 
-enum class Stage { T_VALS, XYZ, ENC };
+// XP: the articulated kernels' deformed coordinates x', which their prefix
+// left in the warpgroup's activation tile (XP_OFFSET, (64, 4) f32)
+enum class Stage { T_VALS, XYZ, ENC, XP };
+constexpr int XP_OFFSET = 3 * A_CHUNK_BYTES;
 
 struct FwdArgs {
   const float* enc;      // ENC: (n_rows, 64) f32
@@ -243,6 +261,10 @@ __device__ __forceinline__ void stage_rows(const Consumer& c, const FwdArgs& a, 
     float xl0, xl1, xl2;
     if constexpr (ST == Stage::XYZ) {
       xl0 = a.xyz[3 * gl], xl1 = a.xyz[3 * gl + 1], xl2 = a.xyz[3 * gl + 2];
+    } else if constexpr (ST == Stage::XP) {  // the prefix clamped its rows already
+      const float* xp =
+          reinterpret_cast<const float*>(c.act() + XP_OFFSET) + 4 * ((c.warp >> 1) + 2 * c.lane);
+      xl0 = xp[0], xl1 = xp[1], xl2 = xp[2];
     } else {
       const long long ray = gl / a.samples_per_ray;
       const float t = a.t_vals[gl];
@@ -293,22 +315,30 @@ __device__ __forceinline__ uint32_t venc_addr(const Consumer& c) {
   return tile_addr(c, SM_VENC + c.wg * A_CHUNK_BYTES);
 }
 
-// One warpgroup's 64 rows of a forward tile (the two-stream body of
-// trunk_tile), every activation also sent to the workspaces.
-template <Stage ST>
-__device__ __forceinline__ void forward_tile(Consumer& c, float (&acc)[128], const FwdArgs& a,
-                                             long long row0) {
+// The act workspace's chunks of the warpgroup's block, made again where
+// they are used: kept across the layers, they would take registers the
+// accumulator and the epilogue's bias loads need.
+template <class L>
+struct WsRows {
+  const FwdArgs& a;
+  long long row0;
+  __device__ __forceinline__ uint8_t* act(int chunk) const {
+    return ws_block(a.act, L::ACT_CHUNKS, opaque(row0)) + chunk * CHUNK_BYTES;
+  }
+};
+
+// One warpgroup's 64 rows of a forward tile from its staged enc / venc
+// tiles (fenced and synchronised): the two-stream body of trunk_tile, every
+// activation also sent to the workspaces.  In the vanilla layout the view
+// layer ends the MLP with the rgb head; in the articulated one (L::ART) it
+// is a hidden layer, and v0 is left in the activation tile for the view
+// branch.
+template <class L>
+__device__ __forceinline__ void forward_trunk(Consumer& c, float (&acc)[128], const FwdArgs& a,
+                                              long long row0) {
   constexpr Body B = Body::TWO_STREAM;
-  sync_stored(c);  // the last tile's products on enc / venc are done, and its copies
-  stage_rows<ST>(c, a, row0);
-  fence_async_shared();
-  c.sync();
-  // the workspace rows, made again where they are used: kept across the
-  // layers, they would take registers the accumulator and the epilogue's
-  // bias loads need
-  auto act = [&](int chunk) {
-    return ws_block(a.act, ACT_CHUNKS, opaque(row0)) + chunk * CHUNK_BYTES;
-  };
+  const WsRows<L> ws{a, row0};
+  auto act = [&](int chunk) { return ws.act(chunk); };
   auto mask = [&](int layer) {
     return a.mask + static_cast<size_t>(opaque(row0)) * LDM + layer * WIDTH / 8;
   };
@@ -355,16 +385,32 @@ __device__ __forceinline__ void forward_tile(Consumer& c, float (&acc)[128], con
   store_tile(c, c.act(), act(ACT_C_BOTT), 4 * CHUNK_BYTES);
 
   // view layer: v = relu(bott @ wva + venc @ wvb + bv), kept for the
-  // backward; the rgb head
+  // backward; the rgb head (vanilla)
   product<B, COND, 4>(c, acc, act_addr(c));
   product<B, COND, 1, VIEW_PAD / 16, true>(c, acc, venc_addr(c));
   finish(c, acc);
   sync_stored(c);  // every warp's products on bott, and its copy, are done
-  epilogue<B, Epi::RGB, COND, false, true>(c, acc, a.bias + OFF_BV, a.bias, a.out_rgb,
-                                           a.out_sigma, row0, a.n_rows);
+  if constexpr (L::ART)
+    epilogue<B, Epi::HIDDEN, COND>(c, acc, a.bias + OFF_BV, a.bias, a.out_rgb, a.out_sigma, row0,
+                                   a.n_rows);
+  else
+    epilogue<B, Epi::RGB, COND, false, true>(c, acc, a.bias + OFF_BV, a.bias, a.out_rgb,
+                                             a.out_sigma, row0, a.n_rows);
   fence_async_shared();
   c.sync();
   store_tile(c, c.act(), act(ACT_C_V), 2 * CHUNK_BYTES);
+}
+
+// One warpgroup's 64 rows of a vanilla forward tile: its inputs staged, then
+// forward_trunk.
+template <Stage ST>
+__device__ __forceinline__ void forward_tile(Consumer& c, float (&acc)[128], const FwdArgs& a,
+                                             long long row0) {
+  sync_stored(c);  // the last tile's products on enc / venc are done, and its copies
+  stage_rows<ST>(c, a, row0);
+  fence_async_shared();
+  c.sync();
+  forward_trunk<VanillaLayout>(c, acc, a, row0);
 }
 
 // ------------------------------------------------------------ backward
@@ -414,8 +460,8 @@ __device__ __forceinline__ void load_mask(MaskRows& m, const uint8_t* __restrict
 // One halving exchange of a column-sum reduction: the lane and its partner
 // (lane ^ lane_mask) each keep one half of s[0, 2 HALF) (the upper one where
 // `upper`), summed with the partner's copy of it, in s[0, HALF).
-template <int HALF>
-__device__ __forceinline__ void halve(float (&s)[64], bool upper, int lane_mask) {
+template <int HALF, int M>
+__device__ __forceinline__ void halve(float (&s)[M], bool upper, int lane_mask) {
 #pragma unroll
   for (int j = 0; j < HALF; ++j) {
     const float send = upper ? s[j] : s[j + HALF];
@@ -424,18 +470,20 @@ __device__ __forceinline__ void halve(float (&s)[64], bool upper, int lane_mask)
   }
 }
 
-// A backward layer's epilogue on the accumulator of its 256 columns: with
-// JOIN the density head's bf16(g_sigma) wd^T added (D7), with MASK the relu
-// mask applied; D as bf16 over the layer's input tile, and the f32 column
-// sums of the result as the warp's row of `part` (4 warps x 256).  A thread
-// holds two rows of 64 columns; the eight lanes that share its columns sum
-// them in three halving exchanges (56 shuffles, not 3 x 64), after which
-// each holds 8 whole column sums of the warp's 16 rows.  `add_parts` then
-// adds the four rows to the block's sums, one thread a column pair.
-template <bool MASK, bool JOIN>
+// A backward layer's epilogue on the accumulator of its N columns (256, or
+// 128 in the articulated kernels' narrow layers): with JOIN the density
+// head's bf16(g_sigma) wd^T added (D7), with MASK the relu mask applied; D as
+// bf16 over the layer's input tile, and the f32 column sums of the result as
+// the warp's row of `part` (4 warps x N).  A thread holds two rows of N / 4
+// columns; the eight lanes that share its columns sum them in three halving
+// exchanges (56 shuffles at N = 256, not 3 x 64), after which each holds N /
+// 32 whole column sums of the warp's 16 rows.  `add_parts` then adds the
+// four rows to the block's sums.
+template <bool MASK, bool JOIN, int N = WIDTH>
 __device__ __forceinline__ void backward_epilogue(const Consumer& c, const float (&acc)[128],
                                                   const MaskRows& m, const float* gt,
                                                   float* part) {
+  constexpr int S = N / 4;
   const int x = c.lane >> 2, q = c.lane & 3, r0 = 16 * c.warp + x;
   uint8_t* tile = c.act();
   const bf16* wd = reinterpret_cast<const bf16*>(c.b.smem + SM_HEADS);
@@ -444,9 +492,9 @@ __device__ __forceinline__ void backward_epilogue(const Consumer& c, const float
     gs_lo = round_bf16(gt[4 * r0 + 3]);
     gs_hi = round_bf16(gt[4 * (r0 + 8) + 3]);
   }
-  float s[64];  // column 8 (j / 2) + 2q + j % 2, both rows
+  float s[S];  // column 8 (j / 2) + 2q + j % 2, both rows
 #pragma unroll
-  for (int i = 0; i < WIDTH / 8; ++i) {
+  for (int i = 0; i < N / 8; ++i) {
     const int col = 8 * i + 2 * q;
     float v0 = acc[4 * i], v1 = acc[4 * i + 1], v2 = acc[4 * i + 2], v3 = acc[4 * i + 3];
     if constexpr (JOIN) {
@@ -466,27 +514,34 @@ __device__ __forceinline__ void backward_epilogue(const Consumer& c, const float
     *reinterpret_cast<uint32_t*>(tile + pair_offset(i, r0, x, q)) = pack_bf16(v0, v1);
     *reinterpret_cast<uint32_t*>(tile + pair_offset(i, r0 + 8, x, q)) = pack_bf16(v2, v3);
   }
-  halve<32>(s, x & 1, 4);
-  halve<16>(s, (x >> 1) & 1, 8);
-  halve<8>(s, (x >> 2) & 1, 16);
-  const int base = 32 * (x & 1) + 16 * ((x >> 1) & 1) + 8 * ((x >> 2) & 1);
-  float* row = part + WIDTH * c.warp;
+  halve<S / 2>(s, x & 1, 4);
+  halve<S / 4>(s, (x >> 1) & 1, 8);
+  halve<S / 8>(s, (x >> 2) & 1, 16);
+  const int base = (S / 2) * (x & 1) + (S / 4) * ((x >> 1) & 1) + (S / 8) * ((x >> 2) & 1);
+  float* row = part + N * c.warp;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < S / 8; ++j) {
     const int idx = base + j;
     row[8 * (idx >> 1) + 2 * q + (idx & 1)] = s[j];
   }
 }
 
 // The four warps' rows of column sums (written and synchronised) into the
-// block's sums of a layer: thread t adds columns 2t and 2t + 1.
+// block's sums of a layer: thread t adds columns 2t and 2t + 1 (N = 256) or
+// column t (N = 128).
+template <int N = WIDTH>
 __device__ __forceinline__ void add_parts(const Consumer& c, const float* part, float* sums) {
-  const float2 p0 = reinterpret_cast<const float2*>(part)[c.t];
-  const float2 p1 = reinterpret_cast<const float2*>(part + WIDTH)[c.t];
-  const float2 p2 = reinterpret_cast<const float2*>(part + 2 * WIDTH)[c.t];
-  const float2 p3 = reinterpret_cast<const float2*>(part + 3 * WIDTH)[c.t];
-  sum_add(sums + 2 * c.t, (p0.x + p1.x) + (p2.x + p3.x));
-  sum_add(sums + 2 * c.t + 1, (p0.y + p1.y) + (p2.y + p3.y));
+  if constexpr (N == COND) {
+    sum_add(sums + c.t,
+            (part[c.t] + part[COND + c.t]) + (part[2 * COND + c.t] + part[3 * COND + c.t]));
+  } else {
+    const float2 p0 = reinterpret_cast<const float2*>(part)[c.t];
+    const float2 p1 = reinterpret_cast<const float2*>(part + WIDTH)[c.t];
+    const float2 p2 = reinterpret_cast<const float2*>(part + 2 * WIDTH)[c.t];
+    const float2 p3 = reinterpret_cast<const float2*>(part + 3 * WIDTH)[c.t];
+    sum_add(sums + 2 * c.t, (p0.x + p1.x) + (p2.x + p3.x));
+    sum_add(sums + 2 * c.t + 1, (p0.y + p1.y) + (p2.y + p3.y));
+  }
 }
 
 // The head phase of a backward tile: dv = (bf16(g_rgb) @ wrgb^T) * relu'(v)
@@ -496,10 +551,14 @@ __device__ __forceinline__ void add_parts(const Consumer& c, const float* part, 
 // a7 over the 64 rows, so its sums need no exchange; a warp's loads of a row
 // are 64 contiguous bytes of the act workspace's swizzled chunks, 16 rows
 // in flight at a time.
+// In the articulated layout (L) the head sits on v3: `v_chunk` and `bv` name
+// its activation's chunk and its bias's place in the block's sums.
+template <class L = VanillaLayout>
 __device__ __forceinline__ void head_phase(const Consumer& c, const BwdArgs& a, const float* gt,
-                                           long long row0, float* sums) {
+                                           long long row0, float* sums, int v_chunk = ACT_C_V,
+                                           int bv = OFF_BV) {
   constexpr int BATCH = 16;
-  const uint8_t* act = ws_block(a.act, ACT_CHUNKS, row0);
+  const uint8_t* act = ws_block(a.act, L::ACT_CHUNKS, row0);
   auto at = [&](int chunk, int r, int col) {  // bf16 (r, col) of a run of chunks
     return *reinterpret_cast<const bf16*>(act + (chunk + (col >> 6)) * CHUNK_BYTES +
                                           swizzled(r, col & 63));
@@ -516,7 +575,7 @@ __device__ __forceinline__ void head_phase(const Consumer& c, const BwdArgs& a, 
     bf16 v[BATCH], lo[BATCH], hi[BATCH];
 #pragma unroll
     for (int j = 0; j < BATCH; ++j) {
-      v[j] = at(ACT_C_V, r0 + j, col);
+      v[j] = at(v_chunk, r0 + j, col);
       lo[j] = at(ACT_C_A0 + 4 * 7, r0 + j, col);
       hi[j] = at(ACT_C_A0 + 4 * 7, r0 + j, col + COND);
     }
@@ -536,12 +595,12 @@ __device__ __forceinline__ void head_phase(const Consumer& c, const BwdArgs& a, 
           __float2bfloat16_rn(dv);
     }
   }
-  sum_add(sums + OFF_BV + col, bs);
-  sum_add(sums + SUM_WRGB + 3 * col, wg0);
-  sum_add(sums + SUM_WRGB + 3 * col + 1, wg1);
-  sum_add(sums + SUM_WRGB + 3 * col + 2, wg2);
-  sum_add(sums + SUM_WD + col, wd_lo);
-  sum_add(sums + SUM_WD + COND + col, wd_hi);
+  sum_add(sums + bv + col, bs);
+  sum_add(sums + L::SUM_WRGB + 3 * col, wg0);
+  sum_add(sums + L::SUM_WRGB + 3 * col + 1, wg1);
+  sum_add(sums + L::SUM_WRGB + 3 * col + 2, wg2);
+  sum_add(sums + L::SUM_WD + col, wd_lo);
+  sum_add(sums + L::SUM_WD + COND + col, wd_hi);
   if (c.t < 4) {  // brgb, bd: sums of the unrounded g
     float sg = 0.0f;
     for (int r = 0; r < WG_ROWS; ++r) sg += gt[4 * r + c.t];
@@ -549,28 +608,21 @@ __device__ __forceinline__ void head_phase(const Consumer& c, const BwdArgs& a, 
   }
 }
 
-// One warpgroup's 64 rows of a backward tile, the two-stream schedule of the
-// forward: the head phase, then dbott = bf16(dv) @ wva^T, D7 = (bf16(dbott)
-// @ wb^T + bf16(g_sigma) wd^T) * relu'(a7) and D_l = (bf16(D_{l+1}) @
-// w_{l+1}^T) * relu'(a_l) down to D0, each D to the grad workspace.  Layer 5
-// backpropagates through w5a only (the vanilla MLP needs no d_enc).
-__device__ __forceinline__ void backward_tile(Consumer& c, float (&acc)[128], const BwdArgs& a,
-                                              long long row0, float* sums) {
+// The chain from dv, the view layer's D, which the caller left in the
+// activation tile (K-chunks 0 and 1; written, fenced and synchronised) and
+// sent to the grad workspace: dbott = bf16(dv) @ wva^T, D7 = (bf16(dbott) @
+// wb^T + bf16(g_sigma) wd^T) * relu'(a7) and D_l = (bf16(D_{l+1}) @
+// w_{l+1}^T) * relu'(a_l) down to D0, each D to the grad workspace and its
+// column sums to the block's sums.  Layer 5 backpropagates through w5a only.
+// Leaves D0 in the activation tile, fenced and synchronised, its store sent.
+template <class L>
+__device__ __forceinline__ void backward_chain(Consumer& c, float (&acc)[128], const BwdArgs& a,
+                                               long long row0, const float* gt, float* part,
+                                               float* sums) {
   constexpr Body B = Body::TWO_STREAM;
-  float* gt = reinterpret_cast<float*>(c.enc());  // the tile's g rows, (64, 4)
-  float* part = gt + WG_ROWS * 4;                  // the warps' column sums, (4, 256)
   const uint8_t* mask = a.mask + static_cast<size_t>(row0) * LDM;
-  uint8_t* grad = ws_block(a.grad, GRAD_CHUNKS, row0);
+  uint8_t* grad = ws_block(a.grad, L::GRAD_CHUNKS, row0);
   const int r0 = 16 * c.warp + (c.lane >> 2);
-
-  sync_stored(c);  // the last tile's reads of its g rows, D tile and copies are done
-  for (int i = c.t; i < WG_ROWS * 4; i += WG_THREADS)
-    gt[i] = row0 + (i >> 2) < a.n_rows ? a.g[4 * row0 + i] : 0.0f;
-  c.sync();
-  head_phase(c, a, gt, row0, sums);
-  fence_async_shared();
-  c.sync();
-  store_tile(c, c.act(), grad + GR_C_V * CHUNK_BYTES, 2 * CHUNK_BYTES);
 
   MaskRows m;
   product<B, WIDTH, COND / KCHUNK>(c, acc, c.act());
@@ -597,6 +649,31 @@ __device__ __forceinline__ void backward_tile(Consumer& c, float (&acc)[128], co
     store_tile(c, c.act(), grad + 4 * layer * CHUNK_BYTES, 4 * CHUNK_BYTES);
     add_parts(c, part, sums + layer * WIDTH);
   }
+}
+
+// The tile's g rows, (64, 4), into gt: rows past n_rows are 0.
+__device__ __forceinline__ void load_g(const Consumer& c, const BwdArgs& a, long long row0,
+                                       float* gt) {
+  for (int i = c.t; i < WG_ROWS * 4; i += WG_THREADS)
+    gt[i] = row0 + (i >> 2) < a.n_rows ? a.g[4 * row0 + i] : 0.0f;
+  c.sync();
+}
+
+// One warpgroup's 64 rows of a backward tile, the two-stream schedule of the
+// forward: the head phase, then backward_chain.
+__device__ __forceinline__ void backward_tile(Consumer& c, float (&acc)[128], const BwdArgs& a,
+                                              long long row0, float* sums) {
+  float* gt = reinterpret_cast<float*>(c.enc());  // the tile's g rows, (64, 4)
+  float* part = gt + WG_ROWS * 4;                  // the warps' column sums, (4, 256)
+  uint8_t* grad = ws_block(a.grad, GRAD_CHUNKS, row0);
+
+  sync_stored(c);  // the last tile's reads of its g rows, D tile and copies are done
+  load_g(c, a, row0, gt);
+  head_phase(c, a, gt, row0, sums);
+  fence_async_shared();
+  c.sync();
+  store_tile(c, c.act(), grad + GR_C_V * CHUNK_BYTES, 2 * CHUNK_BYTES);
+  backward_chain<VanillaLayout>(c, acc, a, row0, gt, part, sums);
 }
 
 // The block's sums into the gradient blob, once per block; the consumer
@@ -698,7 +775,8 @@ __device__ __forceinline__ void wgmma_n128_mn(float (&d)[128], uint64_t a, uint6
 }
 
 // The producer thread: every row block of the item, X's and D's chunks of
-// it into a ring stage.
+// it into a ring stage; ACTC / GRADC chunks a workspace block.
+template <int ACTC, int GRADC>
 __device__ __forceinline__ void wgrad_produce(uint32_t ring, const WgradItem& it,
                                               const uint8_t* act, const uint8_t* grad) {
   const int xb = it.m_count > KCHUNK ? 2 : 1, db = it.n_count / KCHUNK;
@@ -711,8 +789,8 @@ __device__ __forceinline__ void wgrad_produce(uint32_t ring, const WgradItem& it
     const uint32_t dst = ring + stage * WGRAD_STAGE_BYTES;
     mbar_wait(empty, phase ^ 1);
     mbar_expect_tx(full, bytes);
-    const uint8_t* x = act + (static_cast<size_t>(blk) * ACT_CHUNKS + it.x_chunk) * CHUNK_BYTES;
-    const uint8_t* d = grad + (static_cast<size_t>(blk) * GRAD_CHUNKS + it.d_chunk) * CHUNK_BYTES;
+    const uint8_t* x = act + (static_cast<size_t>(blk) * ACTC + it.x_chunk) * CHUNK_BYTES;
+    const uint8_t* d = grad + (static_cast<size_t>(blk) * GRADC + it.d_chunk) * CHUNK_BYTES;
     for (int j = 0; j < xb; ++j) bulk_copy(dst + j * CHUNK_BYTES, x + j * CHUNK_BYTES, CHUNK_BYTES, full);
     for (int j = 0; j < db; ++j)
       bulk_copy(dst + WGRAD_X_BYTES + j * CHUNK_BYTES, d + j * CHUNK_BYTES, CHUNK_BYTES, full);
@@ -783,7 +861,9 @@ __device__ __forceinline__ void wgrad_consume(uint32_t ring, const WgradItem& it
 }
 
 // One block per work item (items: WGRAD_ITEM_INTS ints each): two consumer
-// warpgroups and a producer warp.
+// warpgroups and a producer warp; the workspaces have ACTC / GRADC chunks a
+// block (the vanilla layout's 40 / 38 by default).
+template <int ACTC = ACT_CHUNKS, int GRADC = GRAD_CHUNKS>
 __global__ void __launch_bounds__(WGRAD_THREADS, 1)
 wgrad_kernel(const bf16* __restrict__ act, const bf16* __restrict__ grad, float* __restrict__ gw,
              const int* __restrict__ items) {
@@ -802,7 +882,7 @@ wgrad_kernel(const bf16* __restrict__ act, const bf16* __restrict__ grad, float*
   __syncthreads();
   if (threadIdx.x >= CONSUMER_THREADS) {
     if (threadIdx.x == CONSUMER_THREADS)
-      wgrad_produce(ring, it, reinterpret_cast<const uint8_t*>(act),
+      wgrad_produce<ACTC, GRADC>(ring, it, reinterpret_cast<const uint8_t*>(act),
                     reinterpret_cast<const uint8_t*>(grad));
   } else if (it.n_count == WIDTH) {
     wgrad_consume<WIDTH>(ring, it, gw);

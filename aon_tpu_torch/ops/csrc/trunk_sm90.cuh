@@ -1,8 +1,8 @@
 // The vanilla NeRF MLP trunk for Hopper (sm_90a): weights streamed through
 // shared memory, products on wgmma warpgroups, persistent blocks.  The eval
 // kernel of fused_mlp_eval.cu runs it, and the vanilla training kernels
-// (level_train.cu) build on it through train_sm90.cuh; the articulated
-// kernels (art.cu) still run the WMMA trunk of mlp_common.cuh.
+// (level_train.cu) and the articulated kernels (art.cu) build on it through
+// train_sm90.cuh and art_sm90.cuh.
 //
 // Block: three warpgroups, one per SM, walking tiles of TILE_ROWS = 128
 // sample rows (blockIdx.x, + gridDim.x, ...).  Warpgroups 0 and 1 are the
@@ -619,8 +619,11 @@ __device__ __forceinline__ void two_products(Consumer& c, float (&acc)[128], con
 
 // The MLP on one warpgroup's 64 rows of a tile whose inputs it has staged
 // (c.enc(), c.venc(); fenced and synchronised): raw sigma (n_rows, 1) and raw
-// rgb (n_rows, 3) of the rows row0 .. row0 + 63 below n_rows.
-template <Body B>
+// rgb (n_rows, 3) of the rows row0 .. row0 + 63 below n_rows.  VIEW is the
+// view layer's epilogue: RGB (the vanilla MLP) ends the tile with the rgb
+// head; HIDDEN (the articulated MLP) leaves v0 in the activation tile,
+// written but not yet fenced or synchronised, for the layers after it.
+template <Body B, Epi VIEW = Epi::RGB>
 __device__ __forceinline__ void trunk_tile(Consumer& c, float (&acc)[128],
                                            const float* __restrict__ bias,
                                            float* __restrict__ out_rgb,
@@ -665,8 +668,8 @@ __device__ __forceinline__ void trunk_tile(Consumer& c, float (&acc)[128],
 
   // view layer: v = relu(bott @ wva + venc @ wvb + bv), K of wvb 32; the rgb head
   two_products<B, COND, VIEW_PAD / 16>(c, acc, c.venc());
-  epilogue<B, Epi::RGB, COND, SPLIT>(c, acc, bias + OFF_BV, bias, out_rgb, out_sigma, row0,
-                                     n_rows);
+  if constexpr (VIEW != Epi::RGB) c.sync();  // every warp's products on bott are done
+  epilogue<B, VIEW, COND, SPLIT>(c, acc, bias + OFF_BV, bias, out_rgb, out_sigma, row0, n_rows);
 }
 
 }  // namespace sm90

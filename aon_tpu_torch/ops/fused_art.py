@@ -19,8 +19,9 @@ Unlike the vanilla kernels, the backward here needs d(enc): the trunk input
 depends on the deformation output, so the backward carries ``d_enc -> d_x'``
 through the encoding (``posenc_vjp``) into the deformation MLP.
 
-``art_mlp_fwd`` and ``art_mlp_bwd`` launch ``ops/csrc/art.cu`` on CUDA tensors
-and run their plain twins (``*_plain``, the same roundings written out in
+``art_mlp_fwd`` and ``art_mlp_bwd`` launch ``ops/csrc/art.cu`` (on
+``ops/csrc/art_sm90.cuh``; its blobs and workspaces: ``ops/art_sm90.py``) on
+CUDA tensors and run their plain twins (``*_plain``, the same roundings written out in
 PyTorch) on CPU tensors.  ``fused_art_mlp_eval`` folds and runs the forward;
 ``fused_art_mlp_train`` joins forward and backward as a
 ``torch.autograd.Function`` whose gradients flow to the MLP's parameters and
@@ -95,11 +96,6 @@ N_KERNEL_WEIGHTS = sum(EFF_SHAPES[k][0] * EFF_SHAPES[k][1] for k in _KERNEL_WEIG
 N_KERNEL_BIASES = sum(EFF_SHAPES[k][1] for k in _KERNEL_BIASES)
 assert (N_KERNEL_WEIGHTS, N_KERNEL_BIASES) == (693888, 3336)
 
-# columns per row of the training kernels' two bf16 workspaces (ops/csrc/art.cu
-# ART_LDA, ART_LDG); x' rides beside them as 4 float32
-WS_ACT_COLS = 3424
-WS_GRAD_COLS = 3328
-_TILE_ROWS = 64
 
 # plain-twin rows per block of the eval forward: bounds its f32 temporaries
 _PLAIN_BLOCK_ROWS = 1 << 20
@@ -475,24 +471,14 @@ def grads_from_blob(blob: torch.Tensor) -> Dict[str, torch.Tensor]:
 
 
 def train_workspaces(n_rows: int, device: torch.device):
-    """Scratch of one launch of a training kernel: the bf16 activation and
-    gradient workspaces and the float32 x' (rows padded to whole 64-row tiles)
-    and the float32 raw outputs; ``torch.empty``, so the caching allocator
-    hands the same blocks back every step."""
-    n_pad = -(-n_rows // _TILE_ROWS) * _TILE_ROWS
-    act = torch.empty(n_pad, WS_ACT_COLS, dtype=torch.bfloat16, device=device)
-    grad = torch.empty(n_pad, WS_GRAD_COLS, dtype=torch.bfloat16, device=device)
-    xp = torch.empty(n_pad, 4, dtype=torch.float32, device=device)
-    raw_rgb = torch.empty(n_rows, 3, dtype=torch.float32, device=device)
-    raw_sigma = torch.empty(n_rows, 1, dtype=torch.float32, device=device)
-    return act, grad, xp, raw_rgb, raw_sigma
+    """Scratch of one launch of a training kernel (``ops/csrc/art_sm90.cuh``):
+    the blocked bf16 activation and gradient workspaces, the relu-mask bytes
+    and the float32 x' (rows padded to whole 128-row tiles), and the float32
+    raw outputs: ``art_sm90.workspaces``."""
+    from aon_tpu_torch.ops import art_sm90  # it reads this module's layout
 
+    return art_sm90.workspaces(n_rows, device)
 
-def _checked_blobs(packed, blobs, device):
-    wblob, bblob = blobs if blobs is not None else art_blobs(packed)
-    if wblob.device != device or bblob.device != device:
-        raise ValueError(f"packed weights must be on {device}")
-    return wblob, bblob
 
 
 def art_mlp_fwd(
@@ -515,13 +501,16 @@ def art_mlp_fwd(
     B, S, _ = samples.shape
     check_float32(device, samples=(samples, (B, S, 3)), viewdirs=(viewdirs, (B, 3)))
     _check_enc_consts(enc_consts, device)
-    wblob, bblob = _checked_blobs(packed, blobs, device)
+    from aon_tpu_torch.ops import art_sm90
+
+    blobs = blobs if blobs is not None else art_blobs(packed)
+    wblob, bblob, grid = art_sm90.eval_inputs(blobs, B * S, device)
     raw_rgb = torch.empty(B, S, 3, dtype=torch.float32, device=device)
     raw_sigma = torch.empty(B, S, 1, dtype=torch.float32, device=device)
     err = _build.library("art").aon_art_fwd_launch(
         samples.data_ptr(), viewdirs.data_ptr(), *(enc_consts[k].data_ptr() for k in ENC_ORDER),
         wblob.data_ptr(), bblob.data_ptr(), raw_rgb.data_ptr(), raw_sigma.data_ptr(),
-        B * S, S, torch.cuda.current_stream(device).cuda_stream,
+        B * S, S, grid, torch.cuda.current_stream(device).cuda_stream,
     )
     _build.check(err, "art_mlp_fwd")
     art_mlp_fwd.launches += 1
@@ -553,16 +542,19 @@ def art_mlp_bwd(
     check_float32(device, samples=(samples, (B, S, 3)), viewdirs=(viewdirs, (B, 3)),
                   g=(g, (B, S, 4)))
     _check_enc_consts(enc_consts, device)
-    wblob, bblob = _checked_blobs(packed, blobs, device)
-    act, grad, xp, raw_rgb, raw_sigma = train_workspaces(B * S, device)
+    from aon_tpu_torch.ops import art_sm90
+
+    tblob, bblob, items, n_items, grid = art_sm90.train_inputs(
+        blobs if blobs is not None else art_blobs(packed), B * S, device)
+    act, grad, mask, xp, raw_rgb, raw_sigma = train_workspaces(B * S, device)
     # zeroed on the launch's stream: the kernels add into it
     gw = torch.zeros(N_KERNEL_WEIGHTS + N_KERNEL_BIASES, dtype=torch.float32, device=device)
     err = _build.library("art").aon_art_bwd_launch(
         samples.data_ptr(), viewdirs.data_ptr(), g.data_ptr(),
         *(enc_consts[k].data_ptr() for k in ENC_ORDER),
-        wblob.data_ptr(), bblob.data_ptr(), raw_rgb.data_ptr(), raw_sigma.data_ptr(),
-        act.data_ptr(), xp.data_ptr(), grad.data_ptr(), gw.data_ptr(), B * S, S,
-        torch.cuda.current_stream(device).cuda_stream,
+        tblob.data_ptr(), bblob.data_ptr(), raw_rgb.data_ptr(), raw_sigma.data_ptr(),
+        act.data_ptr(), xp.data_ptr(), grad.data_ptr(), mask.data_ptr(), gw.data_ptr(),
+        items.data_ptr(), n_items, B * S, S, grid, torch.cuda.current_stream(device).cuda_stream,
     )
     _build.check(err, "art_mlp_bwd")
     art_mlp_bwd.launches += 1

@@ -19,7 +19,8 @@ The in-kernel loss covers both articulated systems:
   (sigmoid(acc) - m) / B`` feeds the compositing backward in the kernel; the
   BCE *value* is computed outside from the per-ray acc output.
 
-``fused_level_train_art_grads`` launches ``ops/csrc/art.cu`` on CUDA tensors
+``fused_level_train_art_grads`` launches ``ops/csrc/art.cu`` (four kernels on
+``ops/csrc/art_sm90.cuh``; blobs, workspaces and work list: ``ops/art_sm90.py``) on CUDA tensors
 and runs its plain twin, ``fused_level_train_art_grads_plain``, on CPU
 tensors.  Latent gradients fall out of the effective-bias gradients exactly
 as on the two-kernel route (``fused_art.unfold_grads``).  The TPU tile logic
@@ -36,7 +37,7 @@ import torch.nn.functional as F
 
 from aon_tpu_torch.core import sampling
 from aon_tpu_torch.core.rays import effective_intervals
-from aon_tpu_torch.ops import _build
+from aon_tpu_torch.ops import _build, art_sm90
 from aon_tpu_torch.ops.fused_art import (
     N_KERNEL_BIASES,
     N_KERNEL_WEIGHTS,
@@ -187,10 +188,8 @@ def fused_level_train_art_grads(
                   viewdirs=(viewdirs, (B, 3)), target=(target, (B, 3)), loss_w=(loss_w, (B,)),
                   mask=(mask, (B,)))
     _check_enc_consts(enc_consts, device)
-    wblob, bblob = art_blobs(packed)
-    if wblob.device != device:
-        raise ValueError(f"packed weights must be on {device}")
-    act, grad, xp, raw_rgb, raw_sigma = train_workspaces(B * S, device)
+    tblob, bblob, items, n_items, grid = art_sm90.train_inputs(art_blobs(packed), B * S, device)
+    act, grad, relu_mask, xp, raw_rgb, raw_sigma = train_workspaces(B * S, device)
     g = torch.empty(B * S, 4, dtype=torch.float32, device=device)
     weights = torch.empty(B, S, dtype=torch.float32, device=device)
     acc = torch.empty(B, dtype=torch.float32, device=device)
@@ -201,11 +200,12 @@ def fused_level_train_art_grads(
         t_vals.data_ptr(), rays_o.data_ptr(), rays_d.data_ptr(), viewdirs.data_ptr(),
         target.data_ptr(), loss_w.data_ptr(), mask.data_ptr(),
         *(enc_consts[k].data_ptr() for k in ENC_ORDER),
-        wblob.data_ptr(), bblob.data_ptr(), raw_rgb.data_ptr(), raw_sigma.data_ptr(),
-        g.data_ptr(), act.data_ptr(), xp.data_ptr(), grad.data_ptr(), weights.data_ptr(),
-        acc.data_ptr(), photo_loss.data_ptr(), gw.data_ptr(), B, S, int(bool(white_bkgd)),
-        float(rgb_padding), float(density_bias), float(bce_weight),
-        int(sigma_act == "softplus_bias"), torch.cuda.current_stream(device).cuda_stream,
+        tblob.data_ptr(), bblob.data_ptr(), raw_rgb.data_ptr(), raw_sigma.data_ptr(),
+        g.data_ptr(), act.data_ptr(), xp.data_ptr(), grad.data_ptr(), relu_mask.data_ptr(),
+        weights.data_ptr(), acc.data_ptr(), photo_loss.data_ptr(), gw.data_ptr(),
+        items.data_ptr(), n_items, B, S, int(bool(white_bkgd)), float(rgb_padding),
+        float(density_bias), float(bce_weight), int(sigma_act == "softplus_bias"), grid,
+        torch.cuda.current_stream(device).cuda_stream,
     )
     _build.check(err, "fused_level_train_art_grads")
     fused_level_train_art_grads.launches += 1

@@ -146,15 +146,17 @@ def wgrad_units():
     return units
 
 
-def wgrad_items(n_pad: int, sm_count: int) -> np.ndarray:
+def wgrad_items(n_pad: int, sm_count: int, units=None) -> np.ndarray:
     """The weight gradients' work list for ``n_pad`` workspace rows (whole
     64-row blocks): one item a thread block, (n_items, 8) int32 in
     ``ITEM_FIELDS`` order.  Each output tile's row blocks are cut into
     contiguous ranges, as many as its share of the work gives it of
     ``sm_count`` thread blocks (a 128-column tile counts half), so that one
-    wave runs every item; each thread block adds its sums to dW once."""
+    wave runs every item; each thread block adds its sums to dW once.
+    ``units``: the output tiles (``wgrad_units``, the default, or the
+    articulated kernels' ``art_sm90.wgrad_units``)."""
     assert n_pad > 0 and n_pad % BLOCK_ROWS == 0
-    units = wgrad_units()
+    units = wgrad_units() if units is None else units
     blocks = n_pad // BLOCK_ROWS
     cost = np.array([1.0 if u[3] == WIDTH else 0.5 for u in units])
     share = cost * max(sm_count, len(units)) / cost.sum()

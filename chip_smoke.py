@@ -30,6 +30,8 @@ Phases, each printed as one JSON line on stdout (nothing else goes there):
            each stage's flop bound and workspace bytes at the HBM rate, for
            this tree and, with --parent DIR, for another checkout
            (aon_tpu_torch/scripts/level_split.py);
+  art_level_split  the same for the articulated level (row 9) at 2,048 x 193
+           and x 73, with --parent DIR also for the other checkout;
   posenc   the in-kernel encoding's range reduction at the 2^9 frequency, and
            kernel table row 14 (the TPU suite's range-reduction test): its
            256 x 3 inputs through each of the kernels' three encoders, column
@@ -588,6 +590,10 @@ def main(argv=None) -> int:
         # the vanilla training kernels of train_sm90.cuh: the forward's three
         # stagings, the backward and the weight gradients
         train_spills = ptxas_spills(logs["level_train"], "sm90")
+        # the articulated kernels of art_sm90.cuh: the eval forward, the
+        # training forward's and backward's two stagings each, the compositing
+        # and the weight gradients over the articulated workspaces
+        art_spills = ptxas_spills(logs["art"], "")
         emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3), "arch": "sm_90a",
               "sources": [f"aon_tpu_torch/ops/csrc/{s}.cu" for s in _build.KERNEL_SOURCES],
               "flags": " ".join(_build.NVCC_FLAGS),
@@ -595,11 +601,14 @@ def main(argv=None) -> int:
                             if "registers" in ln or "spill" in ln] for k, v in logs.items()},
               "warnings": {k: [ln.strip() for ln in v.splitlines() if "warning" in ln.lower()]
                            for k, v in logs.items()},
-              "eval_kernel_spills": eval_spills, "train_kernel_spills": train_spills})
+              "eval_kernel_spills": eval_spills, "train_kernel_spills": train_spills,
+              "art_kernel_spills": art_spills})
         require(len(eval_spills) == 7 and not any(eval_spills.values()),
                 "the eval kernel's seven instances must build without spills")
         require(len(train_spills) == 5 and not any(train_spills.values()),
                 "the training kernels' five instances must build without spills")
+        require(len(art_spills) == 7 and not any(art_spills.values()),
+                "the articulated kernels' seven instances must build without spills")
 
         # ---------------------------------------------------------- kernels
         phase = "kernel:fused_nerf_mlp_xyz_eval"
@@ -1037,6 +1046,22 @@ def main(argv=None) -> int:
                  "--root", str(Path(args.parent).resolve()), "--samples",
                  str(N_COARSE + 1 + N_FINE), "49"], capture_output=True, text=True, timeout=600)
             require(proc.returncode == 0, f"level_split of the parent failed: {proc.stderr[-2000:]}")
+            split["parent"] = json.loads(proc.stdout.strip().splitlines()[-1])
+        emit(split)
+
+        # the same for the articulated level (row 9), at the fine level's and
+        # the bench's fine sample counts
+        phase = "art_level_split"
+        art_samples = [N_COARSE + 1 + N_FINE, 73]
+        split = {"phase": "art_level_split",
+                 "tree": level_split.measure(art_samples, art=True), "card": card}
+        if args.parent:
+            proc = subprocess.run(
+                [sys.executable, str(ROOT / "aon_tpu_torch" / "scripts" / "level_split.py"),
+                 "--root", str(Path(args.parent).resolve()), "--art", "--samples",
+                 *map(str, art_samples)], capture_output=True, text=True, timeout=600)
+            require(proc.returncode == 0,
+                    f"art_level_split of the parent failed: {proc.stderr[-2000:]}")
             split["parent"] = json.loads(proc.stdout.strip().splitlines()[-1])
         emit(split)
 

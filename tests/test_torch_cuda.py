@@ -715,3 +715,43 @@ def test_mlp_bwd_kernels_at_tile_edges(cuda, n):
     torch.cuda.synchronize()
     assert_grads_close(row4, fused_mlp_bwd_xyz_plain(packed, consts, samples, d, cot))
     assert_grads_close(row6, tfmt.fused_mlp_bwd_plain(packed, enc, venc, cot.reshape(-1, 4)))
+
+
+# ---------------------------------- articulated kernels (art_sm90.cuh) at tile edges
+
+
+@pytest.mark.parametrize("B,S", [(40, 25), (21851, 3)])  # 1,000 and 65,553 rows
+def test_art_sm90_fwd_and_bwd_at_tile_edges(cuda, B, S):
+    """Rows 10 and 11 where the 128-row tiles and the persistent blocks end
+    ragged: 1,000 rows (7 tiles, the last of 104 rows) and 65,553 (513 tiles
+    over 132 blocks, the last of 17)."""
+    packed, consts, t, o, d, _, g = _art_inputs(cuda, B, S, seed=21)
+    samples = (o[:, None, :] + t[..., None] * d[:, None, :]).contiguous()
+    rgb, sigma = fused_art.art_mlp_fwd(packed, consts, samples, d)
+    rgb_p, sigma_p = fused_art.art_mlp_fwd_plain(packed, consts, samples, d)
+    err = torch.cat([(rgb - rgb_p).reshape(-1), (sigma - sigma_p).reshape(-1)]).abs()
+    assert err.max().item() <= fused_art.TWIN_TOL_MAX
+    assert err.mean().item() <= fused_art.TWIN_TOL_MEAN
+    cot = torch.randn(B, S, 4, generator=g, device=cuda) / (B * S)
+    grads = fused_art.art_mlp_bwd(packed, consts, samples, d, cot)
+    assert_art_grads_close(grads, fused_art.art_mlp_bwd_plain(packed, consts, samples, d, cot))
+
+
+@pytest.mark.parametrize("case", ["autodecoder", "autoencoder"])  # softplus; relu + BCE
+@pytest.mark.parametrize("B,S", [(40, 25), (37, 73), (11, 193), (256, 256)])
+def test_art_sm90_level_at_tile_edges(cuda, B, S, case):
+    """Row 9 at the bench's sample counts, the render's, and the largest S the
+    compositing takes, with each head activation and the opacity BCE on and
+    off."""
+    packed, consts, t, o, d, target, g = _art_inputs(cuda, B, S, seed=22)
+    mask = (torch.rand(B, generator=g, device=cuda) > 0.4).float()
+    lw = (mask / (3.0 * mask.sum()).clamp_min(1.0) if case == "autoencoder"
+          else torch.full((B,), 1.0 / (3.0 * B), device=cuda))
+    args = (packed, consts, t, o, d, d, target, lw.contiguous(), mask)
+    kw = ART_LEVEL_CASES[case]
+    photo, wgt, acc, grads = fused_level_train_art_grads(*args, **kw)
+    photo_p, wgt_p, acc_p, grads_p = fused_level_train_art_grads_plain(*args, **kw)
+    assert (wgt - wgt_p).abs().max().item() <= fused_art.TWIN_TOL_MAX
+    assert (acc - acc_p).abs().max().item() <= fused_art.TWIN_TOL_MAX
+    assert abs(photo.item() - photo_p.item()) <= fused_art.TWIN_TOL_MAX * photo_p.item()
+    assert_art_grads_close(grads, grads_p)

@@ -21,6 +21,7 @@ the two injects one set of draws into both.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Tuple, Union
 
@@ -35,8 +36,14 @@ def unit_linspace(num: int, device=None) -> torch.Tensor:
 
     XLA evaluates ``iota / div`` as ``iota * f32(1 / div)``; ``torch.linspace``
     rounds 4 of the 128 eval quantiles one ulp away from that.  Built on the
-    host in numpy float32, then moved to ``device``.
+    host in numpy float32 and moved to ``device`` once per ``(num, device)``:
+    the row is cached, so callers read it and never write into it.
     """
+    return _unit_linspace(num, torch.device("cpu" if device is None else device))
+
+
+@functools.lru_cache(maxsize=64)
+def _unit_linspace(num: int, device: torch.device) -> torch.Tensor:
     if num == 1:
         return torch.zeros(1, dtype=torch.float32, device=device)
     step = np.arange(num - 1, dtype=np.float32) * (np.float32(1) / np.float32(num - 1))

@@ -44,10 +44,11 @@ _SIGNATURES = {
         "aon_mlp_enc_per_ray_launch": [_VOID_P] * 6 + [_LL, _INT, _INT, _VOID_P],
         "aon_mlp_body_launch": [_VOID_P] * 6 + [_LL, _INT, _INT, _VOID_P],
         "aon_mlp_xyz_body_launch": [_VOID_P] * 10 + [_LL, _INT, _INT, _VOID_P],
-        "aon_posenc_launch": [_VOID_P] * 3 + [_INT, _LL, _INT, _VOID_P, _VOID_P],
+        "aon_posenc_launch": [_VOID_P] * 3 + [_INT, _LL, _INT, _INT, _VOID_P, _VOID_P],
     },
     "resample": {
-        "aon_resample_launch": [_VOID_P] * 4 + [_LL, _VOID_P, _LL, _INT, _INT, _INT, _VOID_P],
+        "aon_resample_launch": ([_VOID_P, _LL] * 3 + [_INT, _VOID_P, _LL, _VOID_P, _LL]
+                                + [_INT] * 5 + [_VOID_P]),
     },
     "level_train": {
         "aon_level_train_launch": [_VOID_P] * 21 + [_INT] * 5 + [_VOID_P],

@@ -21,8 +21,9 @@
 //     raw xyz and viewdir per sample, encoded by `_encode_in_kernel`,
 //     `_encode_mxu` or `_encode_doubling` (row 13, stagings XYZ, XYZ_MXU,
 //     XYZ_DOUBLING with one sample per ray);
-// and, through `posenc_kernel`, the encoding alone of the test wrapper in
-// tests_tpu/test_kernel_parity.py (row 14), with any of the three encoders.
+// and, through `posenc_cols_kernel` and `posenc_doubling_kernel`, the
+// encoding alone of the test wrapper in tests_tpu/test_kernel_parity.py
+// (row 14), with any of the three encoders.
 //
 // Per sample row: the 8x256 trunk with the skip after layer 4, the density
 // head, the bottleneck, the 1x128 view layer and the rgb head.  Matmul
@@ -74,6 +75,10 @@ constexpr Body MAIN_PATH = Body::TWO_STREAM;  // the schedule of rows 1, 5, 7, 8
 enum Encoder { ENCODER_ELEMENTWISE = 0, ENCODER_MXU = 1, ENCODER_DOUBLING = 2 };
 
 constexpr float INV_TWO_PI = static_cast<float>(1.0 / (2.0 * 3.14159265358979));
+// row 14's kernels: threads a block, and blocks an SM (a register budget of
+// 64 a thread), which aon_tpu_torch/ops/fused_mlp_train.py::posenc_plan mirrors
+constexpr int POSENC_THREADS = 256;
+constexpr int POSENC_BLOCKS_PER_SM = 4;
 
 // One channel of `_encode_mxu`: pre is the product x4 @ s + p, which the
 // bench states in float32 and which interpret mode on the CPU computes in
@@ -82,13 +87,16 @@ constexpr float INV_TWO_PI = static_cast<float>(1.0 / (2.0 * 3.14159265358979));
 // this float32 product would run as bf16 passes and round the coordinates.)
 // The reduction multiplies by the float32 reciprocal of 2pi instead of
 // dividing by 2pi.
-__device__ __forceinline__ float encode_mxu(float x0, float x1, float x2,
-                                            const float* __restrict__ s,
-                                            const float* __restrict__ p, int width, int col) {
-  const float pre = encode_pre(x0, x1, x2, s, p, width, col);
+__device__ __forceinline__ float encode_mxu_from_pre(float pre, int col) {
   if (col < 3) return pre;
   const float k = floorf(__fadd_rn(__fmul_rn(pre, INV_TWO_PI), 0.5f));
   return sinf(__fmaf_rn(-TWO_PI, k, pre));
+}
+
+__device__ __forceinline__ float encode_mxu(float x0, float x1, float x2,
+                                            const float* __restrict__ s,
+                                            const float* __restrict__ p, int width, int col) {
+  return encode_mxu_from_pre(encode_pre(x0, x1, x2, s, p, width, col), col);
 }
 
 // Every column of `_encode_doubling` that reads coordinate c of x, handed to
@@ -241,26 +249,81 @@ mlp_eval_kernel(const float* __restrict__ in0, const float* __restrict__ in1,
   }
 }
 
-// The f32 encoding alone, (n, width), by one of the three encoders: one
-// thread per element, or per (row, coordinate) for the doubling encoder.
-__global__ void posenc_kernel(const float* __restrict__ x, const float* __restrict__ s,
-                              const float* __restrict__ p, int width, long long n, int encoder,
-                              float* __restrict__ out) {
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (encoder == ENCODER_DOUBLING) {
-    if (i >= n * 3) return;
-    const long long r = i / 3;
-    float* row = out + r * width;
-    encode_doubling_coord(x[i], static_cast<int>(i % 3), width,
-                          [row](int col, float v) { row[col] = v; });
-    return;
+// The f32 encoding alone, (n, width), by the elementwise or the MXU encoder
+// (kernel table row 14, a check of the trunk's device functions).  Bound by
+// bytes: 12 bytes in and 4 * width out a row.  Persistent blocks walk over
+// the rows; each thread keeps four consecutive columns (their s and p in
+// registers) and writes them as one 16-byte store, so a warp stores whole
+// rows.  A warp's rows' coordinates load once, one per lane, and reach the
+// row's threads by shuffles.  width / 4 divides 32 and is at least 4.
+template <Encoder E>
+__global__ void __launch_bounds__(POSENC_THREADS, POSENC_BLOCKS_PER_SM)
+posenc_cols_kernel(const float* __restrict__ x, const float* __restrict__ s,
+                   const float* __restrict__ p, int width, long long n,
+                   float* __restrict__ out) {
+  const int tpr = width >> 2;                 // threads a row
+  const int warp_rows = 32 / tpr;             // rows a warp covers
+  const int lane = threadIdx.x & 31, wr = lane / tpr;
+  const int c0 = 4 * (lane - wr * tpr);
+  float s0[4], s1[4], s2[4], pc[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    s0[k] = s[c0 + k];
+    s1[k] = s[width + c0 + k];
+    s2[k] = s[2 * width + c0 + k];
+    pc[k] = p[c0 + k];
   }
-  if (i >= n * width) return;
-  const long long r = i / width;
-  const int col = static_cast<int>(i % width);
-  out[i] = encoder == ENCODER_MXU
-               ? encode_mxu(x[3 * r], x[3 * r + 1], x[3 * r + 2], s, p, width, col)
-               : encode(x[3 * r], x[3 * r + 1], x[3 * r + 2], s, p, width, col);
+  const int block_rows = (POSENC_THREADS / 32) * warp_rows;
+  const long long step = static_cast<long long>(gridDim.x) * block_rows;
+  for (long long row0 = static_cast<long long>(blockIdx.x) * block_rows +
+                        (threadIdx.x >> 5) * warp_rows;
+       row0 < n; row0 += step) {  // row0 is the warp's: the shuffles see whole warps
+    const long long xi = 3 * row0 + lane;
+    const float v = lane < 3 * warp_rows && xi < 3 * n ? x[xi] : 0.0f;
+    const float x0 = __shfl_sync(0xffffffffu, v, 3 * wr);
+    const float x1 = __shfl_sync(0xffffffffu, v, 3 * wr + 1);
+    const float x2 = __shfl_sync(0xffffffffu, v, 3 * wr + 2);
+    const long long row = row0 + wr;
+    if (row < n) {
+      float o[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float pre = encode_pre_v(x0, x1, x2, s0[k], s1[k], s2[k], pc[k]);
+        o[k] = E == ENCODER_MXU ? encode_mxu_from_pre(pre, c0 + k) : encode_from_pre(pre, c0 + k);
+      }
+      *reinterpret_cast<float4*>(out + row * width + c0) = make_float4(o[0], o[1], o[2], o[3]);
+    }
+  }
+}
+
+// The doubling encoder's rows (row 14): a tile of POSENC_THREADS / 3 rows,
+// one thread per (row, coordinate) writing through encode_doubling_coord
+// into shared memory (rows width + 4 floats apart), then the tile leaves as
+// one contiguous span of 16-byte stores.  Persistent blocks walk the tiles.
+__global__ void __launch_bounds__(POSENC_THREADS)
+posenc_doubling_kernel(const float* __restrict__ x, int width, long long n,
+                       float* __restrict__ out) {
+  extern __shared__ __align__(16) float tile[];
+  constexpr int ROWS = POSENC_THREADS / 3;
+  const int ld = width + 4, log_tpr = __ffs(width >> 2) - 1;
+  for (long long r0 = static_cast<long long>(blockIdx.x) * ROWS; r0 < n;
+       r0 += static_cast<long long>(gridDim.x) * ROWS) {
+    const int rows = static_cast<int>(min(static_cast<long long>(ROWS), n - r0));
+    if (threadIdx.x < 3 * rows) {
+      const int r = threadIdx.x / 3;
+      float* row = tile + r * ld;
+      encode_doubling_coord(x[3 * r0 + threadIdx.x], threadIdx.x - 3 * r, width,
+                            [row](int col, float v) { row[col] = v; });
+    }
+    __syncthreads();
+    float* dst = out + r0 * width;
+    for (int k = threadIdx.x; k < rows << log_tpr; k += POSENC_THREADS) {
+      const int r = k >> log_tpr, q = k - (r << log_tpr);
+      *reinterpret_cast<float4*>(dst + r * width + 4 * q) =
+          *reinterpret_cast<const float4*>(tile + r * ld + 4 * q);
+    }
+    __syncthreads();
+  }
 }
 
 // grid: the number of persistent blocks, at most one per SM and at most the
@@ -380,15 +443,23 @@ extern "C" int aon_mlp_xyz_body_launch(const float* xyz, const float* vdir, cons
 }
 
 // The f32 encoding alone, (n, width), by one of the three encoders
-// (Encoder): the check of the range reduction, kernel table row 14.
+// (Encoder) on `grid` persistent blocks (aon_tpu_torch/ops/fused_mlp_train.py::
+// posenc_plan): the check of the range reduction, kernel table row 14.
 extern "C" int aon_posenc_launch(const float* x, const float* s, const float* p, int width,
-                                 long long n, int encoder, float* out, void* stream) {
+                                 long long n, int encoder, int grid, float* out, void* stream) {
   if (n <= 0) return 0;
-  if (encoder < ENCODER_ELEMENTWISE || encoder > ENCODER_DOUBLING)
+  if (encoder < ENCODER_ELEMENTWISE || encoder > ENCODER_DOUBLING || grid < 1 ||
+      width < 16 || width > 128 || (width & (width - 1)) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long threads = encoder == ENCODER_DOUBLING ? n * 3 : n * width;
-  const long long blocks = (threads + 255) / 256;
-  posenc_kernel<<<static_cast<unsigned>(blocks), 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, s, p, width, n, encoder, out);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (encoder == ENCODER_DOUBLING) {
+    const size_t smem = sizeof(float) * (POSENC_THREADS / 3) * (width + 4);
+    posenc_doubling_kernel<<<grid, POSENC_THREADS, smem, st>>>(x, width, n, out);
+  } else if (encoder == ENCODER_MXU) {
+    posenc_cols_kernel<ENCODER_MXU><<<grid, POSENC_THREADS, 0, st>>>(x, s, p, width, n, out);
+  } else {
+    posenc_cols_kernel<ENCODER_ELEMENTWISE><<<grid, POSENC_THREADS, 0, st>>>(x, s, p, width, n,
+                                                                            out);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -66,15 +66,22 @@ static_assert(LDA == 2528, "activation workspace layout");
 constexpr float TWO_PI = static_cast<float>(2.0 * 3.14159265358979);
 
 // The pre-activation of one channel of the in-kernel positional encoding,
-// the formula of `_encode_in_kernel`: pre = x0*s0 + x1*s1 + x2*s2 + p
-// (s: (4, width), p: (1, width)).
+// the formula of `_encode_in_kernel`: pre = x0*s0 + x1*s1 + x2*s2 + p, the
+// column's constants given as values.
+__device__ __forceinline__ float encode_pre_v(float x0, float x1, float x2, float s0, float s1,
+                                              float s2, float p) {
+  float pre = __fmul_rn(x0, s0);
+  pre = __fadd_rn(pre, __fmul_rn(x1, s1));
+  pre = __fadd_rn(pre, __fmul_rn(x2, s2));
+  return __fadd_rn(pre, p);
+}
+
+// encode_pre_v with column `col` of s (4, width) and p (1, width).
 __device__ __forceinline__ float encode_pre(float x0, float x1, float x2,
                                             const float* __restrict__ s,
                                             const float* __restrict__ p, int width, int col) {
-  float pre = __fmul_rn(x0, __ldg(s + col));
-  pre = __fadd_rn(pre, __fmul_rn(x1, __ldg(s + width + col)));
-  pre = __fadd_rn(pre, __fmul_rn(x2, __ldg(s + 2 * width + col)));
-  return __fadd_rn(pre, __ldg(p + col));
+  return encode_pre_v(x0, x1, x2, __ldg(s + col), __ldg(s + width + col),
+                      __ldg(s + 2 * width + col), __ldg(p + col));
 }
 
 // pre - 2pi * floor(pre / 2pi + 0.5), the subtraction rounded once.
@@ -83,13 +90,17 @@ __device__ __forceinline__ float reduce_arg(float pre) {
   return __fmaf_rn(-TWO_PI, k, pre);
 }
 
-// One channel of the encoding: channels < 3 pass pre through, the rest are
-// sin(reduced).
+// One channel of the encoding from its pre-activation: channels < 3 pass pre
+// through, the rest are sin(reduced).
+__device__ __forceinline__ float encode_from_pre(float pre, int col) {
+  return col < 3 ? pre : sinf(reduce_arg(pre));
+}
+
+// One channel of the encoding, column `col` of s and p.
 __device__ __forceinline__ float encode(float x0, float x1, float x2,
                                         const float* __restrict__ s,
                                         const float* __restrict__ p, int width, int col) {
-  const float pre = encode_pre(x0, x1, x2, s, p, width, col);
-  return col < 3 ? pre : sinf(reduce_arg(pre));
+  return encode_from_pre(encode_pre(x0, x1, x2, s, p, width, col), col);
 }
 
 }  // namespace aon

@@ -108,6 +108,26 @@ def fused_nerf_mlp_xyz_eval(
 fused_nerf_mlp_xyz_eval.launches = 0
 
 
+# row 14's kernels (fused_mlp_eval.cu): threads a block, blocks an SM
+POSENC_THREADS, POSENC_BLOCKS_PER_SM = 256, 4
+
+
+def posenc_plan(n: int, width: int, encoder: str = "elementwise", n_sm: int = 132) -> dict:
+    """Row 14's launch shape: ``block_rows`` rows a block takes at a time (a
+    thread per four columns; for the doubling encoder a thread per (row,
+    coordinate), its tile in ``smem_bytes`` of shared memory), and ``grid``
+    persistent blocks, at most ``POSENC_BLOCKS_PER_SM`` an SM and one a block
+    of rows.  Raises ValueError on a width the kernels do not take."""
+    if width < 16 or width > 128 or width & (width - 1):
+        raise ValueError(f"width {width}: row 14's kernels take a power of two in [16, 128]")
+    if encoder == "doubling":
+        block_rows, smem = POSENC_THREADS // 3, 4 * (POSENC_THREADS // 3) * (width + 4)
+    else:
+        block_rows, smem = POSENC_THREADS // (width // 4), 0
+    return {"block_rows": block_rows, "smem_bytes": smem,
+            "grid": max(1, min(-(-n // block_rows), POSENC_BLOCKS_PER_SM * n_sm))}
+
+
 def posenc_in_kernel(x: torch.Tensor, s: torch.Tensor, p: torch.Tensor,
                      encoder: str = "elementwise") -> torch.Tensor:
     """The kernel's f32 positional encoding alone, (N, 3) -> (N, width), on CUDA.
@@ -127,10 +147,12 @@ def posenc_in_kernel(x: torch.Tensor, s: torch.Tensor, p: torch.Tensor,
         if (tuple(t.shape) != shape or t.dtype != torch.float32 or not t.is_contiguous()
                 or t.device != x.device):
             raise ValueError(f"{name} must be contiguous float32 {shape} on {x.device}")
+    plan = posenc_plan(x.shape[0], width, encoder,
+                       torch.cuda.get_device_properties(x.device).multi_processor_count)
     out = torch.empty(x.shape[0], width, dtype=torch.float32, device=x.device)
     err = _build.library("fused_mlp_eval").aon_posenc_launch(
         x.data_ptr(), s.data_ptr(), p.data_ptr(), width, x.shape[0], ENCODERS.index(encoder),
-        out.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream,
+        plan["grid"], out.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(err, "posenc_in_kernel")
     posenc_in_kernel.launches += 1

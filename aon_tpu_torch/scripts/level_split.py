@@ -8,7 +8,7 @@ sample count, with seeded random weights and rays, under torch.profiler, and
 prints one JSON line: the device milliseconds per level call of each of its
 stages, by kernel name (forward, compositing, backward data path, weight
 gradients, and the rest: the weight gathers and the zeroing of the gradient
-blob), each beside its flop bound at the bf16 peak and the bytes of the
+blob; per level call the trace recorded), each beside its flop bound at the bf16 peak and the bytes of the
 workspaces it writes and reads at the HBM rate, and the card's name and
 power limit.  ``--root`` imports ``aon_tpu_torch`` from another checkout
 (a parent tree, to compare in one call); the stages are found by name in
@@ -147,11 +147,15 @@ def measure(samples, seed: int = 0, reps: int = 10, art: bool = False) -> dict:
             torch.cuda.synchronize()
         ms = {k: 0.0 for k in STAGES + ("other",)}
         names = {k: [] for k in ms}
-        for e in prof.key_averages():
-            if e.device_type.name == "CUDA" and e.device_time_total > 0:
-                stage = stage_of(e.key)
-                ms[stage] += e.device_time_total / 1e3 / reps
-                names[stage].append(e.key[:60])
+        events = [e for e in prof.key_averages()
+                  if e.device_type.name == "CUDA" and e.device_time_total > 0]
+        # per level call the trace recorded: the trace on the card drops a
+        # few records, so count the forward kernel's, one a call
+        calls = max((e.count for e in events if stage_of(e.key) == "forward"), default=reps)
+        for e in events:
+            stage = stage_of(e.key)
+            ms[stage] += e.device_time_total / 1e3 / calls
+            names[stage].append(e.key[:60])
         rows = RAYS * S
         n_pad = -(-rows // (128 if has_mask else 64)) * (128 if has_mask else 64)
         nbytes = art_workspace_bytes(n_pad, has_mask) if art else workspace_bytes(n_pad, has_mask)

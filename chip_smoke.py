@@ -10,7 +10,11 @@ Phases, each printed as one JSON line on stdout (nothing else goes there):
   kernel   each kernel on the card at its paths' shapes (render: 61,440 rays
            x 65 and x 193 samples for the eval MLP from raw coordinates and
            from per-sample and per-ray encodings, a 61,440-ray resample with
-           the one shared row of eval quantiles; training: 2,048 rays x 65 and
+           the one shared row of eval quantiles (both of kernel 2's entries:
+           fused_resample from the strided weights window, its CDF built in
+           the kernel, against pdf_cdf_ordered + the twin, with the CDF order
+           held to pdf_cdf's on the CDF itself; resample_union from a CDF
+           against its twin); training: 2,048 rays x 65 and
            x 193 for the level, the MLP backward from raw coordinates and from
            encodings and the eval MLP with the bf16-rounded float32 packing of
            the v2 forward (and at x 193 from encodings, as fused_mlp_train's
@@ -20,7 +24,9 @@ Phases, each printed as one JSON line on stdout (nothing else goes there):
            inputs, timed with CUDA events (median) beside the twin and a
            library yardstick (the same function as bf16 torch calls, under
            autograd for the training kernels) that the port never calls, and
-           beside its bound on the H100;
+           beside its bound on the H100; rows 2 and 14 also by device time
+           (``device_ms``, torch.profiler) and over 100 back-to-back calls
+           (``events_ms``), aon_tpu_torch/scripts/kernel_times.py;
   wgrad    the training kernels' weight gradients alone (train_sm90.cuh's
            MN-major wgmma operands) on random blocked workspaces of the fine
            level's 395,264 rows, against torch.matmul, timed;
@@ -32,11 +38,18 @@ Phases, each printed as one JSON line on stdout (nothing else goes there):
            (aon_tpu_torch/scripts/level_split.py);
   art_level_split  the same for the articulated level (row 9) at 2,048 x 193
            and x 73, with --parent DIR also for the other checkout;
+  kernel_times  rows 2 (both entries) and 14 (each encoder) at the paths'
+           shapes by device time, host-clocked time and back-to-back time,
+           and the kernels one sample_pdf_fused call launches (eval and
+           randomized quantiles), for this tree and, with --parent DIR, for
+           another checkout (aon_tpu_torch/scripts/kernel_times.py); this
+           tree's fused_resample must launch one kernel;
   posenc   the in-kernel encoding's range reduction at the 2^9 frequency, and
            kernel table row 14 (the TPU suite's range-reduction test): its
            256 x 3 inputs through each of the kernels' three encoders, column
            by column against the twin and the exact sine, timed at 256 x 64
-           and at one 65,536-point extraction block;
+           and at one 65,536-point extraction block (each encoder by device
+           time as well);
   path     build_system on configs/quality_laptop_vanilla_refsched.json at
            full width with seeded random weights, one cold frame and then two
            timed 640x480 frames through render_frame (chunk 61440), launch
@@ -155,6 +168,13 @@ FOVY_DEG = 35.0  # the SAPIEN laptop dataset's camera (datagen/data_gen.py)
 # tolerances, with the reason for each; the MLP kernel's against its twin are
 # TWIN_TOL_MAX and TWIN_TOL_MEAN of aon_tpu_torch/ops/fused_mlp_train.py
 TOL_RESAMPLE = 1e-6  # same f32 operations in the same order: bit-identical expected
+# the fused entry's CDF order (pdf_cdf_ordered, the kernel's) against
+# pdf_cdf's, on the CDF itself: the same float32 steps, the 63-term sums in
+# another order, a few ulps of values in [0, 1].  The samples are not held to
+# pdf_cdf's: where a bin's mass is tiny the inverse CDF magnifies an ulp of
+# the CDF up to the bin's width (the records carry that distance, and the same
+# distance between pdf_cdf taken on the host and on the card)
+TOL_CDF_ORDER = 1e-6
 # the weight gradients alone against torch.matmul on random bf16 workspaces,
 # the largest error relative to the largest entry: each block sums its ~58k
 # rows in the tensor cores' f32 accumulator, whose rounding grows with the
@@ -457,6 +477,14 @@ def library_art_level(torch, packed, consts, t_vals, rays_o, rays_d, viewdirs, t
     return torch.autograd.grad(loss, list(w.values()), allow_unused=True)
 
 
+def as_window(weights):
+    """(B, n) weights as the window ``w[:, 1:-1]`` of a (B, n + 2) array,
+    the strided view the render and training paths pass to the resample."""
+    buf = weights.new_zeros(weights.shape[0], weights.shape[1] + 2)
+    buf[:, 1:-1] = weights
+    return buf[:, 1:-1]
+
+
 def library_resample(torch, t_vals, bins, cdf, u):
     """Yardstick only: searchsorted inverse CDF + torch.sort of the union."""
     n = cdf.shape[-1]
@@ -534,10 +562,12 @@ def main(argv=None) -> int:
         from aon_tpu_torch.core.rendering import volumetric_rendering
         from aon_tpu_torch.scripts import bench as port_bench
         from aon_tpu_torch.scripts import bench_kernels as port_bench_kernels
-        from aon_tpu_torch.scripts import extract_geometry, level_split
+        from aon_tpu_torch.scripts import extract_geometry, kernel_times, level_split
         from aon_tpu_torch.train.checkpoint import CheckpointManager
         from aon_tpu_torch.ops.render_fused import mlp_params
         from aon_tpu_torch.ops.resample import (
+            fused_resample,
+            pdf_cdf_ordered,
             resample_union,
             resample_union_plain,
             sorted_uniform,
@@ -561,6 +591,9 @@ def main(argv=None) -> int:
 
         # what the ``kernels`` line carries of every kernel's record
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+        # and of rows 2 and 14, the device's own time beside the host-clocked
+        # ``ms`` (aon_tpu_torch/scripts/kernel_times.py)
+        device_keys = ("device_ms", "events_ms")
         # and of the eval kernel's rows (1, 5, 7, 8, 12, 13): its launch and
         # the rates at the measured time
         eval_keys = ("tflops", "pct_bf16_peak", "tile_rows", "grid", "cluster", "l2_weight_bytes",
@@ -857,14 +890,23 @@ def main(argv=None) -> int:
                 return torch.where(col < 3, pre, torch.sin(pre))
 
             nbytes = n * (12 + 256) + 5 * 64 * 4
+            # host-clocked ``ms``, ``device_ms`` and ``events_ms`` of each
+            # encoder (aon_tpu_torch/scripts/kernel_times.py); the top-level
+            # times are the elementwise encoder's, the trunk's own
+            by_encoder = {
+                encoder: {k: v for k, v in kernel_times.device_times(
+                    torch, lambda e=encoder: posenc_in_kernel(xt, consts["s_pos"], consts["p_pos"],
+                                                              e),
+                    "posenc", reps=100).items()
+                    if k in ("ms", "device_ms", "events_ms", "launches_per_call")}
+                for encoder in ENCODERS}
             row14["timed"].append({
-                "shape": f"{n}x64",
-                "ms": time_ms(torch, lambda: posenc_in_kernel(xt, consts["s_pos"], consts["p_pos"]),
-                              20, warmup=3),
+                "shape": f"{n}x64", **by_encoder["elementwise"],
                 "plain_ms": time_ms(torch, lambda: encode_plain(xt, consts["s_pos"],
                                                                 consts["p_pos"]), 5),
                 "library_ms": time_ms(torch, library_posenc, 5),
-                "bytes": nbytes, "bound_ms": 1e3 * nbytes / PEAK_BYTES, "bound_by": "bytes"})
+                "bytes": nbytes, "bound_ms": 1e3 * nbytes / PEAK_BYTES, "bound_by": "bytes",
+                "encoders": by_encoder})
         row14["card"] = card
         emit(row14)
         require(all(e["err_twin"] <= (TOL_POSENC_ENCODER_TWIN if k.startswith("doubling")
@@ -875,52 +917,97 @@ def main(argv=None) -> int:
 
         phase = "kernel:resample_union"
 
-        def resample_record(t_vals, bins, cdf, u, timed=True, **extra):
-            """One ``kernel`` line of the resample against its twin, checked
-            (timed unless ``timed`` is off); ``u`` is one shared row expanded
-            over the rays, or a row per ray."""
+        def resample_record(t_vals, bins, weights, u, timed=True, **extra):
+            """One ``kernel`` line of kernel 2, checked (timed unless ``timed``
+            is off): the main paths' entry ``fused_resample`` (the CDF built
+            in the kernel from ``weights``, the callers' strided window)
+            against its twin ``pdf_cdf_ordered`` + ``resample_union_plain``,
+            that CDF order against ``pdf_cdf``'s on the CDF, and under
+            ``resample_union`` the CDF entry against its twin; ``u`` is one
+            shared row expanded over the rays, or a row per ray.  Times:
+            ``ms`` host-clocked per call, ``device_ms`` and ``events_ms`` from
+            aon_tpu_torch/scripts/kernel_times.py."""
             n_rays, n_t = t_vals.shape
             n_b, n_u = bins.shape[-1], u.shape[-1]
-            got = resample_union(t_vals, bins, cdf, u)
+            cdf = pdf_cdf(weights).contiguous()
+            cdf_ordered = pdf_cdf_ordered(weights)
+            got = fused_resample(t_vals, bins, weights, u)
+            got_union = resample_union(t_vals, bins, cdf, u)
             torch.cuda.synchronize()
             want = resample_union_plain(t_vals, bins, cdf, u)
+            want_ordered = resample_union_plain(t_vals, bins, cdf_ordered, u)
+            # the twin on pdf_cdf's CDF taken on the host: torch's other order
+            want_host = resample_union_plain(t_vals, bins, pdf_cdf(weights.cpu()).to(dev), u)
             u_rows = u.contiguous()  # searchsorted takes per-row quantiles
             shared = u.stride(0) == 0
-            nbytes = 4 * (n_rays * (n_t + 2 * n_b + n_t + n_u) + (n_u if shared else n_rays * n_u))
-            # comparisons: a binary search per fine sample and per merged element
+            u_bytes = 4 * (n_u if shared else n_rays * n_u)
+            # comparisons: a binary search per fine sample and per merged
+            # element; the fused entry's CDF adds three operations per weight
             ops = n_rays * (n_u * (math.log2(n_b) + math.log2(n_t) + 8) + n_t * math.log2(n_u))
+            ops_fused = ops + n_rays * 3 * (n_b - 1)
+
+            def bound(nbytes, n_ops):
+                return {"bytes": nbytes, "ops": n_ops,
+                        "bound_ms": 1e3 * max(nbytes / PEAK_BYTES, n_ops / PEAK_F32_FLOPS),
+                        "bound_by": ("bytes" if nbytes / PEAK_BYTES >= n_ops / PEAK_F32_FLOPS
+                                     else "operations")}
+
             rec = {
-                "phase": "kernel", "name": "resample_union", **extra,
+                "phase": "kernel", "name": "resample_union", "entry": "fused_resample", **extra,
                 "shape": f"{n_rays}x{n_t}+{n_u}",
                 "quantiles": "one shared row" if shared else "a sorted random row per ray",
-                "max_abs_err": (got - want).abs().max().item(), "tol": TOL_RESAMPLE,
+                "max_abs_err": (got - want_ordered).abs().max().item(), "tol": TOL_RESAMPLE,
+                "cdf_order_err": (cdf_ordered - cdf).abs().max().item(),
+                "tol_cdf_order": TOL_CDF_ORDER,
+                # measured, not held: the samples against pdf_cdf's, and the
+                # same twin on pdf_cdf taken on the host against the card's
+                "samples_vs_pdf_cdf": {
+                    "max_abs": (got - want).abs().max().item(),
+                    "share_over_1e-4": ((got - want).abs() > 1e-4).float().mean().item(),
+                    "host_vs_card_max_abs": (want_host - want).abs().max().item(),
+                    "host_vs_card_share_over_1e-4":
+                        ((want_host - want).abs() > 1e-4).float().mean().item()},
                 "sorted": bool((got[:, 1:] >= got[:, :-1]).all()),
-                "bytes": nbytes, "ops": ops,
-                "bound_ms": 1e3 * max(nbytes / PEAK_BYTES, ops / PEAK_F32_FLOPS),
-                "bound_by": ("bytes" if nbytes / PEAK_BYTES >= ops / PEAK_F32_FLOPS
-                             else "operations"),
+                # t, bins and the weights in, the union out
+                **bound(4 * n_rays * (n_t + n_b + (n_b - 1) + n_t + n_u) + u_bytes, ops_fused),
+                "resample_union": {
+                    "max_abs_err": (got_union - want).abs().max().item(),
+                    **bound(4 * n_rays * (n_t + 2 * n_b + n_t + n_u) + u_bytes, ops)},
                 "card": card,
             }
             if timed:
-                rec.update(
-                    ms=time_ms(torch, lambda: resample_union(t_vals, bins, cdf, u), 20, warmup=3),
-                    plain_ms=time_ms(torch, lambda: resample_union_plain(t_vals, bins, cdf, u), 5),
-                    library_ms=time_ms(
-                        torch, lambda: library_resample(torch, t_vals, bins, cdf, u_rows), 5))
-                rec["gbps"] = nbytes / rec["ms"] / 1e6
+                for r, fn, plain, library in (
+                        (rec, lambda: fused_resample(t_vals, bins, weights, u),
+                         lambda: resample_union_plain(t_vals, bins, pdf_cdf_ordered(weights), u),
+                         lambda: library_resample(torch, t_vals, bins, pdf_cdf(weights), u_rows)),
+                        (rec["resample_union"], lambda: resample_union(t_vals, bins, cdf, u),
+                         lambda: resample_union_plain(t_vals, bins, cdf, u),
+                         lambda: library_resample(torch, t_vals, bins, cdf, u_rows))):
+                    times = kernel_times.device_times(torch, fn, "resample", reps=100)
+                    r.update(ms=times["ms"], device_ms=times["device_ms"],
+                             events_ms=times["events_ms"],
+                             launches_per_call=times["launches_per_call"],
+                             plain_ms=time_ms(torch, plain, 5), library_ms=time_ms(torch, library, 5))
+                    r["gbps_device"] = r["bytes"] / r["device_ms"] / 1e6
+                    r["pct_bound_device"] = 100.0 * r["bound_ms"] / r["device_ms"]
             emit(rec)
-            require(rec["sorted"] and rec["max_abs_err"] <= TOL_RESAMPLE,
-                    f"resample kernel disagrees with its twin at {rec['shape']}")
+            require(rec["sorted"] and rec["max_abs_err"] <= TOL_RESAMPLE
+                    and rec["cdf_order_err"] <= TOL_CDF_ORDER
+                    and rec["resample_union"]["max_abs_err"] <= TOL_RESAMPLE,
+                    f"resample kernel disagrees with its twins at {rec['shape']}")
+            require(not timed or rec["launches_per_call"] == 1,
+                    "fused_resample launched more than its one kernel")
             return rec
 
         t_vals, _ = sample_along_rays(origins, dirs, N_COARSE, 2.0, 6.0)
         bins = (0.5 * (t_vals[:, 1:] + t_vals[:, :-1])).contiguous()
         weights = torch.rand(CHUNK_RAYS, N_COARSE - 1, generator=gen, device=dev) ** 4
         weights[::97] = 0.0  # empty rays: the eps padding path
-        cdf = pdf_cdf(weights).contiguous()
         u = eval_quantiles(N_FINE, device=dev).expand(CHUNK_RAYS, N_FINE)
-        resample_rec = resample_record(t_vals, bins, cdf, u)
-        del t_vals, bins, weights, cdf, u
+        # as render_chunk passes them: the window weights[..., 1:-1] of the
+        # coarse level's (B, 65) weights
+        resample_rec = resample_record(t_vals, bins, as_window(weights), u)
+        del t_vals, bins, weights, u
         torch.cuda.empty_cache()
 
         # ------------------------------------------------- training kernels
@@ -996,13 +1083,13 @@ def main(argv=None) -> int:
                 wgt = fused_level_train_grads(*level_args)[1][:, 1:-1].clone()
                 wgt[::97] = 0.0
                 bins = (0.5 * (t_lvl[:, 1:] + t_lvl[:, :-1])).contiguous()
-                cdf = pdf_cdf(wgt).contiguous()
                 u = sorted_uniform(torch.rand(TRAIN_RAYS, N_FINE + 1, generator=gen, device=dev))
                 require(bool((u[:, 1:] >= u[:, :-1]).all()) and u.stride(0) == N_FINE,
                         "sorted_uniform rows are not ascending per-ray rows")
-                train_rows["resample_union", n_samples] = resample_record(t_lvl, bins, cdf, u)
-                t_next = resample_union(t_lvl, bins, cdf, u)
-                del wgt, bins, cdf, u
+                train_rows["resample_union", n_samples] = resample_record(
+                    t_lvl, bins, as_window(wgt), u)
+                t_next = fused_resample(t_lvl, bins, as_window(wgt), u)
+                del wgt, bins, u
             del samples, cot, level_args, bwd_args, runs
             t_lvl = t_next
         torch.cuda.empty_cache()
@@ -1064,6 +1151,22 @@ def main(argv=None) -> int:
                     f"art_level_split of the parent failed: {proc.stderr[-2000:]}")
             split["parent"] = json.loads(proc.stdout.strip().splitlines()[-1])
         emit(split)
+
+        # rows 2 and 14 by device time at the paths' shapes, and the kernels
+        # one sample_pdf_fused call launches, for this tree and (--parent)
+        # another (aon_tpu_torch/scripts/kernel_times.py)
+        phase = "kernel_times"
+        times = {"phase": "kernel_times", "tree": kernel_times.measure(), "card": card}
+        if args.parent:
+            proc = subprocess.run(
+                [sys.executable, str(ROOT / "aon_tpu_torch" / "scripts" / "kernel_times.py"),
+                 "--root", str(Path(args.parent).resolve())],
+                capture_output=True, text=True, timeout=600)
+            require(proc.returncode == 0, f"kernel_times of the parent failed: {proc.stderr[-2000:]}")
+            times["parent"] = json.loads(proc.stdout.strip().splitlines()[-1])
+        emit(times)
+        require(all(e["launches_per_call"] == 1 for e in times["tree"]["fused_resample"]),
+                "fused_resample launched more than its one kernel")
 
         # ------------------------------------------------------------- path
         phase = "path"
@@ -1526,12 +1629,12 @@ def main(argv=None) -> int:
                     if level == "coarse_mlp":
                         wgt = fn(*fn_args, **kw)[1]
                         bins = (0.5 * (t_lvl[:, 1:] + t_lvl[:, :-1])).contiguous()
-                        cdf = pdf_cdf(wgt[:, 1:-1]).contiguous()
                         u = sorted_uniform(torch.rand(TRAIN_RAYS, n_f + 1, generator=gen,
                                                       device=dev))
                         recs["resample_union", n_samples] = resample_record(
-                            t_lvl, bins, cdf, u, timed=timed, seed=seed, contract=contract)
-                        t_lvl = resample_union(t_lvl, bins, cdf, u)
+                            t_lvl, bins, wgt[:, 1:-1], u, timed=timed, seed=seed,
+                            contract=contract)
+                        t_lvl = fused_resample(t_lvl, bins, wgt[:, 1:-1], u)
                     del packed_l, fn_args
             torch.cuda.empty_cache()
             return recs
@@ -2351,9 +2454,11 @@ def main(argv=None) -> int:
              "launches": path_launches["resample_union"] + train_launches["resample_union"],
              "launches_by_path": {"render": path_launches["resample_union"],
                                   "train": train_launches["resample_union"]},
-             "shape": resample_rec["shape"], **{k: resample_rec[k] for k in keys},
+             "entry": "fused_resample (resample_union: the CDF entry)",
+             "shape": resample_rec["shape"],
+             **{k: resample_rec[k] for k in keys + device_keys + ("resample_union",)},
              "train": {k: train_rows["resample_union", N_COARSE + 1][k]
-                       for k in ("shape", "quantiles") + keys}},
+                       for k in ("shape", "quantiles") + keys + device_keys}},
             train_entry("fused_level_train_grads", "aon_tpu/ops/train_fused_level.py:79"),
             train_entry("fused_mlp_bwd_xyz", "aon_tpu/ops/fused_mlp_train.py:320"),
         ]
@@ -2441,7 +2546,8 @@ def main(argv=None) -> int:
         # and their checks at the bench's shapes
         for kname in ("resample_union", "fused_level_train_grads", "fused_level_train_art_grads"):
             by_name[kname]["bench_shapes"] = [
-                {k: r[k] for k in ("contract", "shape") + keys}
+                {k: r[k] for k in ("contract", "shape") + keys
+                 + (device_keys if kname == "resample_union" else ())}
                 for (n, _), r in bench_shape_rows.items() if n == kname]
 
         def variant_entry(kname):
@@ -2464,8 +2570,8 @@ def main(argv=None) -> int:
             "launches": row14["launches"], "launches_by_path": {"posenc": row14["launches"]},
             "shape": timed14["shape"],
             "max_abs_err": max(e["err_twin"] for e in row14["encoders"].values()),
-            **{k: timed14[k] for k in keys if k != "max_abs_err"},
-            "check_shape": row14["timed"][0]})
+            **{k: timed14[k] for k in keys + device_keys if k != "max_abs_err"},
+            "encoders": timed14["encoders"], "check_shape": row14["timed"][0]})
         require(len(entries) == 18, "the kernels line lists kernel table rows 1-13 (rows 12 and "
                 "13 by variant) and row 14's check")
         require(all(e["launches"] > 0 for e in entries), "a kernel of the path never launched")

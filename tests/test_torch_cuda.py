@@ -755,3 +755,112 @@ def test_art_sm90_level_at_tile_edges(cuda, B, S, case):
     assert (acc - acc_p).abs().max().item() <= fused_art.TWIN_TOL_MAX
     assert abs(photo.item() - photo_p.item()) <= fused_art.TWIN_TOL_MAX * photo_p.item()
     assert_art_grads_close(grads, grads_p)
+
+
+# ------------------------------------- rows 2 and 14 as redesigned (sm_90a)
+# The resample kernel (ops/csrc/resample.cu) stages ray tiles as spans with
+# a peeled head and tail: both entries against their twins at tile edges (1
+# ray; 31 and 33, tiles of one ray; 1,001 and 2,048, 7- and 15-ray tiles with
+# a ragged last tile; 2 x 132 x 32 -+ 1, 32-ray tiles with a last tile of 31
+# rays or of one), at the paths' sample counts, with the shared eval row and
+# per-ray rows of u, and with every input one float past a 16-byte line.
+# resample_union and fused_resample against pdf_cdf_ordered +
+# resample_union_plain: 1e-6, the same float32 operations in the same order;
+# the kernel's CDF order (pdf_cdf_ordered) against pdf_cdf's on the card:
+# 1e-6 on the CDF, whose 63-term sums run in another order.  The samples are
+# not compared with pdf_cdf's: where a bin's mass is tiny (these weights are
+# u^4, a fifth of the rays nearly empty) the inverse CDF magnifies an ulp of
+# the CDF up to the bin's width: up to 2e-3 on these rays, 0.025 at the
+# render chunk on an H100, where pdf_cdf taken on the host lies 0.032 from
+# pdf_cdf taken on the card (chip_smoke.py's resample records).
+
+
+def _one_float_in(x):
+    """``x`` as a view one float past the start of its own buffer."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    buf[1:] = x.reshape(-1)
+    return buf[1:].view(x.shape)
+
+
+@pytest.mark.parametrize("B", [1, 31, 33, 1001, 2048, 2 * 132 * 32 - 1, 2 * 132 * 32 + 1])
+@pytest.mark.parametrize("n_t,n_u", [(17, 32), (25, 48), (65, 128)])
+@pytest.mark.parametrize("shared", [True, False])
+def test_resample_sm90_entries_at_tile_edges(cuda, B, n_t, n_u, shared):
+    from aon_tpu_torch.ops.resample import fused_resample, pdf_cdf_ordered
+
+    g = torch.Generator(device=cuda).manual_seed(B + n_t)
+    t_vals = torch.sort(torch.rand(B, n_t, generator=g, device=cuda) * 4 + 2, dim=-1).values
+    bins = (0.5 * (t_vals[:, 1:] + t_vals[:, :-1])).contiguous()
+    wgt = torch.rand(B, n_t, generator=g, device=cuda) ** 4
+    wgt[::5] = 0.0
+    wgt[1::5] *= 1e-9
+    wgt[2::5, :-4] = 0.0
+    if shared:
+        u = eval_quantiles(n_u, device=cuda).expand(B, n_u)
+    else:
+        u = sorted_uniform(torch.rand(B, n_u + 1, generator=g, device=cuda))
+    for misaligned in (False, True):
+        if misaligned:
+            t_vals, bins, wgt = map(_one_float_in, (t_vals, bins, wgt))
+            u = (_one_float_in(u[0]).expand(B, n_u) if shared else _one_float_in(u))
+        window = wgt[:, 1:-1]
+        cdf_k = pdf_cdf_ordered(window)
+        if misaligned:
+            cdf_k = _one_float_in(cdf_k)
+        before = resample_union.launches
+        got_union = resample_union(t_vals, bins, cdf_k, u)
+        got = fused_resample(t_vals, bins, window, u)
+        torch.cuda.synchronize()
+        assert resample_union.launches == before + 2
+        want = resample_union_plain(t_vals, bins, cdf_k, u)
+        assert (got_union - want).abs().max().item() <= 1e-6
+        assert (got - want).abs().max().item() <= 1e-6
+        assert bool((got[:, 1:] >= got[:, :-1]).all())
+        assert (cdf_k - pdf_cdf(window)).abs().max().item() <= 1e-6
+
+
+def test_fused_resample_launches_one_kernel(cuda):
+    from torch.profiler import ProfilerActivity, profile
+
+    from aon_tpu_torch.ops.resample import fused_resample
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    t_vals = torch.sort(torch.rand(2048, 65, generator=g, device=cuda) * 4 + 2, dim=-1).values
+    bins = (0.5 * (t_vals[:, 1:] + t_vals[:, :-1])).contiguous()
+    wgt = torch.rand(2048, 65, generator=g, device=cuda)
+    u = eval_quantiles(128, device=cuda).expand(2048, 128)
+    fused_resample(t_vals, bins, wgt[:, 1:-1], u)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fused_resample(t_vals, bins, wgt[:, 1:-1], u)
+        torch.cuda.synchronize()
+    kernels = [e.key for e in prof.key_averages()
+               if e.device_type.name == "CUDA" and e.device_time_total > 0]
+    assert len(kernels) == 1 and "resample_kernel" in kernels[0], kernels
+
+
+# row 14's kernels (a thread per four columns; the doubling encoder's tile in
+# shared memory) at row counts around their blocks of rows: each encoder
+# against its twin and the exact sine at the limits of
+# test_posenc_wrapper_with_each_encoder above.
+@pytest.mark.parametrize("n", [1, 255, 256, 65537])
+@pytest.mark.parametrize("encoder", ["elementwise", "mxu", "doubling"])
+def test_posenc_sm90_at_row_edges(cuda, n, encoder):
+    g = torch.Generator(device=cuda).manual_seed(n)
+    x = (torch.rand(n, 3, generator=g, device=cuda) * 12 - 6).contiguous()
+    consts = make_posenc_constants(device=cuda)
+    tol_twin = 1e-4 if encoder == "doubling" else 1e-6
+    for s, p in (("s_pos", "p_pos"), ("s_view", "p_view")):
+        before = posenc_in_kernel.launches
+        got = posenc_in_kernel(x, consts[s], consts[p], encoder)
+        torch.cuda.synchronize()
+        assert posenc_in_kernel.launches == before + 1
+        twin = bv.encode_plain(x, consts[s], consts[p], encoder)
+        assert got.shape == twin.shape and bool(torch.isfinite(got).all())
+        assert (got - twin).abs().max().item() <= tol_twin
+        width = consts[s].shape[1]
+        n_real = 63 if width == 64 else 27
+        s64, p64 = consts[s].double().cpu().numpy(), consts[p].double().cpu().numpy()
+        pre = x.double().cpu().numpy() @ s64[:3] + p64
+        exact = np.where(np.arange(width) < 3, pre, np.sin(pre))[:, :n_real]
+        assert np.abs(got.cpu().numpy()[:, :n_real] - exact).max() <= 2e-3

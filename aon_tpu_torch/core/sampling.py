@@ -36,10 +36,11 @@ def unit_linspace(num: int, device=None) -> torch.Tensor:
 
     XLA evaluates ``iota / div`` as ``iota * f32(1 / div)``; ``torch.linspace``
     rounds 4 of the 128 eval quantiles one ulp away from that.  Built on the
-    host in numpy float32 and moved to ``device`` once per ``(num, device)``:
-    the row is cached, so callers read it and never write into it.
+    host in numpy float32 and moved to ``device`` once per ``(num, device)``;
+    each call returns a copy of the cached row made on ``device`` (no host
+    transfer), so a caller may write into it.
     """
-    return _unit_linspace(num, torch.device("cpu" if device is None else device))
+    return _unit_linspace(num, torch.device("cpu" if device is None else device)).clone()
 
 
 @functools.lru_cache(maxsize=64)

@@ -1,6 +1,6 @@
 """Device time of kernel table rows 2 and 14, apart from the host's.
 
-    python -m aon_tpu_torch.scripts.kernel_times [--root DIR] [--reps 100]
+    python -m aon_tpu_torch.scripts.kernel_times [--root DIR]
 
 Rows 2 (the resample, ``ops/resample.py``) and 14 (the encoding check,
 ``fused_mlp_train.posenc_in_kernel``) are short kernels behind Python
@@ -9,14 +9,14 @@ as much as the kernel.  At the shapes of the main paths this prints, for each
 entry, three times:
 
   device_ms  the kernel's own duration under torch.profiler, summed by kernel
-             name over ``reps`` warm calls and divided by the launches the
+             name over REPS warm calls and divided by the launches the
              trace recorded (``stage_device_ms``: every kernel and copy the
              call launches).  The trace on the card drops a few records of
              100 (and at times most of them), so counts are taken relative
              to the kernel each call launches once;
   ms         the median of one event pair around each call, chip_smoke's
              ``time_ms``: what a caller pays;
-  events_ms  one event, ``reps`` calls back to back, one event, over the
+  events_ms  one event, REPS calls back to back, one event, over the
              count.  It times the device only where the kernel outlasts the
              wrapper's host time; below that the device starves and this
              measures the host again;
@@ -28,7 +28,9 @@ quantiles' row) takes behind about 1 ms of queued device work: a call that
 copies from pageable host memory synchronises the stream and waits it out.  ``--root``
 imports ``aon_tpu_torch`` from another checkout (a parent tree, to compare in
 one call).  Prints one JSON line with the card's name and power limit.  Needs
-one CUDA device.
+one CUDA device.  chip_smoke.py runs it in a process of its own for each
+tree: after many profiler sessions in one process the card's trace can come
+back empty.
 """
 
 from __future__ import annotations
@@ -45,15 +47,18 @@ import time
 RESAMPLE_SHAPES = ((61440, 65, 128, True), (2048, 65, 128, False),
                    (2048, 17, 32, False), (2048, 25, 48, False))
 POSENC_ROWS = (256, 65536)  # row 14's check and one extraction block
+REPS = 100  # warm calls per profiled and per back-to-back time
+SEED = 0
 
 
-def host_ms(torch, fn, reps: int = 20) -> float:
-    """Median milliseconds of one event pair around each call of ``fn``."""
+def host_ms(torch, fn) -> float:
+    """Median milliseconds of one event pair around each of 20 calls of
+    ``fn``."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(reps):
+    for _ in range(20):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
@@ -63,32 +68,31 @@ def host_ms(torch, fn, reps: int = 20) -> float:
     return statistics.median(times)
 
 
-def events_ms(torch, fn, reps: int) -> float:
-    """Milliseconds per call of ``reps`` calls between one pair of events."""
+def events_ms(torch, fn) -> float:
+    """Milliseconds per call of REPS calls between one pair of events."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(reps):
+    for _ in range(REPS):
         fn()
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) / reps
+    return start.elapsed_time(end) / REPS
 
 
-def profiled(torch, fn, reps: int, attempts: int = 3) -> dict:
+def profiled(torch, fn, reps: int) -> dict:
     """Device milliseconds and recorded launches of every kernel and copy
     ``fn`` launches, by name, over ``reps`` warm calls under torch.profiler.
     A trace that holds no device activity at all (seen on the card after many
-    profiler sessions in one process) is taken again, up to ``attempts``
-    times."""
+    profiler sessions in one process) is taken again, up to three times."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    for _ in range(attempts):
+    for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
@@ -115,16 +119,16 @@ def per_call(kernels: dict, match: str) -> dict:
             "recorded_calls": calls}
 
 
-def device_times(torch, fn, match: str, reps: int = 100) -> dict:
+def device_times(torch, fn, match: str) -> dict:
     """``device_ms`` of the kernel named like ``match`` that each call of
     ``fn`` launches once, the call's device time and launches, ``ms`` and
     ``events_ms``."""
-    return dict(per_call(profiled(torch, fn, reps), match), ms=host_ms(torch, fn),
-                events_ms=events_ms(torch, fn, reps))
+    return dict(per_call(profiled(torch, fn, REPS), match), ms=host_ms(torch, fn),
+                events_ms=events_ms(torch, fn))
 
 
-def host_block_ms(torch, fn, reps: int = 5) -> dict:
-    """Median host milliseconds of one call of ``fn`` issued behind queued
+def host_block_ms(torch, fn) -> dict:
+    """Median host milliseconds of one call of ``fn``, of five, issued behind queued
     device work (``torch.cuda._sleep``), and the device milliseconds that
     work takes alone."""
     fn()
@@ -135,7 +139,7 @@ def host_block_ms(torch, fn, reps: int = 5) -> dict:
     end.record()
     end.synchronize()
     times = []
-    for _ in range(reps):
+    for _ in range(5):
         torch.cuda._sleep(2_000_000)
         t0 = time.perf_counter()
         fn()
@@ -167,7 +171,7 @@ def resample_inputs(torch, n_rays: int, n_t: int, n_u: int, shared: bool, gen):
     return t_vals, bins, wgt[:, 1:-1], u
 
 
-def measure(reps: int = 100, seed: int = 0) -> dict:
+def measure() -> dict:
     """Rows 2 and 14's times at the main paths' shapes, and the launches of
     one ``sample_pdf_fused`` call, on seeded inputs."""
     import torch
@@ -178,7 +182,7 @@ def measure(reps: int = 100, seed: int = 0) -> dict:
     from aon_tpu_torch.ops.resample import fused_resample, resample_union, sample_pdf_fused
 
     dev = torch.device("cuda", 0)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
     out = {"resample_union": [], "fused_resample": [], "sample_pdf_fused": [], "posenc": [],
            "unit_linspace_behind_queue": host_block_ms(torch, lambda: unit_linspace(17, dev))}
     for n_rays, n_t, n_u, shared in RESAMPLE_SHAPES:
@@ -187,14 +191,14 @@ def measure(reps: int = 100, seed: int = 0) -> dict:
         shape = {"shape": f"{n_rays}x{n_t}+{n_u}",
                  "quantiles": "one shared row" if shared else "a sorted random row per ray"}
         out["resample_union"].append(dict(shape, **device_times(
-            torch, lambda: resample_union(t_vals, bins, cdf, u), "resample", reps)))
+            torch, lambda: resample_union(t_vals, bins, cdf, u), "resample")))
         out["fused_resample"].append(dict(shape, **device_times(
-            torch, lambda: fused_resample(t_vals, bins, wgt, u), "resample", reps)))
+            torch, lambda: fused_resample(t_vals, bins, wgt, u), "resample")))
         if n_t == 65:  # the stage as the render chunk and a training microbatch call it
             o = torch.randn(n_rays, 3, generator=gen, device=dev)
             d = torch.randn(n_rays, 3, generator=gen, device=dev)
             ids = torch.arange(n_rays, device=dev)
-            step_gen = torch.Generator(device=dev).manual_seed(seed + 1)
+            step_gen = torch.Generator(device=dev).manual_seed(SEED + 1)
             kw = ({} if shared else
                   {"randomized": True, "generator": step_gen, "ray_ids": ids})
             kernels = profiled(torch, lambda: sample_pdf_fused(bins, wgt, o, d, t_vals, n_u, **kw),
@@ -212,14 +216,13 @@ def measure(reps: int = 100, seed: int = 0) -> dict:
         for encoder in ENCODERS:
             out["posenc"].append(dict({"shape": f"{n}x64", "encoder": encoder}, **device_times(
                 torch, lambda: posenc_in_kernel(x, consts["s_pos"], consts["p_pos"], encoder),
-                "posenc", reps)))
+                "posenc")))
     return out
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=None, help="import aon_tpu_torch from this checkout")
-    ap.add_argument("--reps", type=int, default=100)
     args = ap.parse_args(argv)
     if args.root:
         sys.path.insert(0, args.root)
@@ -230,7 +233,7 @@ def main(argv=None) -> int:
         return 1
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
-    rec = measure(args.reps)
+    rec = measure()
     import aon_tpu_torch
 
     rec.update(root=str(aon_tpu_torch.__file__).rsplit("/aon_tpu_torch/", 1)[0], card=smi)

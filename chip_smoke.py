@@ -7,14 +7,24 @@ Phases, each printed as one JSON line on stdout (nothing else goes there):
 
   device   the card (torch, and `nvidia-smi --query-gpu=name,power.limit`);
   build    nvcc builds every kernel of aon_tpu_torch/ops/csrc for sm_90a;
+  kernel_times  rows 2 (both entries) and 14 (each encoder) at the paths'
+           shapes by device time (torch.profiler, over 100 warm calls),
+           host-clocked time (an event pair around one call, the median) and
+           back-to-back time (100 calls between two events), and the kernels
+           one sample_pdf_fused call launches (eval and randomized
+           quantiles), for this tree and, with --parent DIR, for another
+           checkout, each in a process of its own
+           (aon_tpu_torch/scripts/kernel_times.py); fused_resample must
+           launch one kernel a call, by its wrapper's count and the trace's;
   kernel   each kernel on the card at its paths' shapes (render: 61,440 rays
            x 65 and x 193 samples for the eval MLP from raw coordinates and
            from per-sample and per-ray encodings, a 61,440-ray resample with
            the one shared row of eval quantiles (both of kernel 2's entries:
-           fused_resample from the strided weights window, its CDF built in
-           the kernel, against pdf_cdf_ordered + the twin, with the CDF order
-           held to pdf_cdf's on the CDF itself; resample_union from a CDF
-           against its twin); training: 2,048 rays x 65 and
+           at the record's top level resample_union from a CDF against its
+           twin; under its fused_resample key the main paths' entry, from the
+           strided weights window with its CDF built in the kernel, against
+           pdf_cdf_ordered + the twin, with the CDF order held to pdf_cdf's
+           on the CDF itself); training: 2,048 rays x 65 and
            x 193 for the level, the MLP backward from raw coordinates and from
            encodings and the eval MLP with the bf16-rounded float32 packing of
            the v2 forward (and at x 193 from encodings, as fused_mlp_train's
@@ -24,9 +34,9 @@ Phases, each printed as one JSON line on stdout (nothing else goes there):
            inputs, timed with CUDA events (median) beside the twin and a
            library yardstick (the same function as bf16 torch calls, under
            autograd for the training kernels) that the port never calls, and
-           beside its bound on the H100; rows 2 and 14 also by device time
-           (``device_ms``, torch.profiler) and over 100 back-to-back calls
-           (``events_ms``), aon_tpu_torch/scripts/kernel_times.py;
+           beside its bound on the H100; rows 2 and 14 with their
+           host-clocked ``ms``, ``device_ms`` and ``events_ms`` from the
+           kernel_times line at the same shape;
   wgrad    the training kernels' weight gradients alone (train_sm90.cuh's
            MN-major wgmma operands) on random blocked workspaces of the fine
            level's 395,264 rows, against torch.matmul, timed;
@@ -38,18 +48,12 @@ Phases, each printed as one JSON line on stdout (nothing else goes there):
            (aon_tpu_torch/scripts/level_split.py);
   art_level_split  the same for the articulated level (row 9) at 2,048 x 193
            and x 73, with --parent DIR also for the other checkout;
-  kernel_times  rows 2 (both entries) and 14 (each encoder) at the paths'
-           shapes by device time, host-clocked time and back-to-back time,
-           and the kernels one sample_pdf_fused call launches (eval and
-           randomized quantiles), for this tree and, with --parent DIR, for
-           another checkout (aon_tpu_torch/scripts/kernel_times.py); this
-           tree's fused_resample must launch one kernel;
   posenc   the in-kernel encoding's range reduction at the 2^9 frequency, and
            kernel table row 14 (the TPU suite's range-reduction test): its
            256 x 3 inputs through each of the kernels' three encoders, column
            by column against the twin and the exact sine, timed at 256 x 64
-           and at one 65,536-point extraction block (each encoder by device
-           time as well);
+           and at one 65,536-point extraction block (each encoder's times
+           from the kernel_times line);
   path     build_system on configs/quality_laptop_vanilla_refsched.json at
            full width with seeded random weights, one cold frame and then two
            timed 640x480 frames through render_frame (chunk 61440), launch
@@ -643,6 +647,48 @@ def main(argv=None) -> int:
         require(len(art_spills) == 7 and not any(art_spills.values()),
                 "the articulated kernels' seven instances must build without spills")
 
+        # rows 2 and 14 by device time at the paths' shapes, and the kernels
+        # one sample_pdf_fused call launches, for this tree and (--parent)
+        # another, each in a fresh process: after many profiler sessions in
+        # one process the card's trace can come back empty
+        # (aon_tpu_torch/scripts/kernel_times.py).  The kernel records of
+        # rows 2 and 14 take their ``ms``, ``device_ms`` and ``events_ms``
+        # from this tree's run.
+        phase = "kernel_times"
+
+        def kernel_times_of(root):
+            proc = subprocess.run(
+                [sys.executable, str(ROOT / "aon_tpu_torch" / "scripts" / "kernel_times.py"),
+                 "--root", str(root)], capture_output=True, text=True, timeout=600)
+            require(proc.returncode == 0, f"kernel_times of {root} failed: {proc.stderr[-2000:]}")
+            return json.loads(proc.stdout.strip().splitlines()[-1])
+
+        times = {"phase": "kernel_times", "tree": kernel_times_of(ROOT), "card": card}
+        if args.parent:
+            times["parent"] = kernel_times_of(Path(args.parent).resolve())
+        emit(times)
+        kt_tree = times["tree"]
+
+        def kt_times(entry, shape, encoder=None):
+            """``ms``, ``device_ms``, ``events_ms`` and the launches per call
+            of one entry at one shape, from this tree's kernel_times run."""
+            found = [r for r in kt_tree[entry]
+                     if r["shape"] == shape and r.get("encoder") == encoder]
+            require(len(found) == 1, f"kernel_times has no one {entry} record at {shape}")
+            return {k: found[0][k] for k in ("ms", "device_ms", "events_ms", "launches_per_call")}
+
+        # fused_resample is one launch a call: its wrapper counts one, and
+        # the trace holds no kernel or copy beside the resample's
+        t_one = kernel_times.resample_inputs(
+            torch, TRAIN_RAYS, N_COARSE + 1, N_FINE, False,
+            torch.Generator(device=dev).manual_seed(args.seed))
+        n0 = resample_union.launches
+        fused_resample(*t_one)
+        require(resample_union.launches - n0 == 1
+                and all(e["launches_per_call"] == 1 for e in kt_tree["fused_resample"]),
+                "fused_resample launched more than its one kernel")
+        del t_one
+
         # ---------------------------------------------------------- kernels
         phase = "kernel:fused_nerf_mlp_xyz_eval"
         gen = torch.Generator(device=dev).manual_seed(args.seed)
@@ -891,15 +937,10 @@ def main(argv=None) -> int:
 
             nbytes = n * (12 + 256) + 5 * 64 * 4
             # host-clocked ``ms``, ``device_ms`` and ``events_ms`` of each
-            # encoder (aon_tpu_torch/scripts/kernel_times.py); the top-level
-            # times are the elementwise encoder's, the trunk's own
-            by_encoder = {
-                encoder: {k: v for k, v in kernel_times.device_times(
-                    torch, lambda e=encoder: posenc_in_kernel(xt, consts["s_pos"], consts["p_pos"],
-                                                              e),
-                    "posenc", reps=100).items()
-                    if k in ("ms", "device_ms", "events_ms", "launches_per_call")}
-                for encoder in ENCODERS}
+            # encoder from the kernel_times line; the top-level times are the
+            # elementwise encoder's, the trunk's own
+            by_encoder = {encoder: kt_times("posenc", f"{n}x64", encoder)
+                          for encoder in ENCODERS}
             row14["timed"].append({
                 "shape": f"{n}x64", **by_encoder["elementwise"],
                 "plain_ms": time_ms(torch, lambda: encode_plain(xt, consts["s_pos"],
@@ -919,14 +960,17 @@ def main(argv=None) -> int:
 
         def resample_record(t_vals, bins, weights, u, timed=True, **extra):
             """One ``kernel`` line of kernel 2, checked (timed unless ``timed``
-            is off): the main paths' entry ``fused_resample`` (the CDF built
-            in the kernel from ``weights``, the callers' strided window)
-            against its twin ``pdf_cdf_ordered`` + ``resample_union_plain``,
-            that CDF order against ``pdf_cdf``'s on the CDF, and under
-            ``resample_union`` the CDF entry against its twin; ``u`` is one
-            shared row expanded over the rays, or a row per ray.  Times:
-            ``ms`` host-clocked per call, ``device_ms`` and ``events_ms`` from
-            aon_tpu_torch/scripts/kernel_times.py."""
+            is off).  Its top level is ``resample_union``, the CDF entry, on
+            pdf_cdf's CDF against its twin, as in every earlier record of
+            row 2.  Under ``fused_resample`` is the main paths' entry (the
+            CDF built in the kernel from ``weights``, the callers' strided
+            window) against its twin ``pdf_cdf_ordered`` +
+            ``resample_union_plain``, with that CDF order held to
+            ``pdf_cdf``'s on the CDF, and with its own bound.  ``u`` is one
+            shared row expanded over the rays, or a row per ray.  Each
+            entry's ``ms``, ``device_ms`` and ``events_ms`` come from the
+            kernel_times line at the same shape; ``plain_ms`` and
+            ``library_ms`` are timed here."""
             n_rays, n_t = t_vals.shape
             n_b, n_u = bins.shape[-1], u.shape[-1]
             cdf = pdf_cdf(weights).contiguous()
@@ -953,50 +997,49 @@ def main(argv=None) -> int:
                                      else "operations")}
 
             rec = {
-                "phase": "kernel", "name": "resample_union", "entry": "fused_resample", **extra,
+                "phase": "kernel", "name": "resample_union", "entry": "resample_union", **extra,
                 "shape": f"{n_rays}x{n_t}+{n_u}",
                 "quantiles": "one shared row" if shared else "a sorted random row per ray",
-                "max_abs_err": (got - want_ordered).abs().max().item(), "tol": TOL_RESAMPLE,
-                "cdf_order_err": (cdf_ordered - cdf).abs().max().item(),
-                "tol_cdf_order": TOL_CDF_ORDER,
-                # measured, not held: the samples against pdf_cdf's, and the
-                # same twin on pdf_cdf taken on the host against the card's
-                "samples_vs_pdf_cdf": {
-                    "max_abs": (got - want).abs().max().item(),
-                    "share_over_1e-4": ((got - want).abs() > 1e-4).float().mean().item(),
-                    "host_vs_card_max_abs": (want_host - want).abs().max().item(),
-                    "host_vs_card_share_over_1e-4":
-                        ((want_host - want).abs() > 1e-4).float().mean().item()},
-                "sorted": bool((got[:, 1:] >= got[:, :-1]).all()),
-                # t, bins and the weights in, the union out
-                **bound(4 * n_rays * (n_t + n_b + (n_b - 1) + n_t + n_u) + u_bytes, ops_fused),
-                "resample_union": {
-                    "max_abs_err": (got_union - want).abs().max().item(),
-                    **bound(4 * n_rays * (n_t + 2 * n_b + n_t + n_u) + u_bytes, ops)},
+                "max_abs_err": (got_union - want).abs().max().item(), "tol": TOL_RESAMPLE,
+                "sorted": bool((got_union[:, 1:] >= got_union[:, :-1]).all()),
+                # t, bins and the CDF in, the union out
+                **bound(4 * n_rays * (n_t + 2 * n_b + n_t + n_u) + u_bytes, ops),
+                "fused_resample": {
+                    "max_abs_err": (got - want_ordered).abs().max().item(), "tol": TOL_RESAMPLE,
+                    "cdf_order_err": (cdf_ordered - cdf).abs().max().item(),
+                    "tol_cdf_order": TOL_CDF_ORDER,
+                    # measured, not held: the samples against pdf_cdf's, and
+                    # the same twin on pdf_cdf taken on the host against the
+                    # card's
+                    "samples_vs_pdf_cdf": {
+                        "max_abs": (got - want).abs().max().item(),
+                        "share_over_1e-4": ((got - want).abs() > 1e-4).float().mean().item(),
+                        "host_vs_card_max_abs": (want_host - want).abs().max().item(),
+                        "host_vs_card_share_over_1e-4":
+                            ((want_host - want).abs() > 1e-4).float().mean().item()},
+                    "sorted": bool((got[:, 1:] >= got[:, :-1]).all()),
+                    # t, bins and the weights in, the union out
+                    **bound(4 * n_rays * (n_t + n_b + (n_b - 1) + n_t + n_u) + u_bytes,
+                            ops_fused)},
                 "card": card,
             }
             if timed:
-                for r, fn, plain, library in (
-                        (rec, lambda: fused_resample(t_vals, bins, weights, u),
+                for r, entry, plain, library in (
+                        (rec, "resample_union", lambda: resample_union_plain(t_vals, bins, cdf, u),
+                         lambda: library_resample(torch, t_vals, bins, cdf, u_rows)),
+                        (rec["fused_resample"], "fused_resample",
                          lambda: resample_union_plain(t_vals, bins, pdf_cdf_ordered(weights), u),
-                         lambda: library_resample(torch, t_vals, bins, pdf_cdf(weights), u_rows)),
-                        (rec["resample_union"], lambda: resample_union(t_vals, bins, cdf, u),
-                         lambda: resample_union_plain(t_vals, bins, cdf, u),
-                         lambda: library_resample(torch, t_vals, bins, cdf, u_rows))):
-                    times = kernel_times.device_times(torch, fn, "resample", reps=100)
-                    r.update(ms=times["ms"], device_ms=times["device_ms"],
-                             events_ms=times["events_ms"],
-                             launches_per_call=times["launches_per_call"],
-                             plain_ms=time_ms(torch, plain, 5), library_ms=time_ms(torch, library, 5))
+                         lambda: library_resample(torch, t_vals, bins, pdf_cdf(weights), u_rows))):
+                    r.update(kt_times(entry, rec["shape"]), plain_ms=time_ms(torch, plain, 5),
+                             library_ms=time_ms(torch, library, 5))
                     r["gbps_device"] = r["bytes"] / r["device_ms"] / 1e6
                     r["pct_bound_device"] = 100.0 * r["bound_ms"] / r["device_ms"]
             emit(rec)
-            require(rec["sorted"] and rec["max_abs_err"] <= TOL_RESAMPLE
-                    and rec["cdf_order_err"] <= TOL_CDF_ORDER
-                    and rec["resample_union"]["max_abs_err"] <= TOL_RESAMPLE,
+            fused = rec["fused_resample"]
+            require(rec["sorted"] and fused["sorted"] and rec["max_abs_err"] <= TOL_RESAMPLE
+                    and fused["max_abs_err"] <= TOL_RESAMPLE
+                    and fused["cdf_order_err"] <= TOL_CDF_ORDER,
                     f"resample kernel disagrees with its twins at {rec['shape']}")
-            require(not timed or rec["launches_per_call"] == 1,
-                    "fused_resample launched more than its one kernel")
             return rec
 
         t_vals, _ = sample_along_rays(origins, dirs, N_COARSE, 2.0, 6.0)
@@ -1151,22 +1194,6 @@ def main(argv=None) -> int:
                     f"art_level_split of the parent failed: {proc.stderr[-2000:]}")
             split["parent"] = json.loads(proc.stdout.strip().splitlines()[-1])
         emit(split)
-
-        # rows 2 and 14 by device time at the paths' shapes, and the kernels
-        # one sample_pdf_fused call launches, for this tree and (--parent)
-        # another (aon_tpu_torch/scripts/kernel_times.py)
-        phase = "kernel_times"
-        times = {"phase": "kernel_times", "tree": kernel_times.measure(), "card": card}
-        if args.parent:
-            proc = subprocess.run(
-                [sys.executable, str(ROOT / "aon_tpu_torch" / "scripts" / "kernel_times.py"),
-                 "--root", str(Path(args.parent).resolve())],
-                capture_output=True, text=True, timeout=600)
-            require(proc.returncode == 0, f"kernel_times of the parent failed: {proc.stderr[-2000:]}")
-            times["parent"] = json.loads(proc.stdout.strip().splitlines()[-1])
-        emit(times)
-        require(all(e["launches_per_call"] == 1 for e in times["tree"]["fused_resample"]),
-                "fused_resample launched more than its one kernel")
 
         # ------------------------------------------------------------- path
         phase = "path"
@@ -2454,11 +2481,13 @@ def main(argv=None) -> int:
              "launches": path_launches["resample_union"] + train_launches["resample_union"],
              "launches_by_path": {"render": path_launches["resample_union"],
                                   "train": train_launches["resample_union"]},
-             "entry": "fused_resample (resample_union: the CDF entry)",
+             "entry": "resample_union (under fused_resample: the main paths' entry, its CDF "
+                      "built in the kernel)",
              "shape": resample_rec["shape"],
-             **{k: resample_rec[k] for k in keys + device_keys + ("resample_union",)},
+             **{k: resample_rec[k] for k in keys + device_keys + ("fused_resample",)},
              "train": {k: train_rows["resample_union", N_COARSE + 1][k]
-                       for k in ("shape", "quantiles") + keys + device_keys}},
+                       for k in ("shape", "quantiles") + keys + device_keys
+                       + ("fused_resample",)}},
             train_entry("fused_level_train_grads", "aon_tpu/ops/train_fused_level.py:79"),
             train_entry("fused_mlp_bwd_xyz", "aon_tpu/ops/fused_mlp_train.py:320"),
         ]
@@ -2547,7 +2576,7 @@ def main(argv=None) -> int:
         for kname in ("resample_union", "fused_level_train_grads", "fused_level_train_art_grads"):
             by_name[kname]["bench_shapes"] = [
                 {k: r[k] for k in ("contract", "shape") + keys
-                 + (device_keys if kname == "resample_union" else ())}
+                 + (device_keys + ("fused_resample",) if kname == "resample_union" else ())}
                 for (n, _), r in bench_shape_rows.items() if n == kname]
 
         def variant_entry(kname):

@@ -27,6 +27,7 @@ import torch  # noqa: E402
 
 from aon_tpu.ops.resample_pallas import fused_resample as jax_fused_resample  # noqa: E402
 from aon_tpu_torch.core.sampling import eval_quantiles, pdf_cdf, unit_linspace  # noqa: E402
+from aon_tpu_torch.core import sampling  # noqa: E402
 from aon_tpu_torch.ops import resample as rs  # noqa: E402
 from aon_tpu_torch.ops.fused_mlp_train import (  # noqa: E402
     POSENC_BLOCKS_PER_SM,
@@ -205,11 +206,19 @@ def test_resample_wrappers_raise_on_other_devices_without_counting():
 
 
 def test_unit_linspace_row_is_cached_per_num_and_device():
-    a = unit_linspace(129)
-    assert unit_linspace(129, "cpu") is a and eval_quantiles(129) is a
-    assert unit_linspace(65) is not a
     step = np.arange(128, dtype=np.float32) * (np.float32(1) / np.float32(128))
-    np.testing.assert_array_equal(a.numpy(), np.concatenate([step, [np.float32(1)]]))
+    want = np.concatenate([step, [np.float32(1)]])
+    unit_linspace(129)
+    hits = sampling._unit_linspace.cache_info().hits
+    a, b, c = unit_linspace(129), unit_linspace(129, "cpu"), eval_quantiles(129)
+    assert sampling._unit_linspace.cache_info().hits == hits + 3
+    assert unit_linspace(65).shape == (65,)
+    # every call hands out its own copy: writing into one leaves the cached
+    # row, and so every later render's and step's samples, as they were
+    a.mul_(2.0)
+    b.clamp_(0.5, 0.5)
+    for row in (c, unit_linspace(129), eval_quantiles(129)):
+        np.testing.assert_array_equal(row.numpy(), want)
 
 
 # ----------------------------------------------------- row 14's planner
@@ -236,3 +245,24 @@ def test_posenc_plan_and_wrapper_refuse_other_widths():
     with pytest.raises(ValueError, match="no kernel"):
         posenc_in_kernel(x, torch.empty(4, 48, device="meta"), torch.empty(1, 48, device="meta"))
     assert posenc_in_kernel.launches == before
+
+
+# ------------------------------------------- the device-time arithmetic
+
+def test_kernel_times_per_call_divides_by_the_recorded_launches():
+    """The card's trace drops a few records: ``per_call`` divides every
+    kernel's time and count by the launches recorded of the one kernel each
+    call makes, and refuses a trace without exactly one such kernel."""
+    from aon_tpu_torch.scripts import kernel_times
+
+    kernels = {"void resample_kernel<true>(Rows, Rows, Rows, Rows, float*, long long, int)":
+               {"ms": 9.9, "count": 99},
+               "Memcpy HtoD (Pageable -> Device)": {"ms": 0.99, "count": 99}}
+    got = kernel_times.per_call(kernels, "resample")
+    assert got == pytest.approx({"device_ms": 0.1, "stage_device_ms": 0.11,
+                                 "launches_per_call": 2.0, "recorded_calls": 99})
+    with pytest.raises(RuntimeError, match="not one kernel"):
+        kernel_times.per_call({k: v for k, v in kernels.items() if "Memcpy" in k}, "resample")
+    with pytest.raises(RuntimeError, match="not one kernel"):
+        kernel_times.per_call(dict(kernels, **{"void resample_kernel<false>()": kernels[
+            next(iter(kernels))]}), "resample")

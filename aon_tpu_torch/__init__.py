@@ -11,5 +11,8 @@ the CUDA kernels in ``ops/csrc``), ``eval.render.render_frame`` and
 ``eval.metrics``; training (``VanillaSystem.init_state`` / ``train_step`` /
 ``train_many`` -> ``ops.train_fused_level`` or ``ops.train_pallas`` -> the
 training kernels in ``ops/csrc/level_train.cu``, Adam with the log-lerp
-schedule).  ROADMAP.md lists what is still to come.
+schedule), trained on a single-scene SAPIEN dataset through the CLI
+(``python -m aon_tpu_torch.run`` -> ``train.trainer.Trainer`` on
+``data.sapien.SapienDataset``); the auto-decoder's system and kernels.
+ROADMAP.md lists what is still to come.
 """

@@ -162,7 +162,12 @@ def pos_enc(x: torch.Tensor, min_deg: int, max_deg: int) -> torch.Tensor:
         [2.0**i for i in range(min_deg, max_deg)], dtype=x.dtype, device=x.device
     )
     xb = (x[..., None, :] * scales[:, None]).reshape(*x.shape[:-1], -1)
-    four_feat = torch.sin(torch.cat([xb, xb + 0.5 * math.pi], dim=-1))
+    # the sine of the float32 arguments in float64, rounded once: torch's
+    # float32 sin on the CPU (MKL's vsSin, threaded above 2,048 elements) can
+    # give one thread's share of a process's first call with ~11 correct
+    # bits (1.5e-4 from the exact sine at |x| < 50)
+    args = torch.cat([xb, xb + 0.5 * math.pi], dim=-1)
+    four_feat = torch.sin(args.double()).to(x.dtype)
     return torch.cat([x, four_feat], dim=-1)
 
 

@@ -18,9 +18,12 @@ both launch their CUDA kernels; with ``device="cpu"`` the same code runs the
 kernels' plain twins.
 
 The system is built from the config and the state restored from
-``{output_path}/{exp_name}/{--ckpt}`` (``train.checkpoint``); no dataset is
-read, so ``--bounds`` is required (the JAX script falls back to the dataset's
-AABB, which needs the SAPIEN loaders).
+``{output_path}/{exp_name}/{--ckpt}`` (``train.checkpoint``).  The bounds are
+``--bounds`` where given, else the dataset's AABB, as the JAX script takes
+them: the padded box of the train split's depth maps at the config's
+``img_wh`` (``data/aabb.py::scene_aabb``, pad ``aabb_pad`` where the config
+tightens intervals, else 0.05; every ``{instance}/train/{degree}`` directory
+of an articulated dataset).
 
 Occupancy threshold: ``--threshold auto`` marks a voxel occupied when a ray
 crossing a 4-voxel span of it would reach alpha > 0.5, i.e.
@@ -28,7 +31,7 @@ crossing a 4-voxel span of it would reach alpha > 0.5, i.e.
 
 Usage:
   python -m aon_tpu_torch.scripts.extract_geometry --config configs/quality_laptop_autodec.json \\
-      --bounds -1.5 -1.5 -1.5 1.5 1.5 1.5 [--ckpt last.ckpt] [--resolution 160] \\
+      [--bounds -1.5 -1.5 -1.5 1.5 1.5 1.5] [--ckpt last.ckpt] [--resolution 160] \\
       [--instance 0] [--articulation 4] [--interpolated] [--threshold auto] [--out geometry]
 """
 
@@ -44,6 +47,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from aon_tpu_torch.data.aabb import scene_aabb
 from aon_tpu_torch.ops.fused_art import art_mlp_fwd_plain, fold_latents, fused_art_mlp_eval
 from aon_tpu_torch.ops.fused_mlp import (
     fused_nerf_mlp_xyz,
@@ -212,6 +216,22 @@ def write_obj(path, verts, tris):
             fh.write(f"f {t[0] + 1} {t[1] + 1} {t[2] + 1}\n")
 
 
+def dataset_bounds(cfg) -> np.ndarray:
+    """(2, 3) [min, max] of the dataset's scene AABB from its train depth maps,
+    as the JAX script's dataset fallback computes it."""
+    if cfg.dataset_name == "sapien_multi":
+        dirs = [f.path for inst in sorted(os.scandir(cfg.root_dir), key=lambda e: e.name)
+                if inst.is_dir()
+                for f in os.scandir(os.path.join(inst.path, "train")) if f.is_dir()]
+    else:
+        dirs = [os.path.join(cfg.root_dir, "train")]
+    pad = cfg.aabb_pad if (cfg.use_aabb or cfg.use_occgrid) else 0.05
+    bounds = scene_aabb(dirs, tuple(cfg.img_wh), pad=pad)
+    if bounds is None:
+        raise SystemExit(f"no depth data under {cfg.root_dir} for the AABB; pass --bounds")
+    return np.asarray(bounds, dtype=np.float64)
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description="geometry from a trained checkpoint")
     ap.add_argument("--config", default=None, help="required unless --from_grid")
@@ -226,7 +246,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--viewdir", type=float, nargs=3, default=(0.0, 0.0, -1.0))
     ap.add_argument("--chunk", type=int, default=65536)
     ap.add_argument("--bounds", type=float, nargs=6, default=None,
-                    help="xmin ymin zmin xmax ymax zmax (required: dataset bounds are not ported)")
+                    help="xmin ymin zmin xmax ymax zmax (overrides the dataset AABB)")
     ap.add_argument("--out", default="geometry")
     ap.add_argument("--from_grid", default=None,
                     help="re-threshold a saved density_grid.npz (no model query; "
@@ -264,9 +284,6 @@ def main(argv=None, device: DeviceLike = "cuda") -> dict:
         return _from_grid(args)
     if args.config is None:
         raise SystemExit("--config is required unless --from_grid is given")
-    if args.bounds is None:
-        raise SystemExit("pass --bounds: the dataset's bounds need the SAPIEN loaders, "
-                         "which are not ported yet (ROADMAP.md slice 6)")
     if args.chunk % POINTS_PER_RAY:
         raise SystemExit("--chunk must be a multiple of 128 (points are blocked (B,128,3))")
     device = resolve_device(device)
@@ -274,6 +291,10 @@ def main(argv=None, device: DeviceLike = "cuda") -> dict:
 
     t0 = time.perf_counter()
     cfg = get_config(["--config", args.config])
+    if args.bounds is not None:
+        bounds = np.asarray(args.bounds, dtype=np.float64).reshape(2, 3)
+    else:
+        bounds = dataset_bounds(cfg)
     system = build_system(cfg, NEAR, FAR, cfg.white_back, device=device)
     state = system.init_state(torch.Generator(device=device).manual_seed(cfg.seed))
     ckpt = CheckpointManager(str(Path(cfg.output_path) / cfg.exp_name), save_top_k=cfg.save_top_k)
@@ -282,7 +303,6 @@ def main(argv=None, device: DeviceLike = "cuda") -> dict:
     seconds["restore"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    bounds = np.asarray(args.bounds, dtype=np.float64).reshape(2, 3)
     R = args.resolution
     lo, hi = bounds[0], bounds[1]
     voxel = float(np.max(hi - lo) / R)

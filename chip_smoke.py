@@ -102,6 +102,22 @@ Phases, each printed as one JSON line on stdout (nothing else goes there):
            occupancy against the plain twins' on the same points, the three
            files parsed, and the wall time split into restore, query, mesh and
            write;
+  fit      the CLI's main path (aon_tpu_torch.run.main -> Trainer.fit, validate,
+           test) on configs/quality_laptop_vanilla_refsched_occ16.json over a
+           640x480 SAPIEN-layout fixture with depth that the port's
+           make_fixture_dataset writes (6 train, 2 val, 2 test frames),
+           overriding only root_dir, run_max_steps, num_epochs,
+           limit_val_batches and output_path: the train loader's seconds cold
+           and from the occupancy-interval cache, 400 steps of 2,048 rays on
+           occupancy intervals (16 + 32 samples) through train_many in
+           dispatches of 8 and one 640x480 validation (rays/s and ms per step
+           over each epoch, host included; exact launches of rows 3, 2 and 1;
+           the loss falling), the device's idle share over four dispatches of
+           the same loop under torch.profiler, a resume from last.ckpt for 16
+           more steps (the step count continuing, a fresh ray stream, the val
+           PSNR held), --run_eval --render_name smoke (results.json, the jpgs
+           decoded by utils/imageio.py) and extract_geometry at 160^3 with the
+           dataset's bounds (63 launches of row 8); and whether PIL imports;
   bench_kernels  the port's kernel bench (aon_tpu_torch/scripts/bench_kernels.py)
            with every variant, its lines re-emitted with exact launch counts;
            then each variant of rows 12 (three bodies) and 13 (three
@@ -139,6 +155,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import importlib.util
 import io
 import json
 import math
@@ -278,6 +295,17 @@ BENCH_CONTRACTS = (("vanilla", 32768, "occ", 0, (16, 32)),
 # default, full-width settings: a 160^3 grid queried 65,536 points at a time
 GEO_RES, GEO_CHUNK = 160, 65536
 GEO_BOUNDS = (-1.5, -1.5, -1.5, 1.5, 1.5, 1.5)
+# ---- the fit phase: aon_tpu_torch.run.main on the occupancy-interval quality
+# config over a 640x480 fixture (aon_tpu_torch/scripts/make_fixture_dataset.py)
+FIT_CONFIG = "configs/quality_laptop_vanilla_refsched_occ16.json"
+FIT_VIEWS = 6  # train frames; the fixture writes 2 val and 2 test frames
+FIT_STEPS, FIT_RESUME_STEPS = 400, 16  # whole dispatches of the config's 8 steps
+# val PSNR after the resumed dispatches against the first run's: 16 more steps
+# on one val frame may move it either way by a fraction of a dB; a resume that
+# restored the wrong state (fresh weights render ~10 dB) falls far below
+TOL_RESUME_PSNR_DROP = 1.0
+FIT_PROFILE_DISPATCHES = 4  # dispatches of the fit loop under torch.profiler
+
 # the kernel's occupancy against its twin's: voxels whose sigma lies within
 # the kernel / twin noise of the threshold may flip; at most this share of
 # the grid's voxels may
@@ -524,9 +552,12 @@ def main(argv=None) -> int:
             raise PhaseFailed(f"no aon_tpu_torch package beside {Path(__file__).name}: "
                               "run it from a checkout of the repository")
         sys.path.insert(0, str(ROOT))
+        from aon_tpu_torch import run as port_run
         from aon_tpu_torch.core.rays import create_spheric_poses, get_ray_directions, get_rays
         from aon_tpu_torch.core.sampling import eval_quantiles, pdf_cdf, sample_along_rays
+        from aon_tpu_torch.data.aabb import scene_aabb
         from aon_tpu_torch.data.analytic import analytic_scene
+        from aon_tpu_torch.data.sapien import SapienDataset
         from aon_tpu_torch.eval.render import render_frame
         from aon_tpu_torch.data.analytic import articulated_scene
         from aon_tpu_torch.ops import _build, bench_variants, fused_art, train_sm90
@@ -566,7 +597,12 @@ def main(argv=None) -> int:
         from aon_tpu_torch.core.rendering import volumetric_rendering
         from aon_tpu_torch.scripts import bench as port_bench
         from aon_tpu_torch.scripts import bench_kernels as port_bench_kernels
-        from aon_tpu_torch.scripts import extract_geometry, kernel_times, level_split
+        from aon_tpu_torch.scripts import (
+            extract_geometry,
+            kernel_times,
+            level_split,
+            make_fixture_dataset,
+        )
         from aon_tpu_torch.train.checkpoint import CheckpointManager
         from aon_tpu_torch.ops.render_fused import mlp_params
         from aon_tpu_torch.ops.resample import (
@@ -592,6 +628,7 @@ def main(argv=None) -> int:
             build_system,
         )
         from aon_tpu_torch.utils.config import Config, get_config
+        from aon_tpu_torch.utils.imageio import read_jpeg
 
         # what the ``kernels`` line carries of every kernel's record
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -2058,6 +2095,178 @@ def main(argv=None) -> int:
             shutil.rmtree(geo_dir, ignore_errors=True)
         torch.cuda.empty_cache()
 
+        # --------------------------------------------------------------- fit
+        # The CLI's main path as users run it (aon_tpu_torch.run.main ->
+        # Trainer.fit / validate / test) on the occupancy-interval quality
+        # config over a 640x480 SAPIEN-layout fixture with depth: loaders cold
+        # and from the interval cache, FIT_STEPS steps of 2,048 rays through
+        # train_many in dispatches of 8, one 640x480 validation, a resume from
+        # last.ckpt, --run_eval and an extraction with the dataset's bounds
+        phase = "fit"
+        fit_dir = Path(tempfile.mkdtemp(prefix="aon_fit_"))
+        cwd = os.getcwd()
+        try:
+            os.chdir(fit_dir)
+            with contextlib.redirect_stdout(io.StringIO()):
+                make_fixture_dataset.main([str(fit_dir / "data"), "--n", str(FIT_VIEWS),
+                                           "--wh", "640", "480", "--seed", str(args.seed)])
+            cfg_json = json.loads((ROOT / FIT_CONFIG).read_text())
+            cfg_json.update(root_dir=str(fit_dir / "data"), output_path=str(fit_dir / "results"),
+                            run_max_steps=FIT_STEPS, num_epochs=1, limit_val_batches=1)
+            fit_cfg_path = fit_dir / Path(FIT_CONFIG).name
+            fit_cfg_path.write_text(json.dumps(cfg_json))
+            fit_cfg = get_config(["--config", str(fit_cfg_path)])
+            ds_kw = dict(img_wh=tuple(fit_cfg.img_wh), use_aabb=fit_cfg.use_aabb,
+                         aabb_pad=fit_cfg.aabb_pad, use_occgrid=fit_cfg.use_occgrid,
+                         occgrid_res=fit_cfg.occgrid_res, occgrid_dilate=fit_cfg.occgrid_dilate)
+            loader_s = {}
+            for label in ("cold", "cached"):  # the second reads the interval cache
+                t0 = time.perf_counter()
+                train_ds = SapienDataset(fit_cfg.root_dir, "train", **ds_kw)
+                loader_s[label] = time.perf_counter() - t0
+            iv_cache = list((fit_dir / "data" / "train").glob(".occ_intervals_*.npz"))
+            val_frame = SapienDataset(fit_cfg.root_dir, "val", **ds_kw).full_frame(0)
+            val_chunks = math.ceil(int(val_frame["hit"].sum()) / fit_cfg.chunk)
+            steps_per_epoch = train_ds.steps_per_epoch(fit_cfg.batch_size)
+            require(steps_per_epoch >= FIT_STEPS, f"the fixture's epoch ({steps_per_epoch} steps) "
+                    f"is shorter than the run ({FIT_STEPS})")
+
+            def run_cli(cfg):
+                for c in counters.values():
+                    c.launches = 0
+                printed = io.StringIO()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(printed):
+                    tr = port_run.main(cfg)
+                torch.cuda.synchronize()
+                return tr, time.perf_counter() - t0, {k: c.launches for k, c in counters.items()}, \
+                    printed.getvalue()
+
+            fit_trainer, fit_wall_s, fit_launches, _ = run_cli(fit_cfg)
+            run_dir = fit_dir / "results" / fit_cfg.exp_name
+            recs = [json.loads(ln) for ln in (run_dir / "metrics.jsonl").read_text().splitlines()]
+            losses = [(r["step"], r["train/loss"]) for r in recs if "train/loss" in r]
+            rate = [r["train/rays_per_sec"] for r in recs if "train/rays_per_sec" in r]
+            val_psnr = [r["val/psnr"] for r in recs if "val/psnr" in r]
+            per_step = {k: fit_launches[k] / FIT_STEPS
+                        for k in ("fused_level_train_grads", "resample_union")}
+
+            # the device's idle share over dispatches of the same loop
+            from torch.profiler import ProfilerActivity, profile
+
+            it = fit_trainer._train_iterator()
+            fit_trainer._dispatch(it, fit_cfg.steps_per_dispatch)  # warm
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(FIT_PROFILE_DISPATCHES):
+                    fit_trainer.state, m = fit_trainer._dispatch(it, fit_cfg.steps_per_dispatch)
+                torch.cuda.synchronize()
+                window_ms = 1e3 * (time.perf_counter() - t0)
+            busy_ms = sum(e.device_time_total for e in prof.key_averages()
+                          if e.device_type.name == "CUDA") / 1e3
+            require(busy_ms > 0, "torch.profiler recorded no device time in the fit loop")
+
+            # resume: FIT_RESUME_STEPS more steps from last.ckpt
+            res_cfg = get_config(["--config", str(fit_cfg_path)])
+            res_cfg.run_max_steps = FIT_STEPS + FIT_RESUME_STEPS
+            res_cfg.ckpt_path = "last.ckpt"
+            res_trainer, res_wall_s, res_launches, res_out = run_cli(res_cfg)
+            res_recs = [json.loads(ln) for ln in
+                        (run_dir / "metrics.jsonl").read_text().splitlines()][len(recs):]
+            res_val = [r["val/psnr"] for r in res_recs if "val/psnr" in r]
+            res_trainer.global_step = 0
+            first0 = next(res_trainer._train_iterator())
+            res_trainer.global_step = FIT_STEPS
+            first_resumed = next(res_trainer._train_iterator())
+            res_trainer.global_step = FIT_STEPS + FIT_RESUME_STEPS
+
+            # --run_eval --render_name smoke
+            ev_cfg = get_config(["--config", str(fit_cfg_path), "--run_eval",
+                                 "--render_name", "smoke"])
+            _, ev_wall_s, ev_launches, _ = run_cli(ev_cfg)
+            results = json.loads((fit_dir / "ckpts" / fit_cfg.exp_name / "results.json").read_text())
+            jpgs = sorted((fit_dir / "ckpts" / fit_cfg.exp_name / "smoke").glob("*.jpg"))
+            decoded = [read_jpeg(p) for p in jpgs]
+
+            # geometry from the fitted checkpoint, bounds from the dataset
+            for c in counters.values():
+                c.launches = 0
+            with contextlib.redirect_stdout(io.StringIO()):
+                geo = extract_geometry.main(["--config", str(fit_cfg_path), "--out", "geometry_fit"])
+            geo_launches_fit = {k: c.launches for k, c in counters.items()}
+            gz = np.load(fit_dir / geo["out_dir"] / "density_grid.npz")
+            want_bounds = scene_aabb([str(fit_dir / "data" / "train")], tuple(fit_cfg.img_wh),
+                                     pad=fit_cfg.aabb_pad)
+            pil = importlib.util.find_spec("PIL") is not None
+
+            n_test = 2  # the fixture's test frames
+            checks = {
+                "interval_cache": len(iv_cache) == 1,
+                "launches": launches_are(
+                    fit_launches, fused_level_train_grads=2 * FIT_STEPS,
+                    resample_union=FIT_STEPS + val_chunks,
+                    fused_nerf_mlp_xyz_eval=2 * val_chunks),
+                "loss_falls": len(losses) >= 2 and losses[-1][1] < losses[0][1],
+                "val_psnr_finite": len(val_psnr) == 1 and math.isfinite(val_psnr[0]),
+                "resume_continues": (f"resumed from step {FIT_STEPS}" in res_out
+                                     and res_trainer.global_step == FIT_STEPS + FIT_RESUME_STEPS
+                                     and all(r["step"] > FIT_STEPS for r in res_recs)
+                                     and launches_are(
+                                         res_launches,
+                                         fused_level_train_grads=2 * FIT_RESUME_STEPS,
+                                         resample_union=FIT_RESUME_STEPS + val_chunks,
+                                         fused_nerf_mlp_xyz_eval=2 * val_chunks)),
+                "resumed_batch_differs": not np.array_equal(first0["rays_o"],
+                                                            first_resumed["rays_o"]),
+                "resume_val_psnr": (len(res_val) == 1
+                                    and res_val[0] >= val_psnr[0] - TOL_RESUME_PSNR_DROP),
+                "results_json": all(math.isfinite(results[k]["mean"]) for k in ("PSNR", "SSIM")),
+                "jpgs_decode": (len(jpgs) == 2 * n_test
+                                and all(d.shape == (480, 640, 3) for d in decoded)),
+                "eval_launches": ev_launches["fused_nerf_mlp_xyz_eval"] > 0
+                                 and ev_launches["fused_level_train_grads"] == 0,
+                "geometry_launches": launches_are(geo_launches_fit, fused_nerf_mlp_xyz=geo["queries"])
+                                     and geo["queries"] == math.ceil(GEO_RES ** 3 / GEO_CHUNK),
+                "geometry_dataset_bounds": np.allclose(gz["bounds"], want_bounds),
+            }
+            fit_rec = {
+                "phase": "fit", "config": FIT_CONFIG, "fixture": {"wh": [640, 480],
+                                                                   "train": FIT_VIEWS, "val": 2,
+                                                                   "test": n_test},
+                "train_rays": len(train_ds), "hit_fraction": train_ds.hit_fraction,
+                "aabb_dropped_fg_frac": train_ds.aabb_dropped_fg_frac,
+                "steps_per_epoch": steps_per_epoch, "steps": FIT_STEPS,
+                "steps_per_dispatch": fit_cfg.steps_per_dispatch,
+                "loader_s": loader_s, "wall_s": fit_wall_s,
+                "rays_per_sec": rate, "ms_per_step": [1e3 * fit_cfg.batch_size / r for r in rate],
+                "profile": {"dispatches": FIT_PROFILE_DISPATCHES, "window_ms": window_ms,
+                            "device_busy_ms": busy_ms,
+                            "device_idle_share": 1.0 - busy_ms / window_ms},
+                "launches": {k: v for k, v in fit_launches.items() if v},
+                "launches_per_step": per_step, "val_chunks": val_chunks,
+                "loss": {"first": losses[0], "last": losses[-1]} if losses else None,
+                "val_psnr": val_psnr,
+                "resume": {"wall_s": res_wall_s, "val_psnr": res_val,
+                           "tol_psnr_drop": TOL_RESUME_PSNR_DROP,
+                           "launches": {k: v for k, v in res_launches.items() if v}},
+                "eval": {"wall_s": ev_wall_s, "PSNR": results["PSNR"]["mean"],
+                         "SSIM": results["SSIM"]["mean"], "jpgs": len(jpgs),
+                         "launches": {k: v for k, v in ev_launches.items() if v}},
+                "geometry": {"queries": geo["queries"], "occupied": geo["occupied"],
+                             "bounds": gz["bounds"].tolist(), "seconds": geo["seconds"],
+                             "launches": {k: v for k, v in geo_launches_fit.items() if v}},
+                "pil_importable": pil, "checks": checks, "card": card}
+            emit(fit_rec)
+            require(all(checks.values()), f"fit checks failed: {checks}")
+            fit_path_launches = {k: fit_launches[k] + res_launches[k] + ev_launches[k]
+                                 + geo_launches_fit[k] for k in counters}
+        finally:
+            os.chdir(cwd)
+            shutil.rmtree(fit_dir, ignore_errors=True)
+        torch.cuda.empty_cache()
+
         # ----------------------------------------------------- bench_kernels
         # The port's kernel bench (aon_tpu_torch/scripts/bench_kernels.py),
         # every variant at its own shapes: rows 1 and 4 through the training
@@ -2572,6 +2781,12 @@ def main(argv=None) -> int:
             e.setdefault("launches_by_path", {"train": e["launches"]})
             e["launches"] += n
             e["launches_by_path"][path] = n
+        # the fit phase's CLI runs (fit, resume, --run_eval) and its extraction
+        for kname in ("fused_nerf_mlp_xyz_eval", "resample_union", "fused_level_train_grads",
+                      "fused_nerf_mlp_xyz"):
+            e = by_name[kname]
+            e["launches"] += fit_path_launches[kname]
+            e["launches_by_path"]["fit"] = fit_path_launches[kname]
         # and their checks at the bench's shapes
         for kname in ("resample_union", "fused_level_train_grads", "fused_level_train_art_grads"):
             by_name[kname]["bench_shapes"] = [

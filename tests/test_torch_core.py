@@ -7,7 +7,10 @@ Tolerances, and why:
   * sample coordinates o + t*d and lindisp t-values: one float32 ulp, since
     XLA on the CPU may contract a product and a sum into one FMA (it does so
     in some compilations and not in others; see test_torch_kernels.py);
-  * pos_enc 1e-6: torch.sin and XLA's sin differ by an ulp at ~3000 rad;
+  * pos_enc 1e-6, against JAX and against the exact sine of the same float32
+    arguments: the port's sine is taken in float64 and rounded once (torch's
+    float32 CPU sin gave one thread's chunk 1.5e-4 off on a process's first
+    call), XLA's lies within an ulp;
   * sample_pdf 1e-4: the CDF's sums run in another order in XLA and PyTorch
     (a few ulp of the CDF), and a fine sample moves by that over its bin's
     density;
@@ -116,6 +119,11 @@ def test_pos_enc(rng, deg):
     got = tsamp.pos_enc(_t(x), 0, deg).numpy()
     assert got.shape == want.shape == (16, 20, (2 * deg + 1) * 3)
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    # the port against the exact sine of the same float32 arguments
+    xb = (x[..., None, :] * np.float32(2.0) ** np.arange(deg, dtype=np.float32)[:, None])
+    xb = xb.reshape(16, 20, -1)
+    args = np.concatenate([xb, xb + np.float32(0.5 * np.pi)], -1).astype(np.float64)
+    np.testing.assert_allclose(got[..., 3:], np.sin(args), rtol=0, atol=1e-6)
 
 
 def test_sample_pdf(rng):

@@ -72,8 +72,12 @@ def main(argv=None) -> dict:
     ap.add_argument("--max_steps", type=int, default=None)
     ap.add_argument("--keep", default=None, help="where to copy the run's results")
     ap.add_argument("--reference", default=None, help="a metrics.jsonl to compare with")
+    ap.add_argument("--seed", type=int, default=None,
+                    help="another seed than the config's (weights, draws and ray stream)")
     args = ap.parse_args(argv)
     cfg = get_config(["--config", args.config])
+    if args.seed is not None:
+        cfg.seed = args.seed
     out = {"config": args.config}
     if args.max_steps is not None:
         cfg.output_path = args.run_dir

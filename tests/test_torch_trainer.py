@@ -429,3 +429,16 @@ def test_cli_and_trainer_run_on_cuda_by_default(fixture_root, tmp_path):
     _, tcfg = _configs(fixture_root, tmp_path)
     with pytest.raises(RuntimeError, match="CUDA"):
         trun.main(tcfg)
+
+
+def test_quality_run_compares_the_committed_curves_at_equal_steps():
+    from aon_tpu_torch.scripts import quality_run
+
+    rows = quality_run.compare(REPO / "results/torch_laptop_vanilla_refsched_occ16/metrics.jsonl",
+                               REPO / "results/laptop_vanilla_refsched_occ16/metrics.jsonl")
+    steps = [r[0] for r in rows]
+    assert len(rows) == 67 and steps[0] == 1503 and steps[-1] == 100000
+    assert all(s % 1503 == 0 for s in steps[:-1])
+    by_step = {r[0]: r for r in rows}
+    assert by_step[25551][2] == pytest.approx(40.21, abs=5e-3)  # the JAX curve's
+    assert all(abs(r[1] - r[2] - r[3]) < 1e-12 for r in rows)

@@ -1,36 +1,34 @@
-"""A quality training run in segments, each resumed from the last checkpoint,
-and its val PSNR against a reference curve at equal steps.
+"""A quality run's val PSNR against a reference curve at equal steps.
 
-    python -m aon_tpu_torch.scripts.quality_run \\
-        --config configs/quality_laptop_vanilla_refsched_occ16.json \\
-        --run_dir build/quality --max_steps 25551 --keep out/quality \\
+    python -m aon_tpu_torch.scripts.quality_run PORT_METRICS_JSONL \\
         [--reference results/laptop_vanilla_refsched_occ16/metrics.jsonl]
 
-Runs ``aon_tpu_torch.run.main`` on the config with ``output_path`` set to
-``--run_dir`` and ``run_max_steps`` to ``--max_steps`` (a config's JSON wins
-over the CLI's flags, so these two are set here; ``lr_max_steps`` is pinned at
-the config's ``run_max_steps``, so the LR schedule is the whole run's), resuming from
-``{run_dir}/{exp_name}/last.ckpt`` where it exists.  Then it copies what a
-later segment and the comparison need (``metrics.jsonl``, ``index.json``,
-``last.ckpt`` and the newest val image) to ``--keep``, and prints one JSON
-line: the device, the wall time, and each val/psnr beside the reference's at
-the same step.  ``--reference`` alone (with ``--keep``) only compares.
+prints one JSON line: ``[step, port val/psnr, reference val/psnr, port -
+reference]`` at every step both curves have.
+
+The run itself is the CLI's.  In segments, each resumed from the last
+checkpoint, write a copy of the config with the segment's end as
+``run_max_steps``, the whole run's LR horizon as ``lr_max_steps`` (else the
+schedule decays over each segment), ``output_path`` and, for another run,
+``seed``, then run it (a config's JSON keys win over the CLI's flags):
+
+    python - <<'EOF'
+    import json
+    c = json.load(open("configs/quality_laptop_vanilla_refsched_occ16.json"))
+    c.update(run_max_steps=25551, lr_max_steps=100000, output_path="build/quality", seed=0)
+    json.dump(c, open("build/quality.json", "w"))
+    EOF
+    python -m aon_tpu_torch.run --config build/quality.json                        # first
+    python -m aon_tpu_torch.run --config build/quality.json --ckpt_path last.ckpt  # later
 """
 
 from __future__ import annotations
 
 import argparse
 import json
-import os
-import shutil
-import subprocess
-import time
 from pathlib import Path
 
-import torch
-
-from aon_tpu_torch.run import main as run_main
-from aon_tpu_torch.utils.config import get_config
+REFERENCE = "results/laptop_vanilla_refsched_occ16/metrics.jsonl"
 
 
 def val_curve(metrics_jsonl) -> dict:
@@ -50,57 +48,14 @@ def compare(port_jsonl, reference_jsonl) -> list:
     return [[s, port[s], ref[s], port[s] - ref[s]] for s in sorted(port) if s in ref]
 
 
-def keep(run_dir: Path, out: Path) -> None:
-    """Copy a run directory's small results and last checkpoint to ``out``."""
-    out.mkdir(parents=True, exist_ok=True)
-    for name in ("metrics.jsonl", "index.json"):
-        if (run_dir / name).exists():
-            shutil.copy2(run_dir / name, out / name)
-    if (run_dir / "last.ckpt").is_dir():
-        shutil.rmtree(out / "last.ckpt", ignore_errors=True)
-        shutil.copytree(run_dir / "last.ckpt", out / "last.ckpt")
-    images = sorted((run_dir / "val_images").glob("*.png"), key=os.path.getmtime)
-    if images:
-        (out / "val_images").mkdir(exist_ok=True)
-        shutil.copy2(images[-1], out / "val_images" / images[-1].name)
-
-
-def main(argv=None) -> dict:
+def main(argv=None) -> list:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--config", required=True)
-    ap.add_argument("--run_dir", default="build/quality")
-    ap.add_argument("--max_steps", type=int, default=None)
-    ap.add_argument("--keep", default=None, help="where to copy the run's results")
-    ap.add_argument("--reference", default=None, help="a metrics.jsonl to compare with")
-    ap.add_argument("--seed", type=int, default=None,
-                    help="another seed than the config's (weights, draws and ray stream)")
+    ap.add_argument("port", help="the run's metrics.jsonl")
+    ap.add_argument("--reference", default=REFERENCE, help="a metrics.jsonl to compare with")
     args = ap.parse_args(argv)
-    cfg = get_config(["--config", args.config])
-    if args.seed is not None:
-        cfg.seed = args.seed
-    out = {"config": args.config}
-    if args.max_steps is not None:
-        cfg.output_path = args.run_dir
-        # the LR decays over the config's horizon, not over this segment's
-        cfg.lr_max_steps = cfg.lr_max_steps or cfg.run_max_steps
-        cfg.run_max_steps = args.max_steps
-        run_dir = Path(args.run_dir) / cfg.exp_name
-        if (run_dir / "last.ckpt").is_dir():
-            cfg.ckpt_path = "last.ckpt"
-        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                              "--format=csv,noheader"], capture_output=True, text=True)
-        t0 = time.perf_counter()
-        trainer = run_main(cfg)
-        torch.cuda.synchronize()
-        out.update(card=smi.stdout.strip(), wall_s=time.perf_counter() - t0,
-                   resumed=cfg.ckpt_path is not None, global_step=trainer.global_step)
-        if args.keep:
-            keep(run_dir, Path(args.keep) / cfg.exp_name)
-    if args.reference and args.keep:
-        out["val_psnr_vs_reference"] = compare(
-            Path(args.keep) / cfg.exp_name / "metrics.jsonl", args.reference)
-    print(json.dumps(out), flush=True)
-    return out
+    rows = compare(args.port, args.reference)
+    print(json.dumps(rows), flush=True)
+    return rows
 
 
 if __name__ == "__main__":

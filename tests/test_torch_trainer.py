@@ -442,3 +442,33 @@ def test_quality_run_compares_the_committed_curves_at_equal_steps():
     by_step = {r[0]: r for r in rows}
     assert by_step[25551][2] == pytest.approx(40.21, abs=5e-3)  # the JAX curve's
     assert all(abs(r[1] - r[2] - r[3]) < 1e-12 for r in rows)
+
+
+def test_quality_run_main_prints_the_comparison(capsys):
+    from aon_tpu_torch.scripts import quality_run
+
+    port = REPO / "results/torch_laptop_vanilla_refsched_occ16/metrics.jsonl"
+    rows = quality_run.main([str(port), "--reference",
+                             str(REPO / "results/laptop_vanilla_refsched_occ16/metrics.jsonl")])
+    assert json.loads(capsys.readouterr().out) == rows
+    assert rows == quality_run.compare(port, REPO / quality_run.REFERENCE)
+
+
+def test_quality_run_recipe_sets_each_segment_and_the_whole_runs_horizon(tmp_path):
+    """The segment recipe in quality_run's docstring: a config copy holds the
+    segment's end, the whole run's LR horizon, the output path and the seed,
+    and --ckpt_path, absent from the JSON, reaches the config."""
+    from aon_tpu_torch.train.optim import make_optimizer
+    from aon_tpu_torch.train.schedule import nerf_lr_schedule
+    from aon_tpu_torch.utils.config import get_config as tget_config
+
+    c = json.loads((REPO / "configs/quality_laptop_vanilla_refsched_occ16.json").read_text())
+    c.update(run_max_steps=25551, lr_max_steps=100000, output_path=str(tmp_path), seed=1)
+    path = tmp_path / "quality.json"
+    path.write_text(json.dumps(c))
+    cfg = tget_config(["--config", str(path), "--ckpt_path", "last.ckpt"])
+    assert (cfg.run_max_steps, cfg.lr_max_steps, cfg.seed, cfg.ckpt_path) == (
+        25551, 100000, 1, "last.ckpt")
+    whole = nerf_lr_schedule(max_steps=100000)
+    _, schedule = make_optimizer(cfg)
+    assert [schedule(s) for s in (0, 1503, 25551)] == [whole(s) for s in (0, 1503, 25551)]

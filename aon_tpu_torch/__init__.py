@@ -13,6 +13,9 @@ the CUDA kernels in ``ops/csrc``), ``eval.render.render_frame`` and
 training kernels in ``ops/csrc/level_train.cu``, Adam with the log-lerp
 schedule), trained on a single-scene SAPIEN dataset through the CLI
 (``python -m aon_tpu_torch.run`` -> ``train.trainer.Trainer`` on
-``data.sapien.SapienDataset``); the auto-decoder's system and kernels.
+``data.sapien.SapienDataset``); the auto-decoder's system and kernels,
+trained through the same CLI on the multi-instance articulated dataset
+(``data.sapien_multi.SapienDatasetMulti``) and evaluated on its 19-frame
+sweep (``scripts.render_sweep``, ``scripts.eval_per_instance``).
 ROADMAP.md lists what is still to come.
 """

@@ -48,8 +48,16 @@ import torch
 import torch.nn.functional as F
 
 from aon_tpu_torch.data.aabb import scene_aabb
-from aon_tpu_torch.ops.fused_art import art_mlp_fwd_plain, fold_latents, fused_art_mlp_eval
+from aon_tpu_torch.ops.fused_art import (
+    POS_DIM,
+    VIEW_DIM,
+    art_mlp_fwd_plain,
+    fold_latents,
+    fused_art_mlp_eval,
+)
 from aon_tpu_torch.ops.fused_mlp import (
+    POS_PAD,
+    VIEW_PAD,
     fused_nerf_mlp_xyz,
     fused_nerf_mlp_xyz_plain,
     launch_blobs,
@@ -68,6 +76,27 @@ POINTS_PER_RAY = 128
 NEAR, FAR = 2.0, 6.0
 
 
+def encoding_constants(cfg, device) -> dict:
+    """The kernels' posenc constants at the config's encoding degrees
+    (``N_emb_xyz``, ``N_emb_dir``), as the render and step paths build them
+    (``ops/render_fused.py``).  The vanilla kernels take any degrees whose
+    encodings fit their padded input widths (``POS_PAD``, ``VIEW_PAD``); the
+    articulated kernels' weights are laid out for (10, 4) alone.  Other
+    degrees raise ``ValueError``."""
+    deg_xyz, deg_dir = cfg.N_emb_xyz, cfg.N_emb_dir
+    width_xyz, width_dir = 3 * (2 * deg_xyz + 1), 3 * (2 * deg_dir + 1)
+    if cfg.exp_type == "vanilla":
+        fits = width_xyz <= POS_PAD and width_dir <= VIEW_PAD
+        takes = f"at most {POS_PAD} / {VIEW_PAD}"
+    else:
+        fits = (width_xyz, width_dir) == (POS_DIM, VIEW_DIM)
+        takes = f"{POS_DIM} / {VIEW_DIM}"
+    if not fits:
+        raise ValueError(f"N_emb_xyz={deg_xyz} / N_emb_dir={deg_dir} encode {width_xyz} / "
+                         f"{width_dir} channels; the {cfg.exp_type} kernels take {takes}")
+    return make_posenc_constants(deg_xyz, deg_dir, device=device)
+
+
 def density_color_fn(trainer, args, plain: bool = False):
     """A (points (N, 3)) -> (sigma (N,), rgb (N, 3)) closure on the trained
     system's device (fine level only: it is the one supervised at the final
@@ -81,7 +110,7 @@ def density_color_fn(trainer, args, plain: bool = False):
     viewdir = np.array(args.viewdir, dtype=np.float32)
     viewdir /= max(np.linalg.norm(viewdir), 1e-8)
     viewdir = torch.from_numpy(viewdir).to(device)
-    enc_consts = make_posenc_constants(device=device)
+    enc_consts = encoding_constants(cfg, device)
 
     def blocks(pts):
         n = pts.shape[0]

@@ -1,5 +1,6 @@
-"""Training orchestration (port of the single-scene vanilla path of
-``aon_tpu/train/trainer.py``).
+"""Training orchestration (port of ``aon_tpu/train/trainer.py`` for the
+vanilla NeRF on the single-scene dataset and the auto-decoder on the
+multi-instance articulated one).
 
 Reference behavior reproduced (``run.py:86-166``):
   * epochs of ``steps_per_epoch`` batches, hard step cap ``run_max_steps``;
@@ -13,15 +14,19 @@ Reference behavior reproduced (``run.py:86-166``):
 
 One device: ray batches stream from the host as fixed-shape numpy (the
 loader's ``np.random.default_rng`` stream, so they are the JAX trainer's bit
-for bit) and ``steps_per_dispatch`` steps at a time go through
+for bit: ``batch_size`` random rays of the single-scene dataset, or one
+(instance, articulation) frame's ``ray_batch_size`` rays of
+``sapien_multi``) and ``steps_per_dispatch`` steps at a time go through
 ``system.train_many``.  The sampling draws of each dispatch come from a
 ``torch.Generator`` seeded from ``(cfg.seed, global_step)``, so a run does
 not depend on how its steps were cut into epochs or calls (the JAX trainer
 folds the global step into its PRNG key).  ``profile_dir`` takes a
 ``torch.profiler`` trace of the first trained epoch.
 
-Not ported: the articulated dataset (``sapien_multi``, ROADMAP.md slice 6b)
-and the auto-encoder (slice 7); both raise ``NotImplementedError``.
+Multi-instance runs validate on five seeded train frames and test on the
+19-frame spheric sweep, rendered from the interpolated articulation codes,
+with a video beside the jpgs.  Not ported: the auto-encoder (ROADMAP.md
+slice 7), which raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -148,6 +153,7 @@ class Trainer:
                 "exp_type='vanilla_ae_art' is not ported yet (ROADMAP.md slice 7: the "
                 "auto-encoder)")
         self.cfg = cfg
+        self.is_multi = cfg.dataset_name == "sapien_multi"
         self.device = resolve_device(device)
         self.result_dir = Path(cfg.output_path) / cfg.exp_name
         self.result_dir.mkdir(parents=True, exist_ok=True)
@@ -159,6 +165,14 @@ class Trainer:
             use_occgrid=cfg.use_occgrid, occgrid_res=cfg.occgrid_res,
             occgrid_dilate=cfg.occgrid_dilate,
         )
+        if self.is_multi:
+            common.update(
+                samples_per_epoch=cfg.samples_per_epoch,
+                ray_batch_size=cfg.ray_batch_size,
+                obj_ray_oversample=cfg.obj_ray_oversample,
+                # only the auto-encoder's encoder reads src_imgs
+                need_src_imgs=cfg.exp_type == "vanilla_ae_art",
+            )
         if cfg.run_eval:
             self.test_dataset = ds_cls(
                 split="test_val", eval_inference=cfg.render_name or "render", **common
@@ -227,11 +241,18 @@ class Trainer:
     def _train_iterator(self):
         # fold the restored global_step into the seed: a resumed run draws a
         # fresh ray stream instead of replaying consumed batches from step 0
-        return self.train_dataset.ray_batches(self.cfg.batch_size,
-                                              seed=self.cfg.seed + self.global_step)
+        seed = self.cfg.seed + self.global_step
+        if self.is_multi:
+            return self.train_dataset.train_batches(seed=seed)
+        return self.train_dataset.ray_batches(self.cfg.batch_size, seed=seed)
 
     def _steps_per_epoch(self) -> int:
+        if self.is_multi:
+            return self.cfg.samples_per_epoch
         return self.train_dataset.steps_per_epoch(self.cfg.batch_size)
+
+    def _rays_per_step(self) -> int:
+        return self.cfg.ray_batch_size if self.is_multi else self.cfg.batch_size
 
     def _dispatch(self, it, n_steps: int):
         """``n_steps`` optimizer steps from the ray stream ``it``: through
@@ -270,6 +291,7 @@ class Trainer:
                                   cfg.plateau_abort)
         it = self._train_iterator()
         steps_per_epoch = self._steps_per_epoch()
+        rays_per_step = self._rays_per_step()
         start_epoch = self.global_step // max(1, steps_per_epoch)
         t_dispatch = max(1, cfg.steps_per_dispatch)
 
@@ -292,7 +314,7 @@ class Trainer:
                 self.state, metrics = self._dispatch(it, t_now)
                 self.global_step += t_now
                 steps_done += t_now
-                n_rays += cfg.batch_size * t_now
+                n_rays += rays_per_step * t_now
                 self._beat()
                 if self.global_step % cfg.log_every_n_steps < t_now:
                     metrics = {k: float(v) for k, v in metrics.items()}
@@ -335,18 +357,31 @@ class Trainer:
     # ------------------------------------------------------------ validation
 
     def _val_frames(self):
-        n = min(self.cfg.limit_val_batches, len(self.val_dataset.img_files))
+        cfg = self.cfg
+        if self.is_multi:  # five random train frames, fixed by the seed
+            for i in range(min(cfg.limit_val_batches, 5)):
+                yield self.val_dataset.val_frame(seed=cfg.seed + i)
+            return
+        n = min(cfg.limit_val_batches, len(self.val_dataset.img_files))
         for i in range(n):
             yield self.val_dataset.full_frame(i)
 
-    def _render_full(self, params, frame: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    def _render_full(self, params, frame: Dict[str, np.ndarray],
+                     is_test: bool = False) -> Dict[str, np.ndarray]:
+        """Render one frame; the auto-decoder's frame carries its instance and
+        articulation, and ``is_test`` indexes the 2N-1 interpolated codes."""
+        extra = {}
+        if self.cfg.exp_type == "vanilla_autodecoder":
+            extra = dict(instance_id=int(frame["instance_id"]),
+                         articulation_id=int(frame["articulation_id"]), is_test=is_test)
         miss_fill = None
         if "hit" in frame:
             # AABB path: rays missing the box ARE the background — skip them
             bg = 1.0 if self.cfg.white_back else 0.0
             miss_fill = {"comp_rgb": bg, "acc": 0.0, "depth": 0.0}
-        return render_frame(lambda rays: self.system.render_chunk(params, rays), frame,
-                            self.cfg.chunk, miss_fill=miss_fill, device=self.device)
+        return render_frame(lambda rays, **ex: self.system.render_chunk(params, rays, **ex),
+                            frame, self.cfg.chunk, miss_fill=miss_fill, device=self.device,
+                            **extra)
 
     def validate(self, epoch: int) -> float:
         psnrs, psnrs_obj = [], []
@@ -374,7 +409,8 @@ class Trainer:
     # ------------------------------------------------------------------ test
 
     def test(self, ckpt_name: Optional[str] = None) -> dict:
-        """Render every test frame, write the eval artifacts under
+        """Render every test frame (the 19-frame spheric sweep of a
+        multi-instance dataset, with a video), write the eval artifacts under
         ``ckpts/{exp_name}/{render_name}/`` and ``ckpts/{exp_name}/results.json``
         of the working directory, as the JAX trainer does.  LPIPS is not
         ported (ROADMAP.md slice 8): its entry is None, as the JAX trainer's
@@ -389,8 +425,11 @@ class Trainer:
         rgbs, targets, masks, depths = [], [], [], []
         w, h = cfg.img_wh
         for i in range(n_frames):
-            frame = self.test_dataset.full_frame(i)
-            ret = self._render_full(self.state.params, frame)
+            if self.is_multi:
+                frame = self.test_dataset.test_frame(i, seed=cfg.seed)
+            else:
+                frame = self.test_dataset.full_frame(i)
+            ret = self._render_full(self.state.params, frame, is_test=self.is_multi)
             self._beat()
             rgbs.append(ret["comp_rgb"].reshape(h, w, 3))
             targets.append(np.asarray(frame["target"]).reshape(h, w, 3))
@@ -408,6 +447,8 @@ class Trainer:
         artifacts.store_image(image_dir, rgbs, "image")
         if depths:
             artifacts.store_depth_img(image_dir, depths, "depth")
+        if self.is_multi:
+            artifacts.store_video(image_dir, rgbs)
         artifacts.write_stats(os.path.join("ckpts", cfg.exp_name, "results.json"),
                               psnr_stats, ssim_stats, psnr_obj_stats)
         results = {

@@ -27,7 +27,8 @@ Phases, each printed as one JSON line on stdout (nothing else goes there):
            on the CDF itself); the fit phase's render: the eval MLP from raw
            coordinates at 61,440 x 17 and x 49 and the resample at 61,440 x
            (17 + 32) on per-ray intervals with the eval quantiles, checked
-           and (the MLP) timed; training: 2,048 rays x 65 and
+           and (the MLP) timed; the fit_art phase's render: the resample at
+           61,440 x (25 + 48) the same way, checked; training: 2,048 rays x 65 and
            x 193 for the level, the MLP backward from raw coordinates and from
            encodings and the eval MLP with the bf16-rounded float32 packing of
            the v2 forward (and at x 193 from encodings, as fused_mlp_train's
@@ -75,7 +76,8 @@ Phases, each printed as one JSON line on stdout (nothing else goes there):
   art_kernel  the three articulated kernels (forward, MLP backward, fused
            level) on configs/quality_laptop_autodec.json's MLP with seeded
            weights and codes, at their paths' shapes (forward: 61,440 rays x 65
-           and x 193 of a render chunk and 2,048 x 65 / x 193 of the v2
+           and x 193 of a render chunk, x 25 and x 73 on per-ray intervals of
+           the fit_art phase's render chunk, and 2,048 x 65 / x 193 of the v2
            forward; backward and level: 2,048 x 65 and x 193 with t sampled as
            a step samples it; the level also with the auto-encoder's arguments
            and with a white background), each against its plain twin, timed
@@ -123,6 +125,23 @@ Phases, each printed as one JSON line on stdout (nothing else goes there):
            stream, the val PSNR held), --run_eval --render_name smoke (results.json, the jpgs
            decoded by utils/imageio.py) and extract_geometry at 160^3 with the
            dataset's bounds (63 launches of row 8); and whether PIL imports;
+  fit_art  the same CLI for the auto-decoder on
+           configs/quality_laptop_autodec_24k_aabb24.json (24 + 48 samples on
+           AABB intervals, 4,096 rays a step as two microbatches of 2,048) over
+           a 320x240 --multi fixture (2 instances x 10 degrees x 3 train
+           frames, one instance with a test_spheric split), overriding only
+           root_dir, output_path, run_max_steps, samples_per_epoch and
+           num_epochs: the articulated loader's scene AABB cold and cached,
+           its frames decoded cold and from the frame cache, a 4,096-ray item;
+           400 steps in dispatches of 8 and one validation of five frames
+           (rays/s, ms per step, exact launches of rows 9, 2 and 10, the fixed
+           batch's loss falling, val PSNR above the initial weights'), the
+           idle share over four dispatches, a resume of 16 steps (the weights
+           restored bit for bit), --run_eval (the 19-frame sweep, its jpgs
+           and video), render_sweep (19 codes under one camera),
+           eval_per_instance (per_instance.json) and extract_geometry with
+           the dataset's bounds (63 launches of row 10), each with its exact
+           launches;
   bench_kernels  the port's kernel bench (aon_tpu_torch/scripts/bench_kernels.py)
            with every variant, its lines re-emitted with exact launch counts;
            then each variant of rows 12 (three bodies) and 13 (three
@@ -318,6 +337,17 @@ TOL_RESUME_PSNR_DROP = 0.1
 # lr delay, on an lr horizon of 400 steps
 FIT_LOSS_FALL = 0.5
 FIT_PROFILE_DISPATCHES = 4  # dispatches of the fit loop under torch.profiler
+
+# ---- the fit_art phase: the same CLI on the auto-decoder's quality config
+# over a 320x240 --multi fixture (2 instances x 10 degrees x FIT_ART_VIEWS)
+FIT_ART_CONFIG = "configs/quality_laptop_autodec_24k_aabb24.json"
+FIT_ART_COARSE, FIT_ART_FINE = 24, 48  # FIT_ART_CONFIG's N_samples and N_importance
+FIT_ART_VIEWS = 3  # train frames per degree directory
+FIT_ART_STEPS, FIT_ART_RESUME_STEPS = 400, 16  # whole dispatches of 8 steps
+# the loss of the run's first batch with fixed draws, fitted against initial
+# weights (the fit phase's measure); the 400 steps run at the start of the
+# 2,500-step lr delay on a 400-step horizon
+FIT_ART_LOSS_FALL = 0.8
 
 # the kernel's occupancy against its twin's: voxels whose sigma lies within
 # the kernel / twin noise of the threshold may flip; at most this share of
@@ -571,6 +601,7 @@ def main(argv=None) -> int:
         from aon_tpu_torch.data.aabb import scene_aabb
         from aon_tpu_torch.data.analytic import analytic_scene
         from aon_tpu_torch.data.sapien import SapienDataset
+        from aon_tpu_torch.data.sapien_multi import SapienDatasetMulti
         from aon_tpu_torch.eval import metrics as eval_metrics
         from aon_tpu_torch.eval.render import render_frame
         from aon_tpu_torch.data.analytic import articulated_scene
@@ -612,10 +643,12 @@ def main(argv=None) -> int:
         from aon_tpu_torch.scripts import bench as port_bench
         from aon_tpu_torch.scripts import bench_kernels as port_bench_kernels
         from aon_tpu_torch.scripts import (
+            eval_per_instance,
             extract_geometry,
             kernel_times,
             level_split,
             make_fixture_dataset,
+            render_sweep,
         )
         from aon_tpu_torch.train.checkpoint import CheckpointManager
         from aon_tpu_torch.ops.render_fused import mlp_params
@@ -1118,6 +1151,19 @@ def main(argv=None) -> int:
         u = eval_quantiles(FIT_FINE, device=dev).expand(CHUNK_RAYS, FIT_FINE)
         resample_fit_rec = resample_record(t_vals, bins, as_window(weights), u, timed=False,
                                            path="fit")
+        # and at the fit_art phase's: FIT_ART_COARSE + 1 samples on per-ray
+        # (AABB) intervals, FIT_ART_FINE eval quantiles.  The fit_art shapes'
+        # inputs come from a generator of their own, so every check after
+        # them draws what it drew before they were added
+        fit_art_gen = torch.Generator(device=dev).manual_seed(args.seed + 101)
+        t_vals, _ = sample_along_rays(origins, dirs, FIT_ART_COARSE, near, far)
+        bins = (0.5 * (t_vals[:, 1:] + t_vals[:, :-1])).contiguous()
+        weights = torch.rand(CHUNK_RAYS, FIT_ART_COARSE - 1, generator=fit_art_gen,
+                             device=dev) ** 4
+        weights[::97] = 0.0
+        u = eval_quantiles(FIT_ART_FINE, device=dev).expand(CHUNK_RAYS, FIT_ART_FINE)
+        resample_fit_art_rec = resample_record(t_vals, bins, as_window(weights), u, timed=False,
+                                               path="fit_art")
         del t_vals, bins, weights, u, near, far
         torch.cuda.empty_cache()
 
@@ -1573,6 +1619,17 @@ def main(argv=None) -> int:
             art_rows["art_mlp_fwd", "render", n_samples] = art_fwd_record(
                 packed_fine, samples.contiguous(), dirs, "render chunk")
             del samples
+        # at the fit_art phase's render shapes: 24 + 1 and 24 + 1 + 48 samples
+        # on per-ray intervals inside [2, 6] (AABB intervals)
+        near = 2.0 + 2.0 * torch.rand(CHUNK_RAYS, generator=fit_art_gen, device=dev)
+        far = near + (6.0 - near) * torch.rand(CHUNK_RAYS, generator=fit_art_gen,
+                                               device=dev).clamp_min(0.05)
+        for n_samples in (FIT_ART_COARSE + 1, FIT_ART_COARSE + 1 + FIT_ART_FINE):
+            _, samples = sample_along_rays(origins, dirs, n_samples - 1, near, far)
+            art_rows["art_mlp_fwd", "fit_art", n_samples] = art_fwd_record(
+                packed_fine, samples.contiguous(), dirs, "fit_art render chunk")
+            del samples
+        del near, far
         del packed_fine
         torch.cuda.empty_cache()
 
@@ -2339,6 +2396,271 @@ def main(argv=None) -> int:
             shutil.rmtree(fit_dir, ignore_errors=True)
         torch.cuda.empty_cache()
 
+        # ----------------------------------------------------------- fit_art
+        # The CLI's main path for the auto-decoder on its quality config
+        # (24 + 48 samples on AABB intervals, 4,096 rays a step as two
+        # microbatches of 2,048) over a 320x240 --multi fixture with depth,
+        # one instance with a test_spheric split: the loader cold and warm,
+        # FIT_ART_STEPS steps in dispatches of 8 and one validation of five
+        # frames, a resume, --run_eval (the 19-frame sweep), render_sweep,
+        # eval_per_instance and an extraction with the dataset's bounds
+        phase = "fit_art"
+        fa_dir = Path(tempfile.mkdtemp(prefix="aon_fit_art_"))
+        cwd = os.getcwd()
+        try:
+            os.chdir(fa_dir)
+            data = fa_dir / "data"
+            with contextlib.redirect_stdout(io.StringIO()):
+                make_fixture_dataset.main([str(data), "--multi", "--n", str(FIT_ART_VIEWS),
+                                           "--wh", "320", "240", "--seed", str(args.seed)])
+            shutil.copytree(data / "obj_a" / "train" / "0_degree", data / "obj_a" / "test_spheric")
+            cfg_json = json.loads((ROOT / FIT_ART_CONFIG).read_text())
+            # one epoch holds the run and its resume: one validation each
+            cfg_json.update(root_dir=str(data), output_path=str(fa_dir / "results"),
+                            run_max_steps=FIT_ART_STEPS,
+                            samples_per_epoch=FIT_ART_STEPS + FIT_ART_RESUME_STEPS, num_epochs=1)
+            fa_cfg_path = fa_dir / Path(FIT_ART_CONFIG).name
+            fa_cfg_path.write_text(json.dumps(cfg_json))
+            fa_cfg = get_config(["--config", str(fa_cfg_path)])
+            _, bench_rays, _, _, bench_samples = BENCH_CONTRACTS[1]
+            require((fa_cfg.N_samples, fa_cfg.N_importance, fa_cfg.ray_batch_size,
+                     fa_cfg.microbatch_rays) == (FIT_ART_COARSE, FIT_ART_FINE, bench_rays,
+                                                 bench_rays // ART_MICRO)
+                    and bench_samples == (FIT_ART_COARSE, FIT_ART_FINE),
+                    f"{FIT_ART_CONFIG} no longer has the bench's and the kernel phases' "
+                    "auto-decoder shapes")
+            ds_kw = dict(img_wh=tuple(fa_cfg.img_wh), use_aabb=fa_cfg.use_aabb,
+                         aabb_pad=fa_cfg.aabb_pad, ray_batch_size=fa_cfg.ray_batch_size,
+                         need_src_imgs=False)
+
+            # the loader: the scene AABB from every degree directory's depth
+            # maps (cold: computed; warm: its cache), then every train frame
+            # decoded with its intervals (cold) and served from the frame
+            # cache (warm), and a 4,096-ray item from cached frames
+            fa_loader_s = {}
+            for label in ("cold", "warm"):
+                t0 = time.perf_counter()
+                fa_train = SapienDatasetMulti(fa_cfg.root_dir, "train", **ds_kw)
+                fa_loader_s[f"scene_aabb_{label}"] = time.perf_counter() - t0
+            frames = [(inst, deg, k) for inst in fa_train.ids
+                      for deg in fa_train._degree_dirs(inst) for k in range(FIT_ART_VIEWS)]
+            for label in ("cold", "warm"):
+                t0 = time.perf_counter()
+                for inst, deg, k in frames:
+                    fa_train._read_frame_cached(inst, deg, k)
+                fa_loader_s[f"frame_ms_{label}"] = 1e3 * (time.perf_counter() - t0) / len(frames)
+            items = fa_train.train_batches(seed=fa_cfg.seed)
+            next(items)
+            t0 = time.perf_counter()
+            for _ in range(16):
+                next(items)
+            fa_loader_s["item_ms_warm"] = 1e3 * (time.perf_counter() - t0) / 16
+
+            def chunks_of(frame):
+                return math.ceil(int(np.asarray(frame["hit"]).sum()) / fa_cfg.chunk)
+
+            fa_val_ds = SapienDatasetMulti(fa_cfg.root_dir, "val", **ds_kw)
+            fa_val_frames = [fa_val_ds.val_frame(seed=fa_cfg.seed + i)
+                             for i in range(min(fa_cfg.limit_val_batches, 5))]
+            fa_val_chunks = sum(chunks_of(f) for f in fa_val_frames)
+            fa_test_ds = SapienDatasetMulti(fa_cfg.root_dir, "test_val", eval_inference="x",
+                                            **ds_kw)
+            n_test = len(fa_test_ds)
+            test_chunks = sum(chunks_of(fa_test_ds.test_frame(i, seed=fa_cfg.seed))
+                              for i in range(n_test))
+            per_inst_chunks = sum(chunks_of(fa_test_ds.test_frame(i, seed=fa_cfg.seed,
+                                                                  instance=inst))
+                                  for inst in range(len(fa_test_ds.ids)) for i in range(n_test))
+            sweep_ids = 2 * len(fa_test_ds._degree_dirs(fa_test_ds.ids[0])) - 1
+            sweep_chunks = sweep_ids * chunks_of(
+                dict(hit=fa_test_ds._read_frame(fa_test_ds.ids[0], "0_degree", 0)[5][0]))
+
+            fa_trainer, fa_wall_s, fa_launches, _ = run_cli(fa_cfg)
+            fa_params = {k: v.detach().clone() for k, v in fa_trainer.state.params.items()}
+            fa_run_dir = fa_dir / "results" / fa_cfg.exp_name
+            fa_recs = [json.loads(ln) for ln in
+                       (fa_run_dir / "metrics.jsonl").read_text().splitlines()]
+            fa_rate = [r["train/rays_per_sec"] for r in fa_recs if "train/rays_per_sec" in r]
+            fa_val = [r["val/psnr"] for r in fa_recs if "val/psnr" in r]
+
+            # learning: the run's first batch with one fixed set of draws
+            # under the run's initial weights and the fitted ones; the five
+            # val frames under the initial weights
+            batch0 = next(fa_trainer.train_dataset.train_batches(seed=fa_cfg.seed))
+            batch0 = {k: v[0] for k, v in stack_step_batches(
+                [batch0], microbatch=fa_cfg.microbatch_rays, device=dev).items()}
+            fa_init = fa_trainer.system.init_state(
+                torch.Generator(device=dev).manual_seed(fa_cfg.seed)).params
+
+            def fa_fixed_loss(params):
+                g = torch.Generator(device=dev).manual_seed(args.seed + 11)
+                return accumulated_grads(fa_trainer.system.loss_fn, params, batch0, g)[0].item()
+
+            fa_loss_fresh, fa_loss_fitted = fa_fixed_loss(fa_init), fa_fixed_loss(fa_params)
+            fa_val_fresh = float(np.mean([eval_metrics.psnr(
+                fa_trainer._render_full(fa_init, f)["comp_rgb"], f["target"])
+                for f in fa_val_frames]))
+            del fa_init
+
+            from torch.profiler import ProfilerActivity, profile
+
+            it = fa_trainer._train_iterator()
+            fa_trainer._dispatch(it, fa_cfg.steps_per_dispatch)  # warm
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(FIT_PROFILE_DISPATCHES):
+                    fa_trainer.state, _ = fa_trainer._dispatch(it, fa_cfg.steps_per_dispatch)
+                torch.cuda.synchronize()
+                fa_window_ms = 1e3 * (time.perf_counter() - t0)
+            fa_busy_ms = sum(e.device_time_total for e in prof.key_averages()
+                             if e.device_type.name == "CUDA") / 1e3
+            require(fa_busy_ms > 0, "torch.profiler recorded no device time in the fit_art loop")
+
+            # resume: FIT_ART_RESUME_STEPS more steps from last.ckpt
+            res_cfg = get_config(["--config", str(fa_cfg_path), "--ckpt_path", "last.ckpt"])
+            res_cfg.run_max_steps = FIT_ART_STEPS + FIT_ART_RESUME_STEPS
+            fa_restored, plain_restore = [], CheckpointManager.restore
+
+            def fa_restore_spy(manager, state, name=None):
+                out = plain_restore(manager, state, name)
+                fa_restored.append((out.step, {k: v.detach().clone()
+                                               for k, v in out.params.items()}))
+                return out
+
+            CheckpointManager.restore = fa_restore_spy
+            try:
+                fa_res_trainer, fa_res_wall_s, fa_res_launches, fa_res_out = run_cli(res_cfg)
+            finally:
+                CheckpointManager.restore = plain_restore
+            fa_res_recs = [json.loads(ln) for ln in
+                           (fa_run_dir / "metrics.jsonl").read_text().splitlines()][len(fa_recs):]
+            fa_res_val = [r["val/psnr"] for r in fa_res_recs if "val/psnr" in r]
+
+            # --run_eval: the 19-frame sweep
+            ev_cfg = get_config(["--config", str(fa_cfg_path), "--run_eval",
+                                 "--render_name", "smoke", "--ckpt_path", "last.ckpt"])
+            _, fa_ev_wall_s, fa_ev_launches, _ = run_cli(ev_cfg)
+            exp_dir = fa_dir / "ckpts" / fa_cfg.exp_name
+            fa_results = json.loads((exp_dir / "results.json").read_text())
+            images = sorted((exp_dir / "smoke").glob("image*.jpg"))
+            video = sorted((exp_dir / "smoke" / "videos").iterdir())
+            decoded = [read_jpeg(p) for p in images]
+
+            def run_script(fn, argv):
+                for c in counters.values():
+                    c.launches = 0
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(io.StringIO()):
+                    out = fn(argv)
+                torch.cuda.synchronize()
+                return out, time.perf_counter() - t0, {k: c.launches for k, c in counters.items()}
+
+            sweep, sweep_s, sweep_launches = run_script(render_sweep.main,
+                                                        ["--config", str(fa_cfg_path)])
+            sweep_files = sorted((exp_dir / "sweep").glob("sweep*.jpg"))
+            per, per_s, per_launches = run_script(
+                eval_per_instance.main, ["--config", str(fa_cfg_path), "--ckpt_path", "last.ckpt"])
+            per_json = json.loads((exp_dir / "per_instance.json").read_text())
+            fa_geo, fa_geo_s, fa_geo_launches = run_script(
+                extract_geometry.main, ["--config", str(fa_cfg_path), "--out", "geometry_fit_art"])
+            fa_gz = np.load(fa_dir / fa_geo["out_dir"] / "density_grid.npz")
+            fa_bounds = scene_aabb(sorted(str(d) for d in data.glob("*/train/*_degree")),
+                                   tuple(fa_cfg.img_wh), pad=fa_cfg.aabb_pad)
+
+            art_steps = 2 * ART_MICRO  # row 9 per step: two levels per microbatch
+            fa_checks = {
+                "launches": launches_are(
+                    fa_launches, fused_level_train_art_grads=art_steps * FIT_ART_STEPS,
+                    resample_union=ART_MICRO * FIT_ART_STEPS + fa_val_chunks,
+                    art_mlp_fwd=2 * fa_val_chunks),
+                "loss_falls": fa_loss_fitted < FIT_ART_LOSS_FALL * fa_loss_fresh,
+                "val_psnr_rises": len(fa_val) == 1 and fa_val[0] > fa_val_fresh,
+                "resume_continues": (
+                    f"resumed from step {FIT_ART_STEPS}" in fa_res_out
+                    and fa_res_trainer.global_step == FIT_ART_STEPS + FIT_ART_RESUME_STEPS
+                    and all(r["step"] > FIT_ART_STEPS for r in fa_res_recs)
+                    and launches_are(
+                        fa_res_launches,
+                        fused_level_train_art_grads=art_steps * FIT_ART_RESUME_STEPS,
+                        resample_union=ART_MICRO * FIT_ART_RESUME_STEPS + fa_val_chunks,
+                        art_mlp_fwd=2 * fa_val_chunks)),
+                "resume_restores_params": (
+                    len(fa_restored) == 1 and fa_restored[0][0] == FIT_ART_STEPS
+                    and fa_restored[0][1].keys() == fa_params.keys()
+                    and all(torch.equal(fa_restored[0][1][k], v) for k, v in fa_params.items())),
+                "resume_val_psnr": (len(fa_res_val) == 1
+                                    and fa_res_val[0] >= fa_val[0] - TOL_RESUME_PSNR_DROP),
+                "test_launches": launches_are(fa_ev_launches, resample_union=test_chunks,
+                                              art_mlp_fwd=2 * test_chunks),
+                "results_json": all(math.isfinite(fa_results[k]["mean"])
+                                    for k in ("PSNR", "SSIM", "PSNR_obj")),
+                "test_files": (len(images) == n_test == 19
+                               and all(d.shape == (240, 320, 3) for d in decoded)
+                               and len(video) in (1, n_test)),
+                "sweep": (len(sweep["frames"]) == len(sweep_files) == sweep_ids
+                          and launches_are(sweep_launches, resample_union=sweep_chunks,
+                                           art_mlp_fwd=2 * sweep_chunks)
+                          and all(np.isfinite(f).all() for f in sweep["frames"])),
+                "per_instance": (
+                    per_json == json.loads(json.dumps(per))
+                    and [r["instance"] for r in per_json["instances"]] == [0, 1]
+                    and all(len(r["each"]) == n_test and math.isfinite(r["PSNR"])
+                            for r in per_json["instances"])
+                    and launches_are(per_launches, resample_union=per_inst_chunks,
+                                     art_mlp_fwd=2 * per_inst_chunks)),
+                "geometry_launches": launches_are(fa_geo_launches, art_mlp_fwd=fa_geo["queries"])
+                                     and fa_geo["queries"] == math.ceil(GEO_RES ** 3 / GEO_CHUNK),
+                "geometry_dataset_bounds": np.allclose(fa_gz["bounds"], fa_bounds),
+            }
+            fa_rec = {
+                "phase": "fit_art", "config": FIT_ART_CONFIG,
+                "fixture": {"wh": [320, 240], "instances": len(fa_train.ids), "degrees": 10,
+                            "train_per_degree": FIT_ART_VIEWS, "test_spheric": "obj_a"},
+                "steps": FIT_ART_STEPS, "steps_per_dispatch": fa_cfg.steps_per_dispatch,
+                "rays_per_step": fa_cfg.ray_batch_size, "microbatch_rays": fa_cfg.microbatch_rays,
+                "samples": [fa_cfg.N_samples, fa_cfg.N_importance],
+                "loader": fa_loader_s, "wall_s": fa_wall_s,
+                "rays_per_sec": fa_rate,
+                "ms_per_step": [1e3 * fa_cfg.ray_batch_size / r for r in fa_rate],
+                "profile": {"dispatches": FIT_PROFILE_DISPATCHES, "window_ms": fa_window_ms,
+                            "ms_per_step": fa_window_ms / (FIT_PROFILE_DISPATCHES
+                                                           * fa_cfg.steps_per_dispatch),
+                            "device_busy_ms": fa_busy_ms,
+                            "device_idle_share": 1.0 - fa_busy_ms / fa_window_ms},
+                "launches": {k: v for k, v in fa_launches.items() if v},
+                "launches_per_step": {"fused_level_train_art_grads": art_steps,
+                                      "resample_union": ART_MICRO},
+                "val_chunks": fa_val_chunks, "test_chunks": test_chunks,
+                "fixed_batch_loss": {"initial_weights": fa_loss_fresh, "fitted": fa_loss_fitted,
+                                     "ratio": fa_loss_fitted / fa_loss_fresh,
+                                     "fall": FIT_ART_LOSS_FALL},
+                "val_psnr": fa_val, "val_psnr_initial_weights": fa_val_fresh,
+                "resume": {"wall_s": fa_res_wall_s, "val_psnr": fa_res_val,
+                           "launches": {k: v for k, v in fa_res_launches.items() if v}},
+                "eval": {"wall_s": fa_ev_wall_s,
+                         **{k: fa_results[k]["mean"] for k in ("PSNR", "SSIM", "PSNR_obj")},
+                         "jpgs": len(images), "video_files": len(video),
+                         "launches": {k: v for k, v in fa_ev_launches.items() if v}},
+                "sweep": {"seconds": sweep_s, "frames": len(sweep["frames"]),
+                          "launches": {k: v for k, v in sweep_launches.items() if v}},
+                "per_instance": {"seconds": per_s,
+                                 "PSNR": [r["PSNR"] for r in per_json["instances"]],
+                                 "launches": {k: v for k, v in per_launches.items() if v}},
+                "geometry": {"seconds": fa_geo_s, "queries": fa_geo["queries"],
+                             "occupied": fa_geo["occupied"], "bounds": fa_gz["bounds"].tolist(),
+                             "launches": {k: v for k, v in fa_geo_launches.items() if v}},
+                "checks": fa_checks, "card": card}
+            emit(fa_rec)
+            require(all(fa_checks.values()), f"fit_art checks failed: {fa_checks}")
+            fit_art_path_launches = {
+                k: fa_launches[k] + fa_res_launches[k] + fa_ev_launches[k] + sweep_launches[k]
+                + per_launches[k] + fa_geo_launches[k] for k in counters}
+        finally:
+            os.chdir(cwd)
+            shutil.rmtree(fa_dir, ignore_errors=True)
+        torch.cuda.empty_cache()
+
         # ----------------------------------------------------- bench_kernels
         # The port's kernel bench (aon_tpu_torch/scripts/bench_kernels.py),
         # every variant at its own shapes: rows 1 and 4 through the training
@@ -2771,10 +3093,10 @@ def main(argv=None) -> int:
              "train": {k: train_rows["resample_union", N_COARSE + 1][k]
                        for k in ("shape", "quantiles") + keys + device_keys
                        + ("fused_resample",)},
-             "fit": {"shape": resample_fit_rec["shape"], "quantiles": resample_fit_rec["quantiles"],
-                     "max_abs_err": resample_fit_rec["max_abs_err"],
-                     "fused_resample_max_abs_err":
-                         resample_fit_rec["fused_resample"]["max_abs_err"]}},
+             **{path: {"shape": r["shape"], "quantiles": r["quantiles"],
+                       "max_abs_err": r["max_abs_err"],
+                       "fused_resample_max_abs_err": r["fused_resample"]["max_abs_err"]}
+                for path, r in (("fit", resample_fit_rec), ("fit_art", resample_fit_art_rec))}},
             train_entry("fused_level_train_grads", "aon_tpu/ops/train_fused_level.py:79"),
             train_entry("fused_mlp_bwd_xyz", "aon_tpu/ops/fused_mlp_train.py:320"),
         ]
@@ -2798,7 +3120,9 @@ def main(argv=None) -> int:
              "coarse": {k: art_rows["art_mlp_fwd", "render", N_COARSE + 1][k]
                         for k in ("shape",) + keys},
              "train": [{k: art_rows["art_mlp_fwd", "train", n][k] for k in ("shape",) + keys}
-                       for n in (N_COARSE + 1, N_COARSE + 1 + N_FINE)]},
+                       for n in (N_COARSE + 1, N_COARSE + 1 + N_FINE)],
+             "fit_art": [{k: art_rows["art_mlp_fwd", "fit_art", n][k] for k in ("shape",) + keys}
+                         for n in (FIT_ART_COARSE + 1, FIT_ART_COARSE + 1 + FIT_ART_FINE)]},
             art_entry("art_mlp_bwd", "aon_tpu/ops/fused_art.py:220"),
             dict(art_entry("fused_level_train_art_grads",
                            "aon_tpu/ops/train_fused_level_art.py:60", "autodecoder"),
@@ -2865,6 +3189,11 @@ def main(argv=None) -> int:
             e = by_name[kname]
             e["launches"] += fit_path_launches[kname]
             e["launches_by_path"]["fit"] = fit_path_launches[kname]
+        # the fit_art phase's CLI runs, scripts and extraction
+        for kname in ("fused_level_train_art_grads", "resample_union", "art_mlp_fwd"):
+            e = by_name[kname]
+            e["launches"] += fit_art_path_launches[kname]
+            e["launches_by_path"]["fit_art"] = fit_art_path_launches[kname]
         # and their checks at the bench's shapes
         for kname in ("resample_union", "fused_level_train_grads", "fused_level_train_art_grads"):
             by_name[kname]["bench_shapes"] = [

@@ -357,9 +357,12 @@ def test_occ_interval_cache_is_shared_with_jax(fixture_root, tmp_path, monkeypat
 
 
 def test_dataset_dict_and_the_articulated_loader():
+    from aon_tpu_torch.data import sapien_multi as tmulti
+
     assert dataset_dict["sapien"] is tsapien.SapienDataset
-    with pytest.raises(NotImplementedError, match="slice 6b"):
-        dataset_dict["sapien_multi"]("root", split="train")
+    assert dataset_dict["sapien_multi"] is tmulti.SapienDatasetMulti
+    with pytest.raises(FileNotFoundError):  # a loader, not a stub that raises
+        dataset_dict["sapien_multi"]("no_such_root", split="train")
 
 
 def test_port_imports_no_imaging_package():

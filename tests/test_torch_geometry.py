@@ -278,3 +278,41 @@ def test_main_needs_bounds_and_a_config(tmp_path):
     with pytest.raises(NotImplementedError, match="slice 7"):
         geo.main(["--config", _config(tmp_path, "vanilla_ae_art"), "--bounds", *BOUNDS],
                  device="cpu")
+
+
+def test_extraction_takes_the_configs_encoding_degrees(tmp_path, monkeypatch):
+    """A vanilla config with other encoding degrees than (10, 4) extracts the
+    grid of the plain float32 model (``NeRFMLP`` on ``pos_enc`` at the config's
+    degrees), within the bf16 tolerance of ``TOL_SIGMA``; degrees the kernels'
+    widths cannot hold, and any but (10, 4) for the auto-decoder, are refused."""
+    from aon_tpu_torch.core.sampling import pos_enc
+
+    config = _config(tmp_path, "vanilla", N_emb_xyz=8, N_emb_dir=3)
+    state = _saved_state(config, seed=4)
+    monkeypatch.chdir(tmp_path)
+    geo.main(["--config", config, "--resolution", str(RES), "--chunk", str(CHUNK),
+              "--bounds", *BOUNDS], device="cpu")
+    sigma = np.load(tmp_path / "ckpts" / "geo_vanilla" / "geometry" / "density_grid.npz")["sigma"]
+
+    cfg = get_config(["--config", config])
+    system = build_system(cfg, 2.0, 6.0, cfg.white_back, device="cpu")
+    mlp = system.model.fine_mlp.float()
+    mlp.load_state_dict({k[len("fine_mlp."):]: v for k, v in state.params.items()
+                         if k.startswith("fine_mlp.")})
+    pts = torch.from_numpy(geo.voxel_centers(np.full(3, -1.5), 3.0 / RES, RES)
+                           .reshape(-1, geo.POINTS_PER_RAY, 3).astype(np.float32))
+    view = torch.tensor([[0.0, 0.0, -1.0]]).expand(pts.shape[0], 3)
+    with torch.no_grad():
+        _, raw_sigma = mlp(pos_enc(pts, 0, 8), pos_enc(view, 0, 3))
+    want = torch.relu(raw_sigma).reshape(RES, RES, RES).numpy()
+    err, scale = np.abs(sigma - want), float(np.abs(want).max())
+    tol_max, tol_mean = TOL_SIGMA["vanilla"]
+    assert err.max() <= tol_max * scale and err.mean() <= tol_mean * scale, (
+        err.max() / scale, err.mean() / scale)
+
+    for exp_type, degrees in (("vanilla", dict(N_emb_xyz=11)), ("vanilla", dict(N_emb_dir=5)),
+                              ("vanilla_autodecoder", dict(N_emb_xyz=8))):
+        with pytest.raises(ValueError, match="N_emb_xyz"):
+            geo.encoding_constants(Config(exp_type=exp_type, **degrees), "cpu")
+    assert geo.encoding_constants(Config(exp_type="vanilla_autodecoder"), "cpu")["s_pos"].shape \
+        == (4, tfm.POS_PAD)

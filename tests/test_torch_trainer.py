@@ -251,10 +251,6 @@ def test_unported_datasets_and_systems_raise(fixture_root, tmp_path):
     with pytest.raises(NotImplementedError, match="slice 7"):
         ttrainer.Trainer(Config(exp_type="vanilla_ae_art", output_path=str(tmp_path)),
                          device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 6b"):
-        ttrainer.Trainer(Config(dataset_name="sapien_multi", exp_type="vanilla_autodecoder",
-                                root_dir=str(fixture_root), output_path=str(tmp_path)),
-                         device="cpu")
 
 
 # ------------------------------------------------------------- sentinels

@@ -122,6 +122,48 @@ def make_fused_autodecoder_loss_fn(
     return loss_fn
 
 
+@torch.no_grad()
+def fused_art_render(
+    params: Mapping[str, torch.Tensor],
+    latents: Mapping[str, torch.Tensor],
+    rays: Mapping[str, torch.Tensor],
+    enc_consts: Mapping[str, torch.Tensor],
+    near: float,
+    far: float,
+    white_bkgd: bool,
+    num_coarse: int,
+    num_fine: int,
+    sigma_activation: str,
+    rgb_padding: float,
+    density_bias: float,
+    lindisp: bool = False,
+):
+    """Deterministic fused two-level render of one chunk under ``latents``
+    (the auto-decoder's codes or the auto-encoder's encoding): ``{comp_rgb,
+    acc, depth}`` of the fine level.  ``params`` holds ``model.coarse_mlp.*``
+    and ``model.fine_mlp.*``; ``rays`` (B, 3) tensors (+ optional per-ray
+    t_near/t_far).  Both levels through the eval kernel (row 10), the
+    resample between them through row 2."""
+
+    def level(prefix, t_vals, samples):
+        raw_rgb, raw_sigma = fused_art_mlp_eval(mlp_params(params, prefix), latents, samples,
+                                                rays["viewdirs"], enc_consts)
+        rgb, sigma = head_activations(raw_rgb, raw_sigma, sigma_activation, rgb_padding,
+                                      density_bias)
+        return volumetric_rendering(rgb, sigma, t_vals, rays["rays_d"], white_bkgd=white_bkgd)
+
+    t_vals, samples = sampling.sample_along_rays(
+        rays["rays_o"], rays["rays_d"], num_coarse, rays.get("t_near", near),
+        rays.get("t_far", far), lindisp=lindisp,
+    )
+    _, _, weights, _ = level("model.coarse_mlp", t_vals, samples)
+    t_mids = 0.5 * (t_vals[..., 1:] + t_vals[..., :-1])
+    t_vals, samples = sample_pdf_fused(
+        t_mids, weights[..., 1:-1], rays["rays_o"], rays["rays_d"], t_vals, num_fine)
+    comp_rgb, acc, _, depth = level("model.fine_mlp", t_vals, samples)
+    return {"comp_rgb": comp_rgb, "acc": acc, "depth": depth}
+
+
 def make_fused_art_render_fn(
     code_library: torch.nn.Module,
     near: float,
@@ -146,24 +188,8 @@ def make_fused_art_render_fn(
         latents = torch.func.functional_call(
             code_library, mlp_params(params, "code_library"), (instance_id, articulation_id),
             dict(is_test=is_test))
-        enc_consts = consts.on(rays["rays_o"].device)
-
-        def level(prefix, t_vals, samples):
-            raw_rgb, raw_sigma = fused_art_mlp_eval(mlp_params(params, prefix), latents, samples,
-                                                    rays["viewdirs"], enc_consts)
-            rgb, sigma = head_activations(raw_rgb, raw_sigma, sigma_activation, rgb_padding,
-                                          density_bias)
-            return volumetric_rendering(rgb, sigma, t_vals, rays["rays_d"], white_bkgd=white_bkgd)
-
-        t_vals, samples = sampling.sample_along_rays(
-            rays["rays_o"], rays["rays_d"], num_coarse, rays.get("t_near", near),
-            rays.get("t_far", far), lindisp=lindisp,
-        )
-        _, _, weights, _ = level("model.coarse_mlp", t_vals, samples)
-        t_mids = 0.5 * (t_vals[..., 1:] + t_vals[..., :-1])
-        t_vals, samples = sample_pdf_fused(
-            t_mids, weights[..., 1:-1], rays["rays_o"], rays["rays_d"], t_vals, num_fine)
-        comp_rgb, acc, _, depth = level("model.fine_mlp", t_vals, samples)
-        return {"comp_rgb": comp_rgb, "acc": acc, "depth": depth}
+        return fused_art_render(params, latents, rays, consts.on(rays["rays_o"].device), near,
+                                far, white_bkgd, num_coarse, num_fine, sigma_activation,
+                                rgb_padding, density_bias, lindisp)
 
     return render_fn

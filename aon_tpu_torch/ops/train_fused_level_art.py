@@ -309,3 +309,143 @@ def make_fused_autodecoder_step_fn(
 
     step_fn.returns_grads = True
     return step_fn
+
+
+def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """torch's ``BCEWithLogitsLoss`` (mean reduction) written out as the JAX
+    package writes it."""
+    return torch.mean(torch.clamp_min(logits, 0.0) - logits * targets
+                      + torch.log1p(torch.exp(-logits.abs())))
+
+
+def ae_prepare_shared(batch: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Whole-batch masked-MSE denominators of the auto-encoder (reference
+    model_ae_art.py:380-387): ``3 * sum(mask)`` and ``3 * sum(1 - mask)`` over
+    every microbatch of the step, pre-divided by the microbatch count k so that
+    the accumulator's 1/k mean recomposes the whole-batch masked mean."""
+    k = 1 if batch["rays_o"].ndim == 2 else batch["rays_o"].shape[0]
+    m = batch["instance_mask"].float()
+    return {"photo_denom": torch.clamp_min(3.0 * m.sum(), 1.0) / k,
+            "photo_denom_bg": torch.clamp_min(3.0 * (1.0 - m).sum(), 1.0) / k}
+
+
+def ae_loss_weights(batch: Mapping[str, torch.Tensor], bg_lambda: float
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(mask (B,), loss_w (B,))`` of the auto-encoder's photometric loss:
+    ``sum_r loss_w_r |comp_r - target_r|^2`` is the instance-masked MSE, plus
+    ``bg_lambda * bg_scale`` times the background-masked MSE where
+    ``bg_lambda`` is set.  The denominators are the batch's own unless
+    ``ae_prepare_shared`` put the whole step's in."""
+    mask = batch["instance_mask"].reshape(-1).float()
+    denom = batch.get("photo_denom")
+    if denom is None:  # an unaccumulated call: the batch is the whole batch
+        denom = torch.clamp_min(3.0 * mask.sum(), 1.0)
+    lw = mask / denom
+    if bg_lambda != 0.0:
+        denom_bg = batch.get("photo_denom_bg")
+        if denom_bg is None:
+            denom_bg = torch.clamp_min(3.0 * (1.0 - mask).sum(), 1.0)
+        # bg_scale: the trainer's linear warmup ramp (Config.bg_loss_warmup_steps)
+        bg_scale = batch.get("bg_scale", 1.0)
+        lw = lw + (bg_lambda * bg_scale) * (1.0 - mask) / denom_bg
+    return mask, lw
+
+
+def make_fused_ae_step_fn(
+    encode_fn: Callable,
+    near: float,
+    far: float,
+    white_bkgd: bool,
+    num_coarse: int = 64,
+    num_fine: int = 128,
+    opacity_lambda: float = 0.5,
+    lindisp: bool = False,
+    bg_lambda: float = 0.0,
+    sigma_act: str = "relu",
+    density_bias: float = 0.0,
+    max_deg: int = 10,
+    deg_view: int = 4,
+) -> Callable:
+    """v3 auto-encoder step: ``fn(params, batch, generator=None, draws=None)
+    -> (loss, aux, grads)`` with the gradients already computed
+    (``fn.returns_grads`` is True).
+
+    ``encode_fn(enc_params, src, deg) -> (latents, pred_state)`` is the
+    ResNet encoder + joint-state head + degree embedding (the system's
+    ``_encode``) on the ``encoder.*``, ``joint_state.*`` and
+    ``deg_embedding.*`` entries of the flat state dict.  It runs once per
+    microbatch under autograd; the level kernels' latent cotangents flow back
+    through it with ``torch.autograd.grad`` (JAX's ``jax.vjp``).  Loss
+    contract (model_ae_art.py:380-408): instance-masked MSE on both levels +
+    joint-state MSE + ``opacity_lambda`` x BCE-with-logits(acc, mask) on both
+    levels, acc fed as the logits (the reference's quirk, kept); un-padded
+    sigmoid rgb, ``sigma_act`` sigma with ``density_bias``.
+
+    Microbatching is exact: ``fn.prepare_shared`` (``ae_prepare_shared``) puts
+    the whole step's denominators in before ``accumulated_grads`` splits the
+    microbatches.  ``bg_lambda`` adds the background-masked MSE
+    (``ae_loss_weights``).  ``draws`` injects the uniforms: ``t_rand`` (B,
+    num_coarse + 1) and ``u`` (B, num_fine), each row of ``u`` ascending.
+    """
+    enc_consts = EncConstsCache(max_deg, deg_view)
+    enc_keys = ("encoder.", "joint_state.", "deg_embedding.")
+
+    @torch.no_grad()
+    def step_fn(params, batch, generator: Optional[torch.Generator] = None, draws=None):
+        rays_o, rays_d = batch["rays_o"], batch["rays_d"]
+        viewdirs, target = batch["viewdirs"], batch["target"]
+        ray_ids = batch.get("ray_ids")
+        draws = draws or {}
+        consts = enc_consts.on(rays_o.device)
+        src = batch["src_imgs"]
+        if src.ndim == 3:
+            src = src[None]
+
+        enc = {k: v.detach().requires_grad_(True) for k, v in params.items()
+               if k.startswith(enc_keys)}
+        with torch.enable_grad():
+            lat, pred_state = encode_fn(enc, src, batch["deg"])
+            loss_state = torch.mean((pred_state - batch["deg"]) ** 2)
+        latents = {k: v.detach() for k, v in lat.items()}
+        mask, lw = ae_loss_weights(batch, bg_lambda)
+        lw = lw.float().contiguous()
+
+        def level(prefix, t_vals):
+            mlp = mlp_params(params, prefix)
+            packed = fold_latents(mlp, latents)
+            photo, wgt, acc, g_eff = fused_level_train_art_grads(
+                packed, consts, t_vals, rays_o, rays_d, viewdirs, target, lw, mask, white_bkgd,
+                rgb_padding=0.0, density_bias=float(density_bias),
+                bce_weight=float(opacity_lambda), sigma_act=sigma_act)
+            dp, d_lat = unfold_grads(g_eff, mlp, latents)
+            return photo, wgt, acc, {f"{prefix}.{k}": v for k, v in dp.items()}, d_lat
+
+        t_near, t_far = effective_intervals(batch, near, far)
+        t_vals, _ = sampling.sample_along_rays(
+            rays_o, rays_d, num_coarse, t_near, t_far, randomized=True, lindisp=lindisp,
+            generator=generator, ray_ids=ray_ids, t_rand=draws.get("t_rand"),
+        )
+        loss0, wgt, acc0, grads, d_lat_c = level("model.coarse_mlp", t_vals)
+
+        t_mids = 0.5 * (t_vals[..., 1:] + t_vals[..., :-1])
+        t_union, _ = sample_pdf_fused(
+            t_mids, wgt[..., 1:-1], rays_o, rays_d, t_vals, num_fine, randomized=True,
+            generator=generator, ray_ids=ray_ids, u=draws.get("u"),
+        )
+        loss1, _, acc1, grads_f, d_lat_f = level("model.fine_mlp", t_union)
+        grads.update(grads_f)
+
+        names = list(enc)
+        d_enc = torch.autograd.grad(
+            [lat[k] for k in latents] + [loss_state], [enc[n] for n in names],
+            grad_outputs=[d_lat_c[k] + d_lat_f[k] for k in latents] + [torch.ones_like(loss_state)],
+        )
+        grads.update(zip(names, d_enc))
+        loss_state = loss_state.detach()
+        opacity = opacity_lambda * (bce_with_logits(acc0, mask) + bce_with_logits(acc1, mask))
+        aux = {"loss0": loss0, "loss1": loss1, "loss_state": loss_state, "opacity_loss": opacity}
+        return loss0 + loss1 + loss_state + opacity, aux, grads
+
+    step_fn.returns_grads = True
+    step_fn.prepare_shared = ae_prepare_shared
+    return step_fn

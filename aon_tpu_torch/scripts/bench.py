@@ -10,17 +10,19 @@ Prints the JAX bench's lines, one JSON object each:
   {"metric": "train_rays_per_sec", "value": N, "unit": "rays/s", "vs_baseline": R}
 
 for the vanilla system, then, unless ``--headline_only``, the same line as
-``train_rays_per_sec_autodecoder`` for the auto-decoder and
-``{"metric": "train_rays_per_sec_ae", "error": ...}`` for the auto-encoder,
-which waits for its slice (the JAX bench's own form for a row it could not
-measure).  ``vs_baseline`` divides by the JAX bench's constant
-``REFERENCE_RAYS_PER_SEC``, the reference's nominal single-GPU rate.
+``train_rays_per_sec_autodecoder`` for the auto-decoder and as
+``train_rays_per_sec_ae`` for the auto-encoder.  ``vs_baseline`` divides by
+the JAX bench's constant ``REFERENCE_RAYS_PER_SEC``, the reference's nominal
+single-GPU rate.
 
 Defaults are the JAX bench's production contract: vanilla at 32,768 rays a
 step with 16 coarse + 32 fine samples and per-ray occupancy intervals
 (``_synthetic_batch(tight="occ")``); the auto-decoder at its 4,096-ray batch
-with 24 + 48 samples and AABB intervals.  ``--reference_contract`` runs the
-reference's 64 + 128 samples on [2, 6] for both.
+with 24 + 48 samples and AABB intervals, and the auto-encoder at the same
+contract with a random (1, 3, 240, 320) source image, joint angle 0.5 rad and
+a mask of ``uniform > 0.5`` (the JAX bench's ``bench_ae``, at the config's
+default relu sigma).  ``--reference_contract`` runs the reference's 64 + 128
+samples on [2, 6] for every system.
 
 Timing: each system trains on one synthetic batch repeated for T = 8 steps
 per ``train_many`` call (``stack_step_batches``, microbatches of the config's
@@ -41,7 +43,7 @@ import numpy as np
 import torch
 
 from aon_tpu_torch.train.microbatch import stack_step_batches
-from aon_tpu_torch.train.systems import AutoDecoderSystem, VanillaSystem
+from aon_tpu_torch.train.systems import AutoDecoderSystem, VanillaSystem, build_system
 from aon_tpu_torch.utils.config import Config
 from aon_tpu_torch.utils.device import DeviceLike, resolve_device
 
@@ -49,7 +51,6 @@ from aon_tpu_torch.utils.device import DeviceLike, resolve_device
 # reference's estimated rate on its quoted hardware, not a measurement.
 REFERENCE_RAYS_PER_SEC = 25000.0
 STEPS_PER_DISPATCH, WARMUP_DISPATCHES, TIMED_DISPATCHES = 8, 2, 4
-AE_ERROR = "not ported yet (ROADMAP slice 7)"
 
 
 def _synthetic_batch(batch: int, tight, seed: int = 0):
@@ -135,6 +136,27 @@ def bench_autodecoder(args, device: torch.device) -> dict:
     return _time_train_many(system, host_batch, cfg.microbatch_rays, device)
 
 
+def ae_batch(batch: int, tight, img_wh=(320, 240)) -> Dict[str, np.ndarray]:
+    """The auto-encoder's bench batch: ``_synthetic_batch`` with an instance
+    mask of ``uniform > 0.5``, a random (1, 3, H, W) source image and joint
+    angle 0.5 rad, drawn as the JAX bench's ``bench_ae`` draws them."""
+    g = np.random.default_rng(2)
+    host_batch = _synthetic_batch(batch, tight=tight, seed=2)
+    host_batch["instance_mask"] = (g.uniform(size=batch) > 0.5).astype(np.float32)
+    host_batch["src_imgs"] = g.normal(size=(1, 3, img_wh[1], img_wh[0])).astype(np.float32)
+    host_batch["deg"] = np.float32(0.5)
+    return host_batch
+
+
+def bench_ae(args, device: torch.device) -> dict:
+    batch = 4096
+    cfg = Config(exp_type="vanilla_ae_art", ray_batch_size=batch, batch_size=batch,
+                 compute_dtype="bfloat16", img_wh=[320, 240],
+                 N_samples=args.N_samples, N_importance=args.N_importance)
+    system = build_system(cfg, near=2.0, far=6.0, white_bkgd=False, device=device)
+    return _time_train_many(system, ae_batch(batch, args.tight), cfg.microbatch_rays, device)
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     # defaults: the production equal-PSNR contract of the JAX bench
@@ -174,13 +196,12 @@ def main(argv: Optional[List[str]] = None, device: DeviceLike = "cuda") -> Dict[
         return results
     # each articulated system at the contract its equal-PSNR evidence gates
     # (the JAX bench's choice): 24 + 48 samples with AABB intervals
-    ad_args = argparse.Namespace(**vars(args))
+    art_args = argparse.Namespace(**vars(args))
     if not args.reference_contract:
-        ad_args.N_samples, ad_args.N_importance, ad_args.tight = 24, 48, "aabb"
-    results["autodecoder"] = dict(bench_autodecoder(ad_args, device), **contract(ad_args))
-    print(_line("train_rays_per_sec_autodecoder", results["autodecoder"]["rays_per_s"]),
-          flush=True)
-    print(json.dumps({"metric": "train_rays_per_sec_ae", "error": AE_ERROR}), flush=True)
+        art_args.N_samples, art_args.N_importance, art_args.tight = 24, 48, "aabb"
+    for name, fn in (("autodecoder", bench_autodecoder), ("ae", bench_ae)):
+        results[name] = dict(fn(art_args, device), **contract(art_args))
+        print(_line(f"train_rays_per_sec_{name}", results[name]["rays_per_s"]), flush=True)
     return results
 
 

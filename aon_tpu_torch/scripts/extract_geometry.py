@@ -13,7 +13,10 @@ and writes, under ``ckpts/{exp_name}/{out}/`` of the working directory,
 Vanilla queries the fine MLP through ``ops.fused_nerf_mlp_xyz`` (kernel
 table row 8), the auto-decoder the fine articulated MLP through
 ``ops.fused_art_mlp_eval`` (row 10) at any instance / articulation id,
-including the odd interpolated ids of the 2N-1 midpoint table.  On the card
+including the odd interpolated ids of the 2N-1 midpoint table, and the
+auto-encoder the same MLP under the encoding of train frame ``--image_id`` of
+instance ``--instance`` at articulation ``--articulation`` (its degree
+directory, whose angle also picks the degree table's row).  On the card
 both launch their CUDA kernels; with ``device="cpu"`` the same code runs the
 kernels' plain twins.
 
@@ -48,6 +51,7 @@ import torch
 import torch.nn.functional as F
 
 from aon_tpu_torch.data.aabb import scene_aabb
+from aon_tpu_torch.data.sapien_multi import SapienDatasetMulti
 from aon_tpu_torch.ops.fused_art import (
     POS_DIM,
     VIEW_DIM,
@@ -133,19 +137,18 @@ def density_color_fn(trainer, args, plain: bool = False):
 
         return query
 
-    if cfg.exp_type == "vanilla_ae_art":
-        raise NotImplementedError(
-            "the auto-encoder's geometry is not ported yet (ROADMAP.md slice 7, "
-            "Queue 1 item 8: the auto-encoder)")
-    if cfg.exp_type != "vanilla_autodecoder":
-        raise SystemExit(f"unsupported exp_type {cfg.exp_type!r}")
-
     model = system.model
     mlp = mlp_params(params, "model.fine_mlp")
-    with torch.no_grad():
-        latents = torch.func.functional_call(
-            system.code_library, mlp_params(params, "code_library"),
-            (args.instance, args.articulation), dict(is_test=args.interpolated))
+    if cfg.exp_type == "vanilla_autodecoder":
+        with torch.no_grad():
+            latents = torch.func.functional_call(
+                system.code_library, mlp_params(params, "code_library"),
+                (args.instance, args.articulation), dict(is_test=args.interpolated))
+    elif cfg.exp_type == "vanilla_ae_art":
+        with torch.no_grad():
+            latents, _ = system._encode(params, *ae_source(cfg, args))
+    else:
+        raise SystemExit(f"unsupported exp_type {cfg.exp_type!r}")
     packed = fold_latents(mlp, latents) if plain else None
 
     @torch.no_grad()
@@ -160,6 +163,21 @@ def density_color_fn(trainer, args, plain: bool = False):
         return sigma.reshape(n), rgb.reshape(n, 3)
 
     return query
+
+
+def ae_source(cfg, args):
+    """``(src_imgs (1, 3, H, W), deg)``: the auto-encoder's input for train
+    frame ``args.image_id`` of instance ``args.instance`` at articulation
+    ``args.articulation`` (each wrapped to what the dataset holds); train
+    degrees are the directory names, reference sapien_multi.py:11-14."""
+    ds = SapienDatasetMulti(cfg.root_dir, "test_val", tuple(cfg.img_wh),
+                            white_back=cfg.white_back, need_src_imgs=False)
+    instance_dir = ds.ids[args.instance % len(ds.ids)]
+    deg_dirs = ds._degree_dirs(instance_dir)
+    deg_dir = deg_dirs[args.articulation % len(deg_dirs)]
+    img = ds._read_frame(instance_dir, deg_dir, args.image_id)[3]
+    src = ((np.asarray(img, np.float32) / 255.0 - 0.5) / 0.5).transpose(2, 0, 1)
+    return src[None], np.float32(np.deg2rad(float(deg_dir.split("_")[0])))
 
 
 def _art_activations(raw_sigma, raw_rgb, sigma_act, density_bias, rgb_padding):

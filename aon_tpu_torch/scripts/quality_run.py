@@ -31,9 +31,9 @@ writes ``DIR/config.json`` (the config with ``--set KEY=JSON`` applied,
 ``output_path`` = ``DIR/results``, ``lr_max_steps`` pinned at the config's own
 ``run_max_steps`` unless set, ``root_dir`` made absolute), trains, resuming
 from ``DIR/results/{exp_name}/last.ckpt`` where one exists, and then, unless
-``--no_eval``: ``--run_eval`` (``render_name`` ``test``), for an articulated
-dataset ``eval_per_instance`` and ``render_sweep``, and an extraction over
-the dataset's bounds; their ``ckpts/`` land under ``DIR``.  It prints one
+``--no_eval``: ``--run_eval`` (``render_name`` ``test``), for the
+auto-decoder ``eval_per_instance`` and ``render_sweep``, and an extraction
+over the dataset's bounds; their ``ckpts/`` land under ``DIR``.  It prints one
 JSON line per part (``fit``, ``test``, ``test_split``, ``per_instance``,
 ``sweep``, ``geometry``, ``curve``) and returns them.
 
@@ -131,8 +131,8 @@ def run(config, out, overrides=(), reference=None, evals: bool = True,
             cli.main(test_cfg, device=device)
             res = json.loads((out / "ckpts" / c["exp_name"] / "results.json").read_text())
             emit("test", {name: stat["mean"] for name, stat in res.items()})
-            emit("test_split", sweep_split(out / "ckpts" / c["exp_name"] / "results.json"))
-            if c.get("dataset_name") == "sapien_multi":
+            if c.get("exp_type") == "vanilla_autodecoder":  # its learned and midpoint codes
+                emit("test_split", sweep_split(out / "ckpts" / c["exp_name"] / "results.json"))
                 per = eval_per_instance.main(["--config", str(cfg_path), "--ckpt_path",
                                               "last.ckpt"], device=device)
                 emit("per_instance", per)

@@ -59,7 +59,16 @@ def accumulated_grads(
     each microbatch starts from the same generator state: the trajectory
     does not depend on the microbatch count k.  Without them the generator
     simply runs on from one microbatch to the next.
+
+    A ``loss_fn`` may expose ``prepare_shared(batch) -> dict`` for
+    whole-batch reductions over all k microbatches that each microbatch then
+    reads as shared entries: the auto-encoder's masked-MSE denominators
+    (``photo_denom``, ``photo_denom_bg``), which the reference takes over the
+    whole ray batch (model_ae_art.py:380-387), not per microbatch.
     """
+    prep = getattr(loss_fn, "prepare_shared", None)
+    if prep is not None:
+        batch = dict(batch, **prep(batch))
     if batch["rays_o"].ndim == 2:
         # flat batch: a single microbatch.  Decided on rays_o: 1-D ray
         # entries (t_near, loss_w) are 1-D flat and 2-D stacked.

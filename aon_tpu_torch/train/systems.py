@@ -1,5 +1,6 @@
 """Training systems per exp_type (port of the vanilla and auto-decoder
-systems of ``aon_tpu/train/systems.py``).
+systems of ``aon_tpu/train/systems.py``; the auto-encoder's is
+``train/system_ae.py``).
 
 Each system exposes
 
@@ -332,8 +333,7 @@ def build_system(cfg: Config, near: float, far: float, white_bkgd: bool,
     if cfg.exp_type == "vanilla_autodecoder":
         return AutoDecoderSystem(cfg, near, far, white_bkgd, device=device)
     if cfg.exp_type == "vanilla_ae_art":
-        raise NotImplementedError(
-            "exp_type='vanilla_ae_art' is not ported yet (ROADMAP.md slice 7, "
-            "Queue 1 item 8: the auto-encoder)"
-        )
+        from aon_tpu_torch.train.system_ae import AutoEncoderSystem
+
+        return AutoEncoderSystem(cfg, near, far, white_bkgd, device=device)
     raise ValueError(f"unknown exp_type: {cfg.exp_type}")

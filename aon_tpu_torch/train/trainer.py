@@ -24,9 +24,11 @@ folds the global step into its PRNG key).  ``profile_dir`` takes a
 ``torch.profiler`` trace of the first trained epoch.
 
 Multi-instance runs validate on five seeded train frames and test on the
-19-frame spheric sweep, rendered from the interpolated articulation codes,
-with a video beside the jpgs.  Not ported: the auto-encoder (ROADMAP.md
-slice 7), which raises ``NotImplementedError``.
+19-frame spheric sweep, with a video beside the jpgs: the auto-decoder renders
+from its interpolated articulation codes, the auto-encoder from the encoding
+of each frame's own ground-truth image at the frame's joint angle, and its
+validation also logs the joint-state errors ``val/state_error_rad`` and
+``val/abs_state_error_deg``.
 """
 
 from __future__ import annotations
@@ -148,10 +150,6 @@ def inject_ramps(cfg: Config, batch: Dict[str, np.ndarray], step: int) -> None:
 
 class Trainer:
     def __init__(self, cfg: Config, device: DeviceLike = "cuda"):
-        if cfg.exp_type == "vanilla_ae_art":
-            raise NotImplementedError(
-                "exp_type='vanilla_ae_art' is not ported yet (ROADMAP.md slice 7: the "
-                "auto-encoder)")
         self.cfg = cfg
         self.is_multi = cfg.dataset_name == "sapien_multi"
         self.device = resolve_device(device)
@@ -166,6 +164,11 @@ class Trainer:
             occgrid_dilate=cfg.occgrid_dilate,
         )
         if self.is_multi:
+            if cfg.obj_ray_oversample > 0 and cfg.exp_type == "vanilla_ae_art":
+                # the AE's instance-masked MSE would need the importance
+                # weights in both its numerator and its mask-count denominator
+                raise ValueError("obj_ray_oversample is only supported for "
+                                 "exp_type=vanilla_autodecoder (plain-MSE objective)")
             common.update(
                 samples_per_epoch=cfg.samples_per_epoch,
                 ray_batch_size=cfg.ray_batch_size,
@@ -369,11 +372,15 @@ class Trainer:
     def _render_full(self, params, frame: Dict[str, np.ndarray],
                      is_test: bool = False) -> Dict[str, np.ndarray]:
         """Render one frame; the auto-decoder's frame carries its instance and
-        articulation, and ``is_test`` indexes the 2N-1 interpolated codes."""
+        articulation, and ``is_test`` indexes the 2N-1 interpolated codes; the
+        auto-encoder encodes the frame's own image at its joint angle."""
         extra = {}
         if self.cfg.exp_type == "vanilla_autodecoder":
             extra = dict(instance_id=int(frame["instance_id"]),
                          articulation_id=int(frame["articulation_id"]), is_test=is_test)
+        elif self.cfg.exp_type == "vanilla_ae_art":
+            extra = dict(src_imgs=np.asarray(frame["src_imgs"], np.float32)[None],
+                         deg=float(frame.get("deg", 0.0)))
         miss_fill = None
         if "hit" in frame:
             # AABB path: rays missing the box ARE the background — skip them
@@ -385,6 +392,7 @@ class Trainer:
 
     def validate(self, epoch: int) -> float:
         psnrs, psnrs_obj = [], []
+        state_sq_errs, state_deg_errs = [], []
         first_viz = None
         for frame in self._val_frames():
             ret = self._render_full(self.state.params, frame)
@@ -392,6 +400,14 @@ class Trainer:
             psnrs.append(M.psnr(ret["comp_rgb"], frame["target"]))
             psnrs_obj.append(
                 M.psnr_masked(ret["comp_rgb"], frame["target"], frame["instance_mask"]))
+            if "pred_state" in ret and "deg" in frame:
+                # joint-state metrics (model_ae_art.py:519-523): the squared
+                # error in radians and round(deg(pred)) - round(deg(gt)).
+                # pred_state is one value per frame; the AABB path fills miss
+                # rays with NaN, so reduce over the hit rays only
+                pred, gt = float(np.nanmean(ret["pred_state"])), float(frame["deg"])
+                state_sq_errs.append((pred - gt) ** 2)
+                state_deg_errs.append(float(np.round(np.rad2deg(pred)) - np.round(np.rad2deg(gt))))
             if first_viz is None:
                 w, h = frame["img_wh"]
                 first_viz = val_grid((w, h), frame["target"], ret["comp_rgb"], ret.get("depth"),
@@ -400,6 +416,9 @@ class Trainer:
         logs = {"val/psnr": val_psnr, "epoch": epoch}
         if psnrs_obj:
             logs["val/psnr_obj"] = float(np.nanmean(psnrs_obj))
+        if state_sq_errs:
+            logs["val/state_error_rad"] = float(np.mean(state_sq_errs))
+            logs["val/abs_state_error_deg"] = float(np.mean(state_deg_errs))
         self.logger.log(self.global_step, logs, force_stdout=True)
         if first_viz is not None:
             self.logger.log_image(self.global_step, "val/GT_pred_rgb", first_viz,

@@ -79,9 +79,14 @@ Phases, each printed as one JSON line on stdout (nothing else goes there):
            and x 193 of a render chunk, x 25 and x 73 on per-ray intervals of
            the fit_art phase's render chunk, and 2,048 x 65 / x 193 of the v2
            forward; backward and level: 2,048 x 65 and x 193 with t sampled as
-           a step samples it; the level also with the auto-encoder's arguments
-           and with a white background), each against its plain twin, timed
-           beside the twin, the bf16 library chain and the bound; then rows 3,
+           a step samples it; the level also with the auto-encoder's reference
+           arguments and with a white background), each against its plain
+           twin, timed beside the twin, the bf16 library chain and the bound;
+           row 9 with the auto-encoder quality config's arguments (softplus
+           sigma, density bias -1, opacity BCE 0.5, no rgb padding) on the
+           auto-encoder's weights and encoding, at 2,048 x 65 / x 193 and at
+           the fit_ae path's 2,048 x 25 / x 73 on per-ray intervals, inputs
+           from a generator of its own; then rows 3,
            2 and 9 at the bench's shapes: the first 2,048 rays of each bench
            batch, t stratified in their per-ray intervals and then resampled
            (vanilla 17 and 49 samples on occupancy intervals, the auto-decoder
@@ -142,6 +147,22 @@ Phases, each printed as one JSON line on stdout (nothing else goes there):
            eval_per_instance (per_instance.json) and extract_geometry with
            the dataset's bounds (63 launches of row 10), each with its exact
            launches;
+  fit_ae   the same CLI for the auto-encoder on
+           configs/quality_laptop_ae_aabb24.json (a ResNet-34 encoder on
+           320x240 source frames, 24 + 48 samples on AABB intervals, 4,096
+           rays a step as two microbatches, softplus sigma, opacity BCE 0.5)
+           over the fit_art fixture, overriding only root_dir, output_path,
+           run_max_steps, samples_per_epoch and num_epochs: 240 steps in
+           dispatches of 8 and one validation of five frames with the
+           joint-state metrics (rays/s, ms per step, exact launches of rows 9,
+           2 and 10, the loss and the joint-state loss over the run's first
+           eight batches falling, val PSNR above the initial weights'), the
+           encoder's forward and backward ms per microbatch (cuDNN, apart from
+           the step), the idle share over four dispatches, a resume of 16 steps
+           (every weight restored bit for bit, the encoder's included),
+           --run_eval (19 frames, each encoding its own image) and
+           extract_geometry with the dataset's bounds, each with its exact
+           launches;
   bench_kernels  the port's kernel bench (aon_tpu_torch/scripts/bench_kernels.py)
            with every variant, its lines re-emitted with exact launch counts;
            then each variant of rows 12 (three bodies) and 13 (three
@@ -152,8 +173,9 @@ Phases, each printed as one JSON line on stdout (nothing else goes there):
            a ``trunk_grid_sweep`` line: rows 12 base and 2s at 2^20 rows on
            33, 66 and 132 persistent blocks;
   bench    the port's bench.py at its defaults (vanilla 32,768 rays at 16 + 32
-           samples on occupancy intervals, the auto-decoder 4,096 at 24 + 48
-           on AABB intervals) and at --reference_contract --headline_only:
+           samples on occupancy intervals, the auto-decoder and the
+           auto-encoder 4,096 at 24 + 48 on AABB intervals) and at
+           --reference_contract --headline_only:
            its lines, rays/s and ms per step, exact launches, the loss of the
            repeated batch falling, and the first step of the interval path on
            one 2,048-ray microbatch of each bench batch against the plain
@@ -348,6 +370,21 @@ FIT_ART_STEPS, FIT_ART_RESUME_STEPS = 400, 16  # whole dispatches of 8 steps
 # weights (the fit phase's measure); the 400 steps run at the start of the
 # 2,500-step lr delay on a 400-step horizon
 FIT_ART_LOSS_FALL = 0.8
+
+# ---- the fit_ae phase: the same CLI on the auto-encoder's quality config
+# over the fit_art phase's fixture
+FIT_AE_CONFIG = "configs/quality_laptop_ae_aabb24.json"
+FIT_AE_COARSE, FIT_AE_FINE = 24, 48  # FIT_AE_CONFIG's N_samples and N_importance
+# whole dispatches of 8 steps; fewer than the other fits', as an AE step
+# takes ~4x an auto-decoder step (host-bound: PERF.md section 5)
+FIT_AE_STEPS, FIT_AE_RESUME_STEPS = 240, 16
+# the loss and the joint-state loss over the run's first dispatch of batches
+# with fixed draws, fitted against initial weights; the steps run at the
+# start of the 2,500-step lr delay on a horizon of their own count, where the
+# opacity BCE sits near its all-background plateau: seen 1.355 -> 0.976
+# (0.72) after 400 steps on an H100, the joint-state part 0.282 -> 0.003
+FIT_AE_LOSS_FALL = 0.95
+ENCODER_REPS = 10  # timed encoder forward / backward passes
 
 # the kernel's occupancy against its twin's: voxels whose sigma lies within
 # the kernel / twin noise of the threshold may flip; at most this share of
@@ -1641,6 +1678,10 @@ def main(argv=None) -> int:
                                 bce_weight=0.5, sigma_act="relu"),
             "white_bkgd": dict(white_bkgd=True, rgb_padding=0.001, density_bias=-1.0,
                                bce_weight=0.0, sigma_act="softplus_bias"),
+            # the auto-encoder quality config's (FIT_AE_CONFIG): its own checks
+            # below, ae_level_checks, on a generator of their own
+            "ae_quality": dict(white_bkgd=False, rgb_padding=0.0, density_bias=-1.0,
+                               bce_weight=0.5, sigma_act="softplus_bias"),
         }
 
         def art_train_checks(seed, timed=True, strict=True):
@@ -1679,7 +1720,7 @@ def main(argv=None) -> int:
                                                target, lw_uniform, encode_plain, cotangent=cot)),
                 ]
                 for mode, kw in art_level_modes.items():
-                    if mode != "autodecoder" and level == "coarse_mlp":
+                    if mode == "ae_quality" or (mode != "autodecoder" and level == "coarse_mlp"):
                         continue  # the other two argument sets once, at the fine shape
                     lw = lw_masked if mode == "autoencoder" else lw_uniform
                     runs.append(
@@ -1715,6 +1756,69 @@ def main(argv=None) -> int:
 
         art_train0 = art_train_checks(args.seed)
         art_rows.update(art_train0)
+
+        ae_cfg = get_config(["--config", str(ROOT / FIT_AE_CONFIG)])
+        ae_system = build_system(ae_cfg, 2.0, 6.0, ae_cfg.white_back, device=dev)
+
+        def ae_level_checks(seed, timed=True, strict=True):
+            """Row 9 with the auto-encoder quality config's arguments
+            (softplus_bias, density bias -1, opacity BCE 0.5, no rgb padding),
+            never launched before this slice, at the training shapes (2,048 x
+            65 and x 193 on [2, 6]) and at its own path's (2,048 x 25 and x 73
+            on per-ray AABB-like intervals), t sampled and resampled as a step
+            does: on the AE's seeded weights and the encoding of a random
+            320x240 source, inputs from a generator of its own; the records
+            by samples."""
+            gen = torch.Generator(device=dev).manual_seed(seed + 23)
+            p = ae_system.init_params(torch.Generator(device=dev).manual_seed(seed + 7))
+            src = torch.randn(1, 3, *reversed(ae_cfg.img_wh), generator=gen, device=dev)
+            with torch.no_grad():
+                lat, _ = ae_system._encode(p, src, torch.tensor(0.7, device=dev))
+            kw = art_level_modes["ae_quality"]
+            recs = {}
+            for n_c, n_f, per_ray in ((N_COARSE, N_FINE, False),
+                                      (FIT_AE_COARSE, FIT_AE_FINE, True)):
+                rd = torch.nn.functional.normalize(
+                    torch.randn(TRAIN_RAYS, 3, generator=gen, device=dev), dim=-1)
+                ro = -4.0 * rd + 0.3 * torch.randn(TRAIN_RAYS, 3, generator=gen, device=dev)
+                target = torch.rand(TRAIN_RAYS, 3, generator=gen, device=dev)
+                target = target * (torch.rand(TRAIN_RAYS, 1, generator=gen, device=dev) > 0.5)
+                mask = (target.sum(-1) > 0).float()
+                lw = (mask / (3.0 * mask.sum()).clamp_min(1.0)).contiguous()
+                near, far = 2.0, 6.0
+                if per_ray:  # the bench's AABB slabs: t_near 3.2..3.6, span 0.4..0.9
+                    near = 3.2 + 0.4 * torch.rand(TRAIN_RAYS, generator=gen, device=dev)
+                    far = near + 0.4 + 0.5 * torch.rand(TRAIN_RAYS, generator=gen, device=dev)
+                t_lvl, _ = sample_along_rays(ro, rd, n_c, near, far, randomized=True,
+                                             generator=gen)
+                path = "fit_ae" if per_ray else "training"
+                for level in ("coarse_mlp", "fine_mlp"):
+                    packed_l = fused_art.fold_latents(mlp_params(p, f"model.{level}"), lat)
+                    n_samples = t_lvl.shape[1]
+                    rows = TRAIN_RAYS * n_samples
+                    fn_args = (packed_l, consts, t_lvl, ro, rd, rd, target, lw, mask)
+                    recs[n_samples] = grad_record(
+                        "fused_level_train_art_grads", fused_level_train_art_grads,
+                        fused_level_train_art_grads_plain, fn_args, kw=kw,
+                        shape=f"{TRAIN_RAYS}x{n_samples}", rows=rows,
+                        flops=3 * 2.0 * art_macs * rows,
+                        nbytes=4 * (2 * rows + (4 * 3 + 3) * TRAIN_RAYS + 2 * n_art_params + 1),
+                        library=lambda fn_args=fn_args: library_art_level(
+                            torch, *fn_args[:7], lw, encode_plain, mask=mask, **kw),
+                        art=True, timed=timed, strict=strict, seed=seed,
+                        arguments=dict(kw, mode="ae_quality"), path=path)
+                    if level == "coarse_mlp":
+                        wgt = fused_level_train_art_grads(*fn_args, **kw)[1]
+                        bins = (0.5 * (t_lvl[:, 1:] + t_lvl[:, :-1])).contiguous()
+                        u = sorted_uniform(torch.rand(TRAIN_RAYS, n_f + 1, generator=gen,
+                                                      device=dev))
+                        t_lvl = fused_resample(t_lvl, bins, wgt[:, 1:-1], u)
+                    del packed_l, fn_args
+            del p, lat
+            torch.cuda.empty_cache()
+            return recs
+
+        ae_level_rows = ae_level_checks(args.seed)
 
         # ------------------------------------------------ bench shapes
         # rows 3, 2 and 9 as the bench's steps launch them: the first
@@ -2661,6 +2765,302 @@ def main(argv=None) -> int:
             shutil.rmtree(fa_dir, ignore_errors=True)
         torch.cuda.empty_cache()
 
+        # ------------------------------------------------------------ fit_ae
+        # The CLI's main path for the auto-encoder on its quality config
+        # (ResNet-34 encoder on 320x240 source frames, 24 + 48 samples on
+        # AABB intervals, 4,096 rays a step as two microbatches of 2,048,
+        # softplus_bias sigma, opacity BCE 0.5) over the fit_art phase's
+        # --multi fixture: FIT_AE_STEPS steps in dispatches of 8 and one
+        # validation of five frames with the joint-state metrics, a resume,
+        # --run_eval (the 19-frame sweep, each frame encoding its own image)
+        # and an extraction with the dataset's bounds
+        phase = "fit_ae"
+        ae_dir = Path(tempfile.mkdtemp(prefix="aon_fit_ae_"))
+        try:
+            os.chdir(ae_dir)
+            data = ae_dir / "data"
+            with contextlib.redirect_stdout(io.StringIO()):
+                make_fixture_dataset.main([str(data), "--multi", "--n", str(FIT_ART_VIEWS),
+                                           "--wh", "320", "240", "--seed", str(args.seed)])
+            shutil.copytree(data / "obj_a" / "train" / "0_degree", data / "obj_a" / "test_spheric")
+            cfg_json = json.loads((ROOT / FIT_AE_CONFIG).read_text())
+            # one epoch holds the run and its resume: one validation each
+            cfg_json.update(root_dir=str(data), output_path=str(ae_dir / "results"),
+                            run_max_steps=FIT_AE_STEPS,
+                            samples_per_epoch=FIT_AE_STEPS + FIT_AE_RESUME_STEPS, num_epochs=1)
+            ae_cfg_path = ae_dir / Path(FIT_AE_CONFIG).name
+            ae_cfg_path.write_text(json.dumps(cfg_json))
+            ae_run_cfg = get_config(["--config", str(ae_cfg_path)])
+            require((ae_run_cfg.exp_type, ae_run_cfg.N_samples, ae_run_cfg.N_importance,
+                     ae_run_cfg.ray_batch_size, ae_run_cfg.microbatch_rays,
+                     ae_run_cfg.ae_sigma_activation, tuple(ae_run_cfg.img_wh))
+                    == ("vanilla_ae_art", FIT_AE_COARSE, FIT_AE_FINE, ART_MICRO * TRAIN_RAYS,
+                        TRAIN_RAYS, "softplus_bias", (320, 240)),
+                    f"{FIT_AE_CONFIG} no longer has the kernel phase's auto-encoder shapes")
+            ds_kw = dict(img_wh=tuple(ae_run_cfg.img_wh), use_aabb=ae_run_cfg.use_aabb,
+                         aabb_pad=ae_run_cfg.aabb_pad, ray_batch_size=ae_run_cfg.ray_batch_size,
+                         need_src_imgs=True)
+
+            def chunks_of(frame):
+                return math.ceil(int(np.asarray(frame["hit"]).sum()) / ae_run_cfg.chunk)
+
+            ae_val_ds = SapienDatasetMulti(ae_run_cfg.root_dir, "val", **ds_kw)
+            ae_val_frames = [ae_val_ds.val_frame(seed=ae_run_cfg.seed + i)
+                             for i in range(min(ae_run_cfg.limit_val_batches, 5))]
+            ae_val_chunks = sum(chunks_of(f) for f in ae_val_frames)
+            ae_test_ds = SapienDatasetMulti(ae_run_cfg.root_dir, "test_val", eval_inference="x",
+                                            **ds_kw)
+            n_test = len(ae_test_ds)
+            ae_test_chunks = sum(chunks_of(ae_test_ds.test_frame(i, seed=ae_run_cfg.seed))
+                                 for i in range(n_test))
+
+            ae_trainer, ae_wall_s, ae_launches, _ = run_cli(ae_run_cfg)
+            ae_params = {k: v.detach().clone() for k, v in ae_trainer.state.params.items()}
+            ae_run_dir = ae_dir / "results" / ae_run_cfg.exp_name
+            ae_recs = [json.loads(ln) for ln in
+                       (ae_run_dir / "metrics.jsonl").read_text().splitlines()]
+            ae_rate = [r["train/rays_per_sec"] for r in ae_recs if "train/rays_per_sec" in r]
+            ae_val = [r for r in ae_recs if "val/psnr" in r]
+            ae_train_log = [{k: r[k] for k in ("step", "train/loss", "train/loss_state",
+                                               "train/opacity_loss")}
+                            for r in ae_recs if "train/loss" in r]
+
+            # learning: the run's first dispatch of batches (8 steps' items,
+            # 8 joint angles) with one fixed set of draws under the run's
+            # initial weights and the fitted ones; the five val frames under
+            # the initial weights
+            ae_it = ae_trainer.train_dataset.train_batches(seed=ae_run_cfg.seed)
+            ae_batches = []
+            for j in range(ae_run_cfg.steps_per_dispatch):
+                b = next(ae_it)
+                inject_ramps(ae_run_cfg, b, j)
+                ae_batches.append({k: v[0] for k, v in stack_step_batches(
+                    [b], microbatch=ae_run_cfg.microbatch_rays, device=dev).items()})
+            ae_init = ae_trainer.system.init_state(
+                torch.Generator(device=dev).manual_seed(ae_run_cfg.seed)).params
+
+            def ae_fixed_losses(params):
+                out = []
+                for b in ae_batches:
+                    g = torch.Generator(device=dev).manual_seed(args.seed + 11)
+                    loss, aux, _ = accumulated_grads(ae_trainer.system.loss_fn, params, b, g)
+                    out.append((loss.item(), aux["loss_state"].item()))
+                return [float(np.mean([o[i] for o in out])) for i in (0, 1)]
+
+            (ae_loss_fresh, ae_state_fresh), (ae_loss_fitted, ae_state_fitted) = (
+                ae_fixed_losses(ae_init), ae_fixed_losses(ae_params))
+            ae_val_fresh = float(np.mean([eval_metrics.psnr(
+                ae_trainer._render_full(ae_init, f)["comp_rgb"], f["target"])
+                for f in ae_val_frames]))
+            del ae_init
+
+            # the encoder apart from the rest of the step: its forward (the
+            # three heads, the joint state and the degree row) and its
+            # backward from the latents' and the joint-state loss's cotangents,
+            # per microbatch, on the fitted weights (cuDNN convolutions: no
+            # kernel of the table)
+            b0 = ae_batches[0]
+            enc_params = {k: v.detach().requires_grad_(True) for k, v in ae_params.items()
+                          if k.startswith(("encoder.", "joint_state.", "deg_embedding."))}
+            src0 = b0["src_imgs"][None] if b0["src_imgs"].ndim == 3 else b0["src_imgs"]
+
+            def enc_forward():
+                with torch.enable_grad():
+                    lat, pred = ae_trainer.system._encode(enc_params, src0, b0["deg"])
+                    return lat, torch.mean((pred - b0["deg"]) ** 2)
+
+            def enc_backward(lat, loss_state):
+                torch.autograd.grad([lat[k] for k in lat] + [loss_state],
+                                    list(enc_params.values()),
+                                    grad_outputs=[torch.ones_like(lat[k]) for k in lat]
+                                    + [torch.ones_like(loss_state)], allow_unused=True)
+
+            enc_forward()  # warm
+            fwd_ms, bwd_ms = [], []
+            for _ in range(ENCODER_REPS):
+                e0, e1, e2 = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+                e0.record()
+                lat, ls = enc_forward()
+                e1.record()
+                enc_backward(lat, ls)
+                e2.record()
+                torch.cuda.synchronize()
+                fwd_ms.append(e0.elapsed_time(e1))
+                bwd_ms.append(e1.elapsed_time(e2))
+            del enc_params, lat, ls
+
+            from torch.profiler import ProfilerActivity, profile
+
+            it = ae_trainer._train_iterator()
+            ae_trainer._dispatch(it, ae_run_cfg.steps_per_dispatch)  # warm
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()  # the same loop without the profiler
+            for _ in range(FIT_PROFILE_DISPATCHES):
+                ae_trainer.state, _ = ae_trainer._dispatch(it, ae_run_cfg.steps_per_dispatch)
+            torch.cuda.synchronize()
+            ae_loop_ms_per_step = 1e3 * (time.perf_counter() - t0) / (
+                FIT_PROFILE_DISPATCHES * ae_run_cfg.steps_per_dispatch)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(FIT_PROFILE_DISPATCHES):
+                    ae_trainer.state, _ = ae_trainer._dispatch(it, ae_run_cfg.steps_per_dispatch)
+                torch.cuda.synchronize()
+                ae_window_ms = 1e3 * (time.perf_counter() - t0)
+            ae_by_kernel = sorted(((e.key, e.device_time_total / 1e3, e.count)
+                                   for e in prof.key_averages()
+                                   if e.device_time_total > 0 and e.device_type.name == "CUDA"),
+                                  key=lambda r: -r[1])
+            ae_busy_ms = sum(r[1] for r in ae_by_kernel)
+            require(ae_busy_ms > 0, "torch.profiler recorded no device time in the fit_ae loop")
+            ae_ms_per_step = ae_window_ms / (FIT_PROFILE_DISPATCHES
+                                             * ae_run_cfg.steps_per_dispatch)
+
+            # resume: FIT_AE_RESUME_STEPS more steps from last.ckpt
+            res_cfg = get_config(["--config", str(ae_cfg_path), "--ckpt_path", "last.ckpt"])
+            res_cfg.run_max_steps = FIT_AE_STEPS + FIT_AE_RESUME_STEPS
+            ae_restored, plain_restore = [], CheckpointManager.restore
+
+            def ae_restore_spy(manager, state, name=None):
+                out = plain_restore(manager, state, name)
+                ae_restored.append((out.step, {k: v.detach().clone()
+                                               for k, v in out.params.items()}))
+                return out
+
+            CheckpointManager.restore = ae_restore_spy
+            try:
+                ae_res_trainer, ae_res_wall_s, ae_res_launches, ae_res_out = run_cli(res_cfg)
+            finally:
+                CheckpointManager.restore = plain_restore
+            ae_res_recs = [json.loads(ln) for ln in
+                           (ae_run_dir / "metrics.jsonl").read_text().splitlines()][len(ae_recs):]
+            ae_res_val = [r["val/psnr"] for r in ae_res_recs if "val/psnr" in r]
+
+            # --run_eval: the 19-frame sweep
+            ev_cfg = get_config(["--config", str(ae_cfg_path), "--run_eval",
+                                 "--render_name", "smoke", "--ckpt_path", "last.ckpt"])
+            _, ae_ev_wall_s, ae_ev_launches, _ = run_cli(ev_cfg)
+            exp_dir = ae_dir / "ckpts" / ae_run_cfg.exp_name
+            ae_results = json.loads((exp_dir / "results.json").read_text())
+            images = sorted((exp_dir / "smoke").glob("image*.jpg"))
+            decoded = [read_jpeg(p) for p in images]
+
+            for c in counters.values():
+                c.launches = 0
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                ae_geo = extract_geometry.main(["--config", str(ae_cfg_path), "--out",
+                                                "geometry_fit_ae", "--instance", "1",
+                                                "--articulation", "4"])
+            torch.cuda.synchronize()
+            ae_geo_s = time.perf_counter() - t0
+            ae_geo_launches = {k: c.launches for k, c in counters.items()}
+            ae_gz = np.load(ae_dir / ae_geo["out_dir"] / "density_grid.npz")
+            ae_bounds = scene_aabb(sorted(str(d) for d in data.glob("*/train/*_degree")),
+                                   tuple(ae_run_cfg.img_wh), pad=ae_run_cfg.aabb_pad)
+
+            art_steps = 2 * ART_MICRO  # row 9 per step: two levels per microbatch
+            val_keys = ("val/psnr", "val/psnr_obj", "val/state_error_rad",
+                        "val/abs_state_error_deg")
+            ae_checks = {
+                "launches": launches_are(
+                    ae_launches, fused_level_train_art_grads=art_steps * FIT_AE_STEPS,
+                    resample_union=ART_MICRO * FIT_AE_STEPS + ae_val_chunks,
+                    art_mlp_fwd=2 * ae_val_chunks),
+                "loss_falls": ae_loss_fitted < FIT_AE_LOSS_FALL * ae_loss_fresh,
+                "loss_state_falls": ae_state_fitted < ae_state_fresh,
+                "val_psnr_rises": len(ae_val) == 1 and ae_val[0]["val/psnr"] > ae_val_fresh,
+                "val_state_metrics": len(ae_val) == 1 and all(
+                    math.isfinite(ae_val[0].get(k, math.nan)) for k in val_keys),
+                "resume_continues": (
+                    f"resumed from step {FIT_AE_STEPS}" in ae_res_out
+                    and ae_res_trainer.global_step == FIT_AE_STEPS + FIT_AE_RESUME_STEPS
+                    and all(r["step"] > FIT_AE_STEPS for r in ae_res_recs)
+                    and launches_are(
+                        ae_res_launches,
+                        fused_level_train_art_grads=art_steps * FIT_AE_RESUME_STEPS,
+                        resample_union=ART_MICRO * FIT_AE_RESUME_STEPS + ae_val_chunks,
+                        art_mlp_fwd=2 * ae_val_chunks)),
+                "resume_restores_params": (
+                    len(ae_restored) == 1 and ae_restored[0][0] == FIT_AE_STEPS
+                    and ae_restored[0][1].keys() == ae_params.keys()
+                    and any(k.startswith("encoder.") for k in ae_params)
+                    and all(torch.equal(ae_restored[0][1][k], v) for k, v in ae_params.items())),
+                "resume_val_psnr": (len(ae_res_val) == 1 and ae_res_val[0]
+                                    >= ae_val[0]["val/psnr"] - TOL_RESUME_PSNR_DROP),
+                "test_launches": launches_are(ae_ev_launches, resample_union=ae_test_chunks,
+                                              art_mlp_fwd=2 * ae_test_chunks),
+                "results_json": all(math.isfinite(ae_results[k]["mean"])
+                                    for k in ("PSNR", "SSIM", "PSNR_obj")),
+                "test_files": (len(images) == n_test == 19
+                               and all(d.shape == (240, 320, 3) for d in decoded)),
+                "geometry_launches": (
+                    launches_are(ae_geo_launches, art_mlp_fwd=ae_geo["queries"])
+                    and ae_geo["queries"] == math.ceil(GEO_RES ** 3 / GEO_CHUNK)
+                    and geometry_files_ok(ae_dir / ae_geo["out_dir"], ae_geo)),
+                "geometry_dataset_bounds": np.allclose(ae_gz["bounds"], ae_bounds),
+            }
+            enc_fwd, enc_bwd = statistics.median(fwd_ms), statistics.median(bwd_ms)
+            ae_rec = {
+                "phase": "fit_ae", "config": FIT_AE_CONFIG,
+                "fixture": {"wh": [320, 240], "instances": 2, "degrees": 10,
+                            "train_per_degree": FIT_ART_VIEWS, "test_spheric": "obj_a"},
+                "steps": FIT_AE_STEPS, "steps_per_dispatch": ae_run_cfg.steps_per_dispatch,
+                "rays_per_step": ae_run_cfg.ray_batch_size,
+                "microbatch_rays": ae_run_cfg.microbatch_rays,
+                "samples": [ae_run_cfg.N_samples, ae_run_cfg.N_importance],
+                "sigma_activation": ae_run_cfg.ae_sigma_activation, "wall_s": ae_wall_s,
+                "rays_per_sec": ae_rate,
+                "ms_per_step": [1e3 * ae_run_cfg.ray_batch_size / r for r in ae_rate],
+                "profile": {"dispatches": FIT_PROFILE_DISPATCHES, "window_ms": ae_window_ms,
+                            "ms_per_step": ae_ms_per_step, "device_busy_ms": ae_busy_ms,
+                            "device_idle_share": 1.0 - ae_busy_ms / ae_window_ms,
+                            "ms_per_step_by_kernel": [
+                                {"kernel": k[:80], "ms": ms / (FIT_PROFILE_DISPATCHES
+                                                             * ae_run_cfg.steps_per_dispatch),
+                                 "launches": n} for k, ms, n in ae_by_kernel[:15]]},
+                "encoder": {"forward_ms": enc_fwd, "backward_ms": enc_bwd,
+                            "per_microbatch_ms": enc_fwd + enc_bwd,
+                            "loop_ms_per_step": ae_loop_ms_per_step,
+                            "share_of_step": ART_MICRO * (enc_fwd + enc_bwd) / ae_loop_ms_per_step,
+                            "reps": ENCODER_REPS,
+                            "is": "cuDNN and PyTorch ops, median of CUDA-event pairs (the "
+                                  "host's launches included: the device waits on them); "
+                                  "loop_ms_per_step: the fit loop's dispatches without the "
+                                  "profiler; no kernel of the table"},
+                "launches": {k: v for k, v in ae_launches.items() if v},
+                "launches_per_step": {"fused_level_train_art_grads": art_steps,
+                                      "resample_union": ART_MICRO},
+                "val_chunks": ae_val_chunks, "test_chunks": ae_test_chunks,
+                "fixed_batches_loss": {"batches": len(ae_batches),
+                                       "initial_weights": ae_loss_fresh,
+                                       "fitted": ae_loss_fitted,
+                                       "ratio": ae_loss_fitted / ae_loss_fresh,
+                                       "fall": FIT_AE_LOSS_FALL,
+                                       "loss_state_initial_weights": ae_state_fresh,
+                                       "loss_state_fitted": ae_state_fitted},
+                "train_log": ae_train_log,
+                "val": [{k: r.get(k) for k in val_keys} for r in ae_val],
+                "val_psnr_initial_weights": ae_val_fresh,
+                "resume": {"wall_s": ae_res_wall_s, "val_psnr": ae_res_val,
+                           "launches": {k: v for k, v in ae_res_launches.items() if v}},
+                "eval": {"wall_s": ae_ev_wall_s,
+                         **{k: ae_results[k]["mean"] for k in ("PSNR", "SSIM", "PSNR_obj")},
+                         "jpgs": len(images),
+                         "launches": {k: v for k, v in ae_ev_launches.items() if v}},
+                "geometry": {"seconds": ae_geo_s, "queries": ae_geo["queries"],
+                             "occupied": ae_geo["occupied"], "bounds": ae_gz["bounds"].tolist(),
+                             "launches": {k: v for k, v in ae_geo_launches.items() if v}},
+                "checks": ae_checks, "card": card}
+            emit(ae_rec)
+            require(all(ae_checks.values()), f"fit_ae checks failed: {ae_checks}")
+            fit_ae_path_launches = {
+                k: ae_launches[k] + ae_res_launches[k] + ae_ev_launches[k] + ae_geo_launches[k]
+                for k in counters}
+        finally:
+            os.chdir(cwd)
+            shutil.rmtree(ae_dir, ignore_errors=True)
+        torch.cuda.empty_cache()
+
         # ----------------------------------------------------- bench_kernels
         # The port's kernel bench (aon_tpu_torch/scripts/bench_kernels.py),
         # every variant at its own shapes: rows 1 and 4 through the training
@@ -2837,11 +3237,12 @@ def main(argv=None) -> int:
             want = {}
             calls = port_bench.WARMUP_DISPATCHES + port_bench.TIMED_DISPATCHES
             for system, level in (("vanilla", "fused_level_train_grads"),
-                                  ("autodecoder", "fused_level_train_art_grads")):
+                                  ("autodecoder", "fused_level_train_art_grads"),
+                                  ("ae", "fused_level_train_art_grads")):
                 if system in res:
                     r = res[system]
                     micro = calls * r["steps_per_dispatch"] * r["rays_per_step"] // r["microbatch"]
-                    want[level] = 2 * micro
+                    want[level] = want.get(level, 0) + 2 * micro
                     want["resample_union"] = want.get("resample_union", 0) + micro
             return want
 
@@ -2926,7 +3327,7 @@ def main(argv=None) -> int:
             and [ln.get("metric") for ln in bench_runs["reference_contract"][1]] == [
                 "train_rays_per_sec"]
             and all(set(ln) == {"metric", "value", "unit", "vs_baseline"}
-                    for ln in bench_runs["production"][1][:2] + bench_runs["reference_contract"][1]),
+                    for ln in bench_runs["production"][1] + bench_runs["reference_contract"][1]),
             "losses_finite_and_falling": all(
                 all(math.isfinite(x) for x in r["dispatch_losses"])
                 and r["dispatch_losses"][-1] < r["dispatch_losses"][0]
@@ -3127,10 +3528,17 @@ def main(argv=None) -> int:
             dict(art_entry("fused_level_train_art_grads",
                            "aon_tpu/ops/train_fused_level_art.py:60", "autodecoder"),
                  other_arguments=[
-                     {k: art_rows["fused_level_train_art_grads", mode, N_COARSE + 1 + N_FINE][k]
-                      for k in ("shape", "arguments", "max_abs_err", "mean_rel_err", "ms",
-                                "plain_ms", "library_ms")}
-                     for mode in ("autoencoder", "white_bkgd")]),
+                     {k: rows_[k] for k in ("shape", "arguments", "max_abs_err", "mean_rel_err",
+                                            "ms", "plain_ms", "bound_ms", "library_ms")}
+                     for rows_ in (*(art_rows["fused_level_train_art_grads", mode,
+                                              N_COARSE + 1 + N_FINE]
+                                     for mode in ("autoencoder", "white_bkgd")),
+                                   ae_level_rows[N_COARSE + 1 + N_FINE])],
+                 # the auto-encoder quality config's arguments at every shape
+                 ae_quality=[{k: r[k] for k in ("shape", "path", "max_abs_err", "mean_rel_err",
+                                                "deform_min_cos", "ms", "plain_ms", "bound_ms",
+                                                "bound_by", "library_ms")}
+                             for r in ae_level_rows.values()]),
         ]
 
         def enc_entry(kname, replaces):
@@ -3194,6 +3602,11 @@ def main(argv=None) -> int:
             e = by_name[kname]
             e["launches"] += fit_art_path_launches[kname]
             e["launches_by_path"]["fit_art"] = fit_art_path_launches[kname]
+        # the fit_ae phase's CLI runs and extraction
+        for kname in ("fused_level_train_art_grads", "resample_union", "art_mlp_fwd"):
+            e = by_name[kname]
+            e["launches"] += fit_ae_path_launches[kname]
+            e["launches_by_path"]["fit_ae"] = fit_ae_path_launches[kname]
         # and their checks at the bench's shapes
         for kname in ("resample_union", "fused_level_train_grads", "fused_level_train_art_grads"):
             by_name[kname]["bench_shapes"] = [

@@ -82,12 +82,12 @@ def test_default_device_entry_points_raise_without_cuda():
 
 
 def test_other_exp_types_name_their_roadmap_item():
-    # the auto-decoder is ported; the auto-encoder names the slice it waits for
+    # the auto-decoder and the auto-encoder are ported; an unknown type raises
     system = build_system(Config(exp_type="vanilla_autodecoder", N_max_objs=4), 2.0, 6.0, False,
                           device="cpu")
     assert type(system).__name__ == "AutoDecoderSystem"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_system(Config(exp_type="vanilla_ae_art"), 2.0, 6.0, True, device="cpu")
+    system = build_system(Config(exp_type="vanilla_ae_art"), 2.0, 6.0, True, device="cpu")
+    assert type(system).__name__ == "AutoEncoderSystem"
     with pytest.raises(ValueError):
         build_system(Config(exp_type="nope"), 2.0, 6.0, True, device="cpu")
 

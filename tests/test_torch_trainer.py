@@ -248,9 +248,16 @@ def test_cli_fit_then_eval_writes_the_jax_cli_outputs(fixture_root, tmp_path, mo
 
 
 def test_unported_datasets_and_systems_raise(fixture_root, tmp_path):
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        ttrainer.Trainer(Config(exp_type="vanilla_ae_art", output_path=str(tmp_path)),
-                         device="cpu")
+    # every system is ported: the auto-encoder builds on a dataset
+    cfg = Config(**dict(SMALL, exp_type="vanilla_ae_art", root_dir=str(fixture_root),
+                        output_path=str(tmp_path)))
+    tr = ttrainer.Trainer(cfg, device="cpu")
+    assert type(tr.system).__name__ == "AutoEncoderSystem"
+    assert any(k.startswith("encoder.") for k in tr.state.params)
+    # what it refuses, as the JAX trainer does: object-ray oversampling
+    with pytest.raises(ValueError, match="obj_ray_oversample"):
+        ttrainer.Trainer(Config(exp_type="vanilla_ae_art", dataset_name="sapien_multi",
+                                obj_ray_oversample=0.5, output_path=str(tmp_path)), device="cpu")
 
 
 # ------------------------------------------------------------- sentinels

@@ -16,6 +16,10 @@ schedule), trained on a single-scene SAPIEN dataset through the CLI
 ``data.sapien.SapienDataset``); the auto-decoder's system and kernels,
 trained through the same CLI on the multi-instance articulated dataset
 (``data.sapien_multi.SapienDatasetMulti``) and evaluated on its 19-frame
-sweep (``scripts.render_sweep``, ``scripts.eval_per_instance``).
-ROADMAP.md lists what is still to come.
+sweep (``scripts.render_sweep``, ``scripts.eval_per_instance``); the
+auto-encoder on the same dataset (``train.system_ae``); LPIPS
+(``eval.lpips``), the optimizer and scheduler factories (``train.optim``),
+the profiling hooks (``utils.profiling``) and multi-process data-parallel
+training and evaluation, one process per GPU (``parallel``,
+``python -m torch.distributed.run``).  ROADMAP.md lists what is still to come.
 """

@@ -1,22 +1,25 @@
 """Image quality metrics (port of ``aon_tpu/eval/metrics.py``): PSNR,
-object-PSNR, SSIM and the results.json stat dict.
+object-PSNR, SSIM, LPIPS and the results.json stat dict.
 
 * ``psnr``: clip to [0,1] then -10 log10(mse) (reference interface.py:54-62).
 * ``ssim``: Gaussian-window SSIM (window 11, sigma 1.5, k1=0.01, k2=0.03 on
   dynamic range 1), the algorithm piqa's SSIM implements.  It runs in
   float32 on the CPU, so no cuDNN TF32 convolution touches it.
 * ``psnr_masked``: seg-mask-selected pixels only (models/utils.py:102-109).
-
-LPIPS is not ported yet (ROADMAP.md slice 8).
+* ``lpips``: LPIPS(VGG16) (``eval/lpips.py``), None without weights.
 """
 
 from __future__ import annotations
 
-from typing import List
+import warnings
+from typing import List, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from aon_tpu_torch.eval.lpips import lpips_fn
+from aon_tpu_torch.utils.device import DeviceLike
 
 
 def psnr(pred: np.ndarray, gt: np.ndarray) -> float:
@@ -68,6 +71,19 @@ def ssim(pred: np.ndarray, gt: np.ndarray) -> float:
         (mu_p**2 + mu_g**2 + c1) * (var_p + var_g + c2)
     )
     return float(torch.mean(ssim_map))
+
+
+def lpips(pred: np.ndarray, gt: np.ndarray, device: DeviceLike = "cuda") -> Optional[float]:
+    """LPIPS(VGG16) of two (H, W, 3) images on ``device``, or None (with a
+    warning, once) where there are no weights (``eval/lpips.py``)."""
+    fn = lpips_fn(device)
+    if fn is None:
+        warnings.warn(
+            "LPIPS reported as null: VGG weights not found (weights/lpips_vgg.npz or "
+            "$AON_LPIPS_WEIGHTS missing; see weights/README.md for the recipe)",
+            stacklevel=2)
+        return None
+    return float(fn(pred, gt))
 
 
 def summarize(name: str, values: List[float]) -> dict:

@@ -1,8 +1,11 @@
 """Full-frame rendering in fixed-size chunks (port of ``aon_tpu/eval/render.py``).
 
 Rays are padded (edge mode) to a whole number of chunks, rendered chunk by
-chunk on one device, and the padded tail is dropped.  A 640x480 frame at
-``chunk=61440`` is five calls.
+chunk, and the padded tail is dropped.  A 640x480 frame at ``chunk=61440`` is
+five calls.  Over several ranks each renders its contiguous block of the
+frame's rays (``parallel.multihost.process_ray_slice``) and the blocks are
+all-gathered, so every rank returns the whole frame (the JAX package shards
+each chunk over its mesh instead).
 
 AABB path: when the frame carries a per-ray ``hit`` mask and ``miss_fill`` is
 given, only hit rays go through the model; missed rays take their fill value,
@@ -15,23 +18,14 @@ from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from aon_tpu_torch.parallel.mesh import pad_to_multiple, size_of
+from aon_tpu_torch.parallel.multihost import gather_blocks, process_ray_slice
 from aon_tpu_torch.utils.device import DeviceLike, resolve_device
 
 # per-ray frame entries forwarded to the renderer when present
 _RAY_INPUT_KEYS = ("rays_o", "rays_d", "viewdirs", "t_near", "t_far")
-
-
-def pad_to_multiple(x: np.ndarray, multiple: int, axis: int = 0) -> np.ndarray:
-    """Pad ``axis`` up to a multiple by repeating the last row (copy of
-    ``aon_tpu/parallel/mesh.py::pad_to_multiple``)."""
-    n = x.shape[axis]
-    rem = (-n) % multiple
-    if rem == 0:
-        return x
-    pad_width = [(0, 0)] * x.ndim
-    pad_width[axis] = (0, rem)
-    return np.pad(x, pad_width, mode="edge")
 
 
 def _render_rays(
@@ -58,12 +52,28 @@ def _render_rays(
     }
 
 
+def _render_ranks(render_chunk: Callable, rays_in: Dict[str, np.ndarray], chunk: int,
+                  device: torch.device, group: Optional[dist.ProcessGroup], **extra
+                  ) -> Dict[str, np.ndarray]:
+    """``_render_rays`` over the ranks of ``group``: this rank's block of the
+    edge-padded rays, then every rank's block gathered and the tail dropped."""
+    if size_of(group) == 1:
+        return _render_rays(render_chunk, rays_in, chunk, device, **extra)
+    n = rays_in["rays_o"].shape[0]
+    start, stop = process_ray_slice(n, group=group)
+    block = {k: pad_to_multiple(v, size_of(group))[start:stop] for k, v in rays_in.items()}
+    local = _render_rays(render_chunk, block, chunk, device, **extra)
+    return {k: gather_blocks(v, group, device)[:n] if v.ndim >= 1 and v.shape[0] == stop - start
+            else v for k, v in local.items()}
+
+
 def render_frame(
     render_chunk: Callable,
     frame: Dict[str, np.ndarray],
     chunk: int,
     miss_fill: Optional[Dict[str, float]] = None,
     device: DeviceLike = "cuda",
+    group: Optional[dist.ProcessGroup] = None,
     **extra,
 ) -> Dict[str, np.ndarray]:
     """Render all rays of one frame.
@@ -75,6 +85,8 @@ def render_frame(
       miss_fill: per-output fill value for rays with ``frame["hit"] == False``;
         enables the AABB compaction path (only hit rays are rendered).
       device: where the chunks are rendered.
+      group: the ranks that share the frame's rays (each renders its block,
+        every rank returns the whole frame); None renders it all here.
       extra: per-frame arguments handed to every ``render_chunk`` call as they
         are (the auto-decoder's ``instance_id``, ``articulation_id`` and
         ``is_test``).
@@ -86,11 +98,11 @@ def render_frame(
     n = rays_in["rays_o"].shape[0]
 
     if miss_fill is None or "hit" not in frame:
-        return _render_rays(render_chunk, rays_in, chunk, device, **extra)
+        return _render_ranks(render_chunk, rays_in, chunk, device, group, **extra)
 
     sel = np.flatnonzero(np.asarray(frame["hit"]))
-    proto = _render_rays(
-        render_chunk, {k: v[sel] for k, v in rays_in.items()}, chunk, device, **extra
+    proto = _render_ranks(
+        render_chunk, {k: v[sel] for k, v in rays_in.items()}, chunk, device, group, **extra
     ) if len(sel) else {}
     outs: Dict[str, np.ndarray] = {}
     for k, v in proto.items():

@@ -219,7 +219,8 @@ class ArticulatedNeRF(nn.Module):
         generator: Optional[torch.Generator] = None,
         draws: Optional[Mapping[str, torch.Tensor]] = None,
     ) -> List[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
-        """rays: {rays_o, rays_d, viewdirs} each (B, 3).
+        """rays: {rays_o, rays_d, viewdirs} each (B, 3), and optionally the
+        global ``ray_ids`` (B,) that seed each ray's own draws.
 
         Returns ``[(comp_rgb, acc, depth)]`` per level.  When ``randomized``,
         the uniforms come from ``generator`` or from ``draws``: ``t_rand``
@@ -234,7 +235,7 @@ class ArticulatedNeRF(nn.Module):
                 t_vals, samples = sampling.sample_along_rays(
                     rays["rays_o"], rays["rays_d"], self.num_coarse_samples, near, far,
                     randomized=randomized, lindisp=self.lindisp, generator=generator,
-                    t_rand=draws.get("t_rand"),
+                    ray_ids=rays.get("ray_ids"), t_rand=draws.get("t_rand"),
                 )
                 mlp = self.coarse_mlp
             else:
@@ -242,7 +243,7 @@ class ArticulatedNeRF(nn.Module):
                 t_vals, samples = sampling.sample_pdf(
                     t_mids, weights[..., 1:-1], rays["rays_o"], rays["rays_d"], t_vals,
                     self.num_fine_samples, randomized=randomized, generator=generator,
-                    u=draws.get("u"),
+                    ray_ids=rays.get("ray_ids"), u=draws.get("u"),
                 )
                 mlp = self.fine_mlp
 

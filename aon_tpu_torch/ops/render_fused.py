@@ -1,5 +1,9 @@
-"""Fused two-level NeRF rendering (port of ``aon_tpu/ops/render_pallas.py``,
-single device, no mesh).
+"""Fused two-level NeRF rendering (port of ``aon_tpu/ops/render_pallas.py``).
+
+The renderer runs on one rank's rays: the JAX renderer's multi-device
+``shard_map`` branch is one level up here, in ``eval/render.py::render_frame``,
+which gives each rank its block of a frame's rays and gathers the blocks
+(``parallel/multihost.py``).
 
 Coarse level -> ``sample_pdf_fused`` -> fine level.  The two MLP passes go
 through ``fused_nerf_mlp_xyz_eval`` and the resample through the merge

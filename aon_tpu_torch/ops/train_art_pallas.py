@@ -7,8 +7,10 @@ compositing in plain PyTorch under autograd, both MLP passes through
 ``fused_art_mlp_train`` (forward kernel + backward kernel, ``ops/fused_art.py``)
 with gradients flowing to the model weights AND the latent tables.  Head
 activations follow the auto-decoder contract: ``softplus(raw + density_bias)``,
-padded sigmoid rgb.  The multi-device ``shard_map`` branch of the JAX renderer
-has no counterpart yet.
+padded sigmoid rgb.  The JAX renderer's multi-device ``shard_map`` branch is
+one level up here: over several ranks ``eval/render.py::render_frame`` gives
+each rank its block of a frame's rays, and the loss runs on each rank's block
+of a batch (``train/microbatch.py::make_train_many_sharded``).
 """
 
 from __future__ import annotations

@@ -54,6 +54,7 @@ from aon_tpu_torch.ops.fused_mlp import ENC_ORDER, EncConstsCache
 from aon_tpu_torch.ops.fused_mlp_train import _check_enc_consts, check_float32
 from aon_tpu_torch.ops.render_fused import mlp_params
 from aon_tpu_torch.ops.resample import sample_pdf_fused
+from aon_tpu_torch.parallel.mesh import all_reduce_sum, size_of
 
 MAX_SAMPLES = 256  # the compositing kernel holds a ray in one warp, 8 samples a lane
 SIGMA_ACTS = ("softplus_bias", "relu")
@@ -318,15 +319,18 @@ def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor
                       + torch.log1p(torch.exp(-logits.abs())))
 
 
-def ae_prepare_shared(batch: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+def ae_prepare_shared(batch: Mapping[str, torch.Tensor], group=None) -> Dict[str, torch.Tensor]:
     """Whole-batch masked-MSE denominators of the auto-encoder (reference
     model_ae_art.py:380-387): ``3 * sum(mask)`` and ``3 * sum(1 - mask)`` over
-    every microbatch of the step, pre-divided by the microbatch count k so that
-    the accumulator's 1/k mean recomposes the whole-batch masked mean."""
+    every microbatch of the step and every rank of ``group``, pre-divided by
+    the microbatch count k times the rank count n so that the accumulator's
+    1/k mean and the ranks' mean recompose the whole-batch masked mean."""
     k = 1 if batch["rays_o"].ndim == 2 else batch["rays_o"].shape[0]
     m = batch["instance_mask"].float()
-    return {"photo_denom": torch.clamp_min(3.0 * m.sum(), 1.0) / k,
-            "photo_denom_bg": torch.clamp_min(3.0 * (1.0 - m).sum(), 1.0) / k}
+    s = all_reduce_sum(torch.stack([m.sum(), (1.0 - m).sum()]), group)
+    kn = k * size_of(group)
+    return {"photo_denom": torch.clamp_min(3.0 * s[0], 1.0) / kn,
+            "photo_denom_bg": torch.clamp_min(3.0 * s[1], 1.0) / kn}
 
 
 def ae_loss_weights(batch: Mapping[str, torch.Tensor], bg_lambda: float

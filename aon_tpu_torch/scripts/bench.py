@@ -42,7 +42,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from aon_tpu_torch.train.microbatch import stack_step_batches
+from aon_tpu_torch.parallel.mesh import stack_step_batches
 from aon_tpu_torch.train.systems import AutoDecoderSystem, VanillaSystem, build_system
 from aon_tpu_torch.utils.config import Config
 from aon_tpu_torch.utils.device import DeviceLike, resolve_device

@@ -1,5 +1,5 @@
 """Microbatched gradient accumulation and multi-step dispatch (port of
-``aon_tpu/train/microbatch.py``, single device).
+``aon_tpu/train/microbatch.py``).
 
 Gradient accumulation has exact mean semantics: equal-size microbatch MSE
 means average to the full-batch mean.  Ray entries of a stacked batch arrive
@@ -7,22 +7,22 @@ as ``(k, m, ...)``; a flat batch ``(m, ...)`` is one microbatch.  Every other
 entry is shared: it reaches each microbatch as it is (the auto-decoder's
 ``instance_id`` and ``articulation_id``, one per step), and in a superbatch it
 carries one value per step on its leading axis.
+
+Over several ranks each rank holds its block of every microbatch
+(``parallel/mesh.py::stack_step_batches``), and the ranks' ``(loss, aux,
+grads)`` are all-reduced to their mean before the one update that every rank
+applies.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Mapping, Optional, Sequence
+from typing import Callable, Dict, Mapping, Optional
 
-import numpy as np
 import torch
-
-from aon_tpu_torch.utils.device import DeviceLike, resolve_device
+import torch.distributed as dist
 
 # batch entries carrying a per-ray leading axis (everything else is shared)
-RAY_KEYS = (
-    "rays_o", "rays_d", "viewdirs", "target", "instance_mask", "radii",
-    "ray_ids", "t_near", "t_far", "hit", "loss_w",
-)
+from aon_tpu_torch.parallel.mesh import RAY_KEYS, all_reduce_mean, rank_of, size_of
 
 
 def _loss_aux_grads(loss_fn: Callable, params: Mapping[str, torch.Tensor], batch, generator, draws):
@@ -48,6 +48,7 @@ def accumulated_grads(
     batch: Mapping[str, torch.Tensor],
     generator: Optional[torch.Generator] = None,
     draws: Optional[Mapping[str, torch.Tensor]] = None,
+    group: Optional[dist.ProcessGroup] = None,
 ):
     """Mean (loss, aux, grads) over stacked microbatches.
 
@@ -60,15 +61,17 @@ def accumulated_grads(
     does not depend on the microbatch count k.  Without them the generator
     simply runs on from one microbatch to the next.
 
-    A ``loss_fn`` may expose ``prepare_shared(batch) -> dict`` for
-    whole-batch reductions over all k microbatches that each microbatch then
-    reads as shared entries: the auto-encoder's masked-MSE denominators
-    (``photo_denom``, ``photo_denom_bg``), which the reference takes over the
-    whole ray batch (model_ae_art.py:380-387), not per microbatch.
+    A ``loss_fn`` may expose ``prepare_shared(batch, group) -> dict`` for
+    whole-batch reductions over all k microbatches, and over the ranks of
+    ``group``, that each microbatch then reads as shared entries: the
+    auto-encoder's masked-MSE denominators (``photo_denom``,
+    ``photo_denom_bg``), which the reference takes over the whole ray batch
+    (model_ae_art.py:380-387), not per microbatch.  The mean over the ranks
+    is the caller's (``make_train_many_sharded``).
     """
     prep = getattr(loss_fn, "prepare_shared", None)
     if prep is not None:
-        batch = dict(batch, **prep(batch))
+        batch = dict(batch, **prep(batch, group))
     if batch["rays_o"].ndim == 2:
         # flat batch: a single microbatch.  Decided on rays_o: 1-D ray
         # entries (t_near, loss_w) are 1-D flat and 2-D stacked.
@@ -99,36 +102,58 @@ def accumulated_grads(
             {n: g * inv_k for n, g in grads_acc.items()})
 
 
-def _inject_ray_ids(superbatch: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """Attach global per-ray indices (T, k, m) so randomized sampling does
-    not depend on the microbatching (``core.sampling.per_ray_uniform``)."""
-    ref = superbatch["rays_o"]  # (T, k, m, 3)
-    t_steps, k, m = ref.shape[:3]
-    ids = torch.arange(k * m, device=ref.device, dtype=torch.int64).reshape(k, m)
-    return dict(superbatch, ray_ids=ids.expand(t_steps, k, m))
+def _inject_ray_ids(superbatch: Mapping[str, torch.Tensor], m_global: int,
+                    offset: int) -> Dict[str, torch.Tensor]:
+    """Attach global per-ray indices (T, k, m_local) so randomized sampling
+    depends neither on the microbatching nor on the ranks
+    (``core.sampling.per_ray_uniform``): ray j of microbatch i on the rank
+    whose block starts at ``offset`` is ray ``i * m_global + offset + j``."""
+    ref = superbatch["rays_o"]  # (T, k, m_local, 3)
+    t_steps, k, m_local = ref.shape[:3]
+    micro = torch.arange(k, device=ref.device, dtype=torch.int64)[:, None]
+    row = torch.arange(m_local, device=ref.device, dtype=torch.int64)[None, :]
+    ids = micro * m_global + offset + row
+    return dict(superbatch, ray_ids=ids.expand(t_steps, k, m_local))
 
 
-def make_train_many(loss_fn: Callable, metrics_fn: Callable) -> Callable:
-    """Multi-step dispatch: T optimizer steps from one call, a plain Python
-    loop (the JAX package scans them inside one jitted call to amortise its
-    dispatch latency; eager PyTorch has none to amortise).
+def make_train_many_sharded(loss_fn: Callable, metrics_fn: Callable,
+                            group: Optional[dist.ProcessGroup]) -> Callable:
+    """Multi-step dispatch: T optimizer steps from one call, over the ranks
+    of ``group`` or, with None, on one process.  The JAX package has two:
+    ``make_train_many`` scans the steps inside one jitted call to amortise its
+    dispatch latency, ``make_train_many_sharded`` runs that scan in a
+    ``shard_map`` on every chip of the mesh; eager PyTorch has no latency to
+    amortise, so one plain Python loop serves both.
 
     Returns ``fn(state, superbatch, generator) -> (state, metrics)``:
     ``superbatch`` entries carry a leading T axis over stacked ``(k, m, ...)``
-    batches, each step runs the usual microbatched accumulation and
-    ``state.apply_gradients``; metrics are means over the T steps and
+    batches, of which each rank holds its block of every microbatch
+    (``stack_step_batches`` with the group), with ray ids ``m_global =
+    m_local * world`` and ``offset = rank * m_local``, so every ray draws
+    what it draws in one process.  Each step's ``(loss, aux, grads)`` are
+    all-reduced to their mean over the ranks (one all-reduce of their
+    concatenation) before ``state.apply_gradients``, which every rank
+    applies to the same parameters: they stay the same on every rank.  The
+    metrics are means over the T steps, the same on every rank, and
     ``train/loss_last`` is the last step's loss.
     """
+    world, offset_of = size_of(group), rank_of(group)
 
     def train_many(state, superbatch: Mapping[str, torch.Tensor],
                    generator: Optional[torch.Generator] = None):
-        superbatch = _inject_ray_ids(superbatch)
+        m_local = superbatch["rays_o"].shape[2]
+        superbatch = _inject_ray_ids(superbatch, m_local * world, offset_of * m_local)
         t_steps = superbatch["rays_o"].shape[0]
         losses, auxs = [], []
         for t in range(t_steps):
             batch = {n: v[t] for n, v in superbatch.items()}
-            loss, aux, grads = accumulated_grads(loss_fn, state.params, batch, generator)
-            state = state.apply_gradients(grads)
+            loss, aux, grads = accumulated_grads(loss_fn, state.params, batch, generator,
+                                                 group=group)
+            names, aux_names = list(grads), list(aux)
+            reduced = all_reduce_mean([loss] + [aux[n] for n in aux_names]
+                                      + [grads[n] for n in names], group)
+            loss, aux = reduced[0], dict(zip(aux_names, reduced[1:1 + len(aux_names)]))
+            state = state.apply_gradients(dict(zip(names, reduced[1 + len(aux_names):])))
             losses.append(loss)
             auxs.append(aux)
         mean_aux = {n: torch.stack([a[n] for a in auxs]).mean() for n in auxs[0]}
@@ -137,27 +162,3 @@ def make_train_many(loss_fn: Callable, metrics_fn: Callable) -> Callable:
         return state, metrics
 
     return train_many
-
-
-def stack_step_batches(batches: Sequence[Mapping[str, np.ndarray]],
-                       microbatch: Optional[int] = None,
-                       device: DeviceLike = "cuda") -> Dict[str, torch.Tensor]:
-    """Stack T host batches into one superbatch for ``train_many``, on one
-    device (``aon_tpu/parallel/mesh.py::stack_step_batches`` without the mesh).
-
-    Ray entries (``RAY_KEYS``) become (T, k, m, ...) with m = ``microbatch``
-    (the whole batch if None, or if it is larger); every other entry becomes
-    (T, ...).  Raises where the batch axis is not a multiple of m.
-    """
-    device = resolve_device(device)
-    out = {}
-    for k in batches[0]:
-        vs = np.stack([np.asarray(b[k]) for b in batches])
-        if k in RAY_KEYS:
-            n = vs.shape[1]
-            m = min(microbatch or n, n)
-            if n % m != 0:
-                raise ValueError(f"batch axis {n} not divisible by microbatch {m} ({k})")
-            vs = vs.reshape(len(batches), n // m, m, *vs.shape[2:])
-        out[k] = torch.from_numpy(vs).to(device)
-    return out

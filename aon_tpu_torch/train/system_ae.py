@@ -24,7 +24,8 @@ Adam update.  Routes as ``AutoDecoderSystem``'s: on a CUDA device with
 level) when ``fused_train == "v3"`` and ``noise_std == 0``, else the v2
 two-kernel loss under autograd; on the CPU the plain module under autograd.
 The encoder's convolutions are PyTorch's (cuDNN on the card), as the JAX
-package leaves them to XLA.
+package leaves them to XLA, and run in float32 whatever ``compute_dtype``
+says (the NeRF's kernels follow it).
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ import os
 from typing import Dict, Mapping, Optional
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from aon_tpu_torch.core.rays import effective_intervals
@@ -50,7 +52,6 @@ from aon_tpu_torch.ops.train_fused_level_art import (
     make_fused_ae_step_fn,
 )
 from aon_tpu_torch.ops.train_fused_level_art import bce_with_logits as _bce_with_logits
-from aon_tpu_torch.train.microbatch import make_train_many
 from aon_tpu_torch.train.optim import make_optimizer
 from aon_tpu_torch.train.systems import _dtype, _System
 from aon_tpu_torch.utils.config import Config
@@ -91,7 +92,7 @@ class DegEmbedding(nn.Module):
 
 class AutoEncoderSystem(_System):
     def __init__(self, cfg: Config, near: float, far: float, white_bkgd: bool,
-                 device: DeviceLike = "cuda"):
+                 device: DeviceLike = "cuda", group: Optional[dist.ProcessGroup] = None):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.near, self.far, self.white_bkgd = float(near), float(far), bool(white_bkgd)
@@ -114,7 +115,11 @@ class AutoEncoderSystem(_System):
             dtype=_dtype(cfg),
             device=self.device,
         )
-        self.encoder = ImgEncoderMultiHeadArt(dtype=_dtype(cfg), device=self.device)
+        # float32 whatever compute_dtype says, as the heads: with cuDNN's bf16
+        # convolutions and norms the opacity BCE leaves its all-background
+        # plateau ~4,000 steps later than the JAX package's on a TPU (ROADMAP.md,
+        # held differences); float32 (cuDNN's TF32) reaches the JAX curve
+        self.encoder = ImgEncoderMultiHeadArt(dtype=torch.float32, device=self.device)
         self.joint_state = JointStateDecoder(device=self.device)
         self.deg_embedding = DegEmbedding(device=self.device)
         self.tx, self.lr_schedule = make_optimizer(cfg)
@@ -133,7 +138,7 @@ class AutoEncoderSystem(_System):
                 max_deg=cfg.N_emb_xyz, deg_view=cfg.N_emb_dir, **levels)
         else:
             self.loss_fn = self._loss_fn
-        self.train_many = make_train_many(self.loss_fn, self._metrics)
+        self._set_dispatch(group)
 
     def init_params(self, generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
         """Fresh weights drawn from ``generator``: xavier-uniform NeRF, flax's
@@ -194,7 +199,7 @@ class AutoEncoderSystem(_System):
                 rgb_padding=0.0, density_bias=self.density_bias, lindisp=self.cfg.lindisp,
                 generator=generator, draws=draws)
         else:
-            rays = {k: batch[k] for k in ("rays_o", "rays_d", "viewdirs")}
+            rays = {k: batch[k] for k in ("rays_o", "rays_d", "viewdirs", "ray_ids") if k in batch}
             out = torch.func.functional_call(
                 self.model, mlp_params(params, "model"),
                 (rays, latents, self.white_bkgd,

@@ -4,7 +4,7 @@ systems of ``aon_tpu/train/systems.py``; the auto-encoder's is
 
 Each system exposes
 
-  * ``init_state(generator)`` -> ``TrainState`` (params, Adam moments, step)
+  * ``init_state(generator)`` -> ``TrainState`` (params, optimizer moments, step)
   * ``train_step(state, batch, generator)`` -> ``(state, metrics)``
   * ``train_many(state, superbatch, generator)`` -> T steps from one call
   * ``render_chunk(params, rays, ...)`` -> deterministic renderer of eval
@@ -28,9 +28,10 @@ the device.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Mapping, Optional
+from typing import Any, Dict, Mapping, Optional
 
 import torch
+import torch.distributed as dist
 
 from aon_tpu_torch.core.rays import effective_intervals
 from aon_tpu_torch.core.rendering import img2mse, mse2psnr
@@ -45,23 +46,24 @@ from aon_tpu_torch.ops.train_art_pallas import (
     weighted_mse,
 )
 from aon_tpu_torch.ops.train_fused_level_art import latent_reg, make_fused_autodecoder_step_fn
-from aon_tpu_torch.train.microbatch import accumulated_grads, make_train_many
-from aon_tpu_torch.train.optim import Adam, make_optimizer
+from aon_tpu_torch.train.microbatch import accumulated_grads, make_train_many_sharded
+from aon_tpu_torch.train.optim import make_optimizer
 from aon_tpu_torch.utils.config import Config
 from aon_tpu_torch.utils.device import DeviceLike, resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
 class TrainState:
-    """Params, Adam moments and the host-side step count (the flax
-    ``TrainState`` of the JAX package).  Immutable: ``apply_gradients``
-    returns the next state."""
+    """Params, the optimizer's moments and the host-side step count (the flax
+    ``TrainState`` of the JAX package): ``mu`` the first moment (SGD's
+    momentum trace), ``nu`` the second (empty for SGD).  Immutable:
+    ``apply_gradients`` returns the next state."""
 
     step: int
     params: Dict[str, torch.Tensor]
     mu: Dict[str, torch.Tensor]
     nu: Dict[str, torch.Tensor]
-    tx: Adam
+    tx: Any
 
     def apply_gradients(self, grads: Mapping[str, torch.Tensor]) -> "TrainState":
         params, mu, nu = self.tx.update(self.params, grads, self.mu, self.nu, self.step)
@@ -73,8 +75,18 @@ def _dtype(cfg: Config) -> torch.dtype:
 
 
 class _System:
-    """What the systems share: a subclass sets ``device``, ``tx``, ``loss_fn``
-    and ``train_many`` and defines ``init_params`` and ``_metrics``."""
+    """What the systems share: a subclass sets ``device``, ``tx`` and
+    ``loss_fn``, calls ``_set_dispatch`` and defines ``init_params`` and
+    ``_metrics``."""
+
+    group: Optional[dist.ProcessGroup] = None
+
+    def _set_dispatch(self, group: Optional[dist.ProcessGroup]) -> None:
+        """``train_many`` on one process, or over the ranks of ``group`` (the
+        JAX systems' ``_fused_multichip`` route, here for every route: each
+        rank holds its block of the rays and the gradients are all-reduced)."""
+        self.group = group
+        self.train_many = make_train_many_sharded(self.loss_fn, self._metrics, group)
 
     def init_state(self, generator: Optional[torch.Generator] = None) -> TrainState:
         """Fresh parameters from ``generator``, zero Adam moments, step 0."""
@@ -90,8 +102,17 @@ class _System:
         (+ optional per-ray ``loss_w``, ``t_near``, ``t_far``) and, for the
         auto-decoder, the step's one ``instance_id`` and ``articulation_id``;
         the sampling uniforms come from ``generator``, or from ``draws``
-        (``core.sampling`` names them) where a caller injects them."""
+        (``core.sampling`` names them) where a caller injects them.  Over
+        several ranks ``batch`` holds this rank's block of the rays
+        (``parallel.mesh.shard_ray_batch``) and the step goes through
+        ``train_many``, which draws per ray where one process draws one
+        block, as the JAX package's ``sharded_step`` does."""
         batch = {k: torch.as_tensor(v, device=self.device) for k, v in batch.items()}
+        if self.group is not None:
+            # one step through the ranks' train_many, as the JAX sharded_step
+            if draws is not None:
+                raise ValueError("draws cannot be injected into a step over several ranks")
+            return self.train_many(state, {k: v[None] for k, v in batch.items()}, generator)
         loss, aux, grads = accumulated_grads(self.loss_fn, state.params, batch, generator, draws)
         return state.apply_gradients(grads), self._metrics(loss, aux)
 
@@ -100,7 +121,7 @@ class VanillaSystem(_System):
     """exp_type="vanilla": single-scene two-level NeRF."""
 
     def __init__(self, cfg: Config, near: float, far: float, white_bkgd: bool,
-                 device: DeviceLike = "cuda"):
+                 device: DeviceLike = "cuda", group: Optional[dist.ProcessGroup] = None):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.near, self.far, self.white_bkgd = float(near), float(far), bool(white_bkgd)
@@ -135,10 +156,10 @@ class VanillaSystem(_System):
                                               noise_std=cfg.noise_std, **levels)
         else:
             self.loss_fn = self._plain_loss_fn
-        self.train_many = make_train_many(self.loss_fn, self._metrics)
+        self._set_dispatch(group)
 
     def _plain_loss_fn(self, params, batch, generator=None, draws=None):
-        rays = {k: batch[k] for k in ("rays_o", "rays_d", "viewdirs")}
+        rays = {k: batch[k] for k in ("rays_o", "rays_d", "viewdirs", "ray_ids") if k in batch}
         out = torch.func.functional_call(
             self.model, dict(params),
             (rays, self.white_bkgd, *effective_intervals(batch, self.near, self.far)),
@@ -226,7 +247,7 @@ class AutoDecoderSystem(_System):
     embeddings" is the single Adam update here."""
 
     def __init__(self, cfg: Config, near: float, far: float, white_bkgd: bool,
-                 device: DeviceLike = "cuda"):
+                 device: DeviceLike = "cuda", group: Optional[dist.ProcessGroup] = None):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.near, self.far, self.white_bkgd = float(near), float(far), bool(white_bkgd)
@@ -269,7 +290,7 @@ class AutoDecoderSystem(_System):
         if cfg.art_code_smoothness > 0:
             loss_fn = _with_art_smoothness(loss_fn, cfg.art_code_smoothness)
         self.loss_fn = loss_fn
-        self.train_many = make_train_many(self.loss_fn, self._metrics)
+        self._set_dispatch(group)
 
     def _latents(self, params, batch, is_test: bool = False):
         return torch.func.functional_call(
@@ -278,7 +299,7 @@ class AutoDecoderSystem(_System):
 
     def _plain_loss_fn(self, params, batch, generator=None, draws=None):
         latents = self._latents(params, batch)
-        rays = {k: batch[k] for k in ("rays_o", "rays_d", "viewdirs")}
+        rays = {k: batch[k] for k in ("rays_o", "rays_d", "viewdirs", "ray_ids") if k in batch}
         out = torch.func.functional_call(
             self.model, mlp_params(params, "model"),
             (rays, latents, self.white_bkgd, *effective_intervals(batch, self.near, self.far)),
@@ -327,13 +348,15 @@ class AutoDecoderSystem(_System):
 
 
 def build_system(cfg: Config, near: float, far: float, white_bkgd: bool,
-                 device: DeviceLike = "cuda"):
+                 device: DeviceLike = "cuda", group: Optional[dist.ProcessGroup] = None):
+    """The system of ``cfg.exp_type`` on ``device``, training over the ranks
+    of ``group`` where it is given."""
     if cfg.exp_type == "vanilla":
-        return VanillaSystem(cfg, near, far, white_bkgd, device=device)
+        return VanillaSystem(cfg, near, far, white_bkgd, device=device, group=group)
     if cfg.exp_type == "vanilla_autodecoder":
-        return AutoDecoderSystem(cfg, near, far, white_bkgd, device=device)
+        return AutoDecoderSystem(cfg, near, far, white_bkgd, device=device, group=group)
     if cfg.exp_type == "vanilla_ae_art":
         from aon_tpu_torch.train.system_ae import AutoEncoderSystem
 
-        return AutoEncoderSystem(cfg, near, far, white_bkgd, device=device)
+        return AutoEncoderSystem(cfg, near, far, white_bkgd, device=device, group=group)
     raise ValueError(f"unknown exp_type: {cfg.exp_type}")

@@ -12,16 +12,24 @@ Reference behavior reproduced (``run.py:86-166``):
   * NaN detection on the host loss (the reference runs Lightning with
     ``detect_anomaly=True``).
 
-One device: ray batches stream from the host as fixed-shape numpy (the
-loader's ``np.random.default_rng`` stream, so they are the JAX trainer's bit
-for bit: ``batch_size`` random rays of the single-scene dataset, or one
-(instance, articulation) frame's ``ray_batch_size`` rays of
-``sapien_multi``) and ``steps_per_dispatch`` steps at a time go through
-``system.train_many``.  The sampling draws of each dispatch come from a
-``torch.Generator`` seeded from ``(cfg.seed, global_step)``, so a run does
-not depend on how its steps were cut into epochs or calls (the JAX trainer
-folds the global step into its PRNG key).  ``profile_dir`` takes a
-``torch.profiler`` trace of the first trained epoch.
+Ray batches stream from the host as fixed-shape numpy (the loader's
+``np.random.default_rng`` stream, so they are the JAX trainer's bit for bit:
+``batch_size`` random rays of the single-scene dataset, or one (instance,
+articulation) frame's ``ray_batch_size`` rays of ``sapien_multi``) and
+``steps_per_dispatch`` steps at a time go through ``system.train_many``.  The
+sampling draws of each dispatch come from a ``torch.Generator`` seeded from
+``(cfg.seed, global_step)``, so a run does not depend on how its steps were
+cut into epochs or calls (the JAX trainer folds the global step into its
+PRNG key).  ``profile_dir`` takes a ``utils.profiling.trace`` of the first
+trained epoch.
+
+Over several ranks (``torch.distributed``, one process per GPU) every rank
+reads the same batch stream and trains on its block of each batch's rays
+(``parallel.mesh.stack_step_batches``); the systems all-reduce the
+gradients, so every rank holds the same parameters and the same all-reduced
+metrics, which the NaN check and the sentinels read.  Every rank renders its
+block of each val and test frame and receives the whole frame.  Rank 0 alone
+logs and writes the sinks, images, checkpoints and ``results.json``.
 
 Multi-instance runs validate on five seeded train frames and test on the
 19-frame spheric sweep, with a video beside the jpgs: the auto-decoder renders
@@ -33,6 +41,7 @@ validation also logs the joint-state errors ``val/state_error_rad`` and
 
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 import threading
@@ -47,11 +56,13 @@ import torch
 from aon_tpu_torch.data import dataset_dict
 from aon_tpu_torch.eval import artifacts
 from aon_tpu_torch.eval import metrics as M
+from aon_tpu_torch.eval.lpips import lpips_weights_kind
 from aon_tpu_torch.eval.render import render_frame
+from aon_tpu_torch.parallel.mesh import get_group, rank_of, stack_step_batches
 from aon_tpu_torch.train.checkpoint import CheckpointManager
 from aon_tpu_torch.train.logging import MetricLogger
-from aon_tpu_torch.train.microbatch import stack_step_batches
 from aon_tpu_torch.train.systems import build_system
+from aon_tpu_torch.utils import profiling
 from aon_tpu_torch.utils.config import Config
 from aon_tpu_torch.utils.device import DeviceLike, resolve_device
 from aon_tpu_torch.utils.viz import val_grid
@@ -148,11 +159,24 @@ def inject_ramps(cfg: Config, batch: Dict[str, np.ndarray], step: int) -> None:
         batch["interval_ramp"] = np.float32(min(1.0, step / cfg.aabb_warmup_steps))
 
 
+class _RankLogger:
+    """The logger of a rank other than 0: it writes nothing."""
+
+    def log(self, *args, **kwargs) -> None:
+        pass
+
+    def log_image(self, *args, **kwargs) -> None:
+        pass
+
+
 class Trainer:
     def __init__(self, cfg: Config, device: DeviceLike = "cuda"):
         self.cfg = cfg
         self.is_multi = cfg.dataset_name == "sapien_multi"
         self.device = resolve_device(device)
+        # the ranks that share each batch (None: this process alone)
+        self.group = get_group(cfg.num_devices)
+        self.is_main = rank_of(self.group) == 0
         self.result_dir = Path(cfg.output_path) / cfg.exp_name
         self.result_dir.mkdir(parents=True, exist_ok=True)
 
@@ -186,11 +210,12 @@ class Trainer:
             self.val_dataset = ds_cls(split="val", **common)
             near, far = self.train_dataset.near, self.train_dataset.far
 
-        self.system = build_system(cfg, near, far, cfg.white_back, device=self.device)
+        self.system = build_system(cfg, near, far, cfg.white_back, device=self.device,
+                                   group=self.group)
         self.ckpt = CheckpointManager(str(self.result_dir), save_top_k=cfg.save_top_k)
         self.logger = MetricLogger(
             str(self.result_dir), stdout_every=cfg.log_every_n_steps, sinks=cfg.metric_sinks,
-        )
+        ) if self.is_main else _RankLogger()
 
         self.global_step = 0
         self._heartbeat = time.time()
@@ -264,7 +289,8 @@ class Trainer:
         batches = [next(it) for _ in range(n_steps)]
         for j, b in enumerate(batches):
             inject_ramps(cfg, b, self.global_step + j)
-        stacked = stack_step_batches(batches, microbatch=cfg.microbatch_rays, device=self.device)
+        stacked = stack_step_batches(batches, microbatch=cfg.microbatch_rays, device=self.device,
+                                     group=self.group)
         generator = self.step_generator(self.global_step)
         if n_steps > 1:
             return self.system.train_many(self.state, stacked, generator)
@@ -298,13 +324,11 @@ class Trainer:
         start_epoch = self.global_step // max(1, steps_per_epoch)
         t_dispatch = max(1, cfg.steps_per_dispatch)
 
-        profiler = None
-        if cfg.profile_dir:
-            activities = [torch.profiler.ProfilerActivity.CPU]
-            if self.device.type == "cuda":
-                activities.append(torch.profiler.ProfilerActivity.CUDA)
-            profiler = torch.profiler.profile(activities=activities)
-            profiler.start()
+        profiler = contextlib.ExitStack()
+        if cfg.profile_dir:  # every rank traces its own first epoch
+            trace_dir = cfg.profile_dir if self.is_main else os.path.join(
+                cfg.profile_dir, f"rank{rank_of(self.group)}")
+            profiler.enter_context(profiling.trace(trace_dir))
 
         for epoch in range(start_epoch, cfg.num_epochs):
             t_epoch = time.time()
@@ -336,11 +360,8 @@ class Trainer:
                 force_stdout=True,
             )
 
-            if profiler is not None:  # the trace covers the first trained epoch only
-                profiler.stop()
-                os.makedirs(cfg.profile_dir, exist_ok=True)
-                profiler.export_chrome_trace(os.path.join(cfg.profile_dir, "trace.json"))
-                profiler = None
+            if cfg.profile_dir and epoch == start_epoch:  # the first trained epoch only
+                profiler.close()
                 print(f"profiler trace written to {cfg.profile_dir}")
 
             if (epoch + 1) % cfg.check_val_every_n_epoch == 0:
@@ -349,13 +370,16 @@ class Trainer:
                 # checkpoint with the collapsed state it would resume into
                 sentinel.update(val_psnr, self.global_step)
                 plateau.update(val_psnr, self.global_step)
-                self.ckpt.save_last(self.state, epoch)
-                if (epoch + 1) % ckpt_every == 0:
-                    self.ckpt.save_ranked(self.state, epoch, val_psnr)
+                if self.is_main:
+                    self.ckpt.save_last(self.state, epoch)
+                    if (epoch + 1) % ckpt_every == 0:
+                        self.ckpt.save_ranked(self.state, epoch, val_psnr)
 
             if self.global_step >= cfg.run_max_steps:
                 break
-        self.ckpt.save_last(self.state, cfg.num_epochs - 1)
+        profiler.close()  # where no epoch was left to train
+        if self.is_main:
+            self.ckpt.save_last(self.state, cfg.num_epochs - 1)
 
     # ------------------------------------------------------------ validation
 
@@ -388,7 +412,7 @@ class Trainer:
             miss_fill = {"comp_rgb": bg, "acc": 0.0, "depth": 0.0}
         return render_frame(lambda rays, **ex: self.system.render_chunk(params, rays, **ex),
                             frame, self.cfg.chunk, miss_fill=miss_fill, device=self.device,
-                            **extra)
+                            group=self.group, **extra)
 
     def validate(self, epoch: int) -> float:
         psnrs, psnrs_obj = [], []
@@ -431,9 +455,10 @@ class Trainer:
         """Render every test frame (the 19-frame spheric sweep of a
         multi-instance dataset, with a video), write the eval artifacts under
         ``ckpts/{exp_name}/{render_name}/`` and ``ckpts/{exp_name}/results.json``
-        of the working directory, as the JAX trainer does.  LPIPS is not
-        ported (ROADMAP.md slice 8): its entry is None, as the JAX trainer's
-        is without VGG weights."""
+        of the working directory, as the JAX trainer does: PSNR, SSIM,
+        PSNR_obj and, where there are VGG weights, LPIPS with
+        ``"lpips_weights"`` (``"synthetic"`` or ``"pretrained"``) beside it;
+        without them ``test/lpips`` is None.  Rank 0 alone writes."""
         cfg = self.cfg
         try:
             self.state = self.ckpt.restore(self.state, ckpt_name or cfg.ckpt_path)
@@ -459,21 +484,29 @@ class Trainer:
 
         psnr_stats = M.summarize("PSNR", [M.psnr(p, t) for p, t in zip(rgbs, targets)])
         ssim_stats = M.summarize("SSIM", [M.ssim(p, t) for p, t in zip(rgbs, targets)])
+        lpips_vals = [M.lpips(p, t, device=self.device) for p, t in zip(rgbs, targets)]
+        lpips_stats = (M.summarize("LPIPS", lpips_vals)
+                       if any(v is not None for v in lpips_vals) else None)
         psnr_obj_stats = M.summarize(
             "PSNR_obj", [M.psnr_masked(p, t, m) for p, t, m in zip(rgbs, targets, masks)])
 
-        image_dir = os.path.join("ckpts", cfg.exp_name, cfg.render_name or "render")
-        artifacts.store_image(image_dir, rgbs, "image")
-        if depths:
-            artifacts.store_depth_img(image_dir, depths, "depth")
-        if self.is_multi:
-            artifacts.store_video(image_dir, rgbs)
-        artifacts.write_stats(os.path.join("ckpts", cfg.exp_name, "results.json"),
-                              psnr_stats, ssim_stats, psnr_obj_stats)
+        if self.is_main:
+            image_dir = os.path.join("ckpts", cfg.exp_name, cfg.render_name or "render")
+            artifacts.store_image(image_dir, rgbs, "image")
+            if depths:
+                artifacts.store_depth_img(image_dir, depths, "depth")
+            if self.is_multi:
+                artifacts.store_video(image_dir, rgbs)
+            # label the weights' provenance: "synthetic" LPIPS values are a
+            # plumbing proof, not a perceptual metric (weights/README.md)
+            extra = {"lpips_weights": lpips_weights_kind()} if lpips_stats else None
+            artifacts.write_stats(os.path.join("ckpts", cfg.exp_name, "results.json"),
+                                  psnr_stats, ssim_stats, lpips_stats, psnr_obj_stats,
+                                  extra=extra)
         results = {
             "test/psnr": psnr_stats["test"],
             "test/ssim": ssim_stats["test"],
-            "test/lpips": None,
+            "test/lpips": lpips_stats["test"] if lpips_stats else None,
             "test/psnr_obj": psnr_obj_stats["test"],
         }
         self.logger.log(self.global_step, {k: v for k, v in results.items() if v is not None},

@@ -163,6 +163,27 @@ Phases, each printed as one JSON line on stdout (nothing else goes there):
            --run_eval (19 frames, each encoding its own image) and
            extract_geometry with the dataset's bounds, each with its exact
            launches;
+  lpips    VGG16-LPIPS (aon_tpu_torch/eval/lpips.py) of two 640x480 frames on
+           the card, on synthetic weights that the port's
+           make_synthetic_lpips_weights writes under build/ at the start of
+           the fit phase (every --run_eval from there on reports LPIPS beside
+           "lpips_weights": "synthetic"), against the same module on the CPU
+           in float32, and its ms per frame pair; then
+           configs/lpips_synth_demo.json through the CLI (fit, --run_eval) on
+           a fixture of the port's script, LPIPS in its results.json;
+  optim    the optimizer factories: radam with a cosine schedule and a
+           one-epoch warmup, 8 updates of the vanilla MLPs' tensors on the
+           card against the CPU, then a 200-step CLI fit with them on a
+           320x240 fixture (the loss falling, rows 3 and 2 launched);
+  dp       data parallelism (aon_tpu_torch/parallel/): the vanilla and the
+           auto-encoder quality configs' full step at their batch and samples
+           (multihost_train_demo), one step compared and a few timed under
+           torch.profiler, on one rank over NCCL and on two ranks of the card
+           over gloo (NCCL takes one rank a device), each rank a process of
+           its own, against one process: loss, parameters, ms per step and
+           each rank's idle share; and a 640x480 frame rendered by each
+           rank's block and gathered (multihost_eval_demo) against one
+           process's;
   bench_kernels  the port's kernel bench (aon_tpu_torch/scripts/bench_kernels.py)
            with every variant, its lines re-emitted with exact launch counts;
            then each variant of rows 12 (three bodies) and 13 (three
@@ -385,6 +406,35 @@ FIT_AE_STEPS, FIT_AE_RESUME_STEPS = 240, 16
 # (0.72) after 400 steps on an H100, the joint-state part 0.282 -> 0.003
 FIT_AE_LOSS_FALL = 0.95
 ENCODER_REPS = 10  # timed encoder forward / backward passes
+
+# ---- the lpips, optim and dp phases: each draws from a generator of its own
+LPIPS_WH = (640, 480)
+# VGG16-LPIPS on the card against the same module on the CPU, both float32
+# with TF32 off: the convolutions' sums run in another order (relative)
+TOL_LPIPS_REL = 1e-4
+LPIPS_REPS = 10
+LPIPS_DEMO_CONFIG = "configs/lpips_synth_demo.json"
+# radam + cosine + warmup on the card against the CPU, OPTIM_STEPS updates
+# (the rectification starts at the sixth): an ulp of the tree's largest entry
+# a step, where the card divides by a scalar through its reciprocal
+OPTIM_STEPS = 8
+OPTIM_FIT_STEPS = 200  # a CLI fit with that optimizer on a 320x240 fixture
+# the mean logged loss of the fit's last five logs against its first five's
+OPTIM_FIT_LOSS_FALL = 0.9
+# the data-parallel step: FIT_CONFIG's and FIT_AE_CONFIG's batch and samples,
+# one step compared and DP_TIMED_STEPS timed, on one rank over NCCL and on two
+# ranks of the one card over gloo (NCCL takes one rank a device), against one
+# process.  The loss is a mean over the rays in another order (relative);
+# an Adam first step moves an entry by ~lr * sign(g), so an entry whose
+# gradient lies within the noise of zero may go either way: each parameter
+# difference is held to 2 lr plus two ulps of the entry (seen on the CPU: 2 lr
+# + 0.14%), the mean to DP_PARAMS_MEAN_LR lr
+# (one rank's rays alone, without the all-reduce, flip a large share)
+TOL_DP_LOSS = 1e-4
+DP_PARAMS_MEAN_LR = 0.05
+DP_TIMED_STEPS = {"vanilla": 8, "ae": 2}
+TOL_DP_FRAME = 1e-5  # the same kernels on the same rays: bit-identical expected
+DP_TIMEOUT = 600  # seconds, each rank's process
 
 # the kernel's occupancy against its twin's: voxels whose sigma lies within
 # the kernel / twin noise of the threshold may flip; at most this share of
@@ -685,6 +735,9 @@ def main(argv=None) -> int:
             kernel_times,
             level_split,
             make_fixture_dataset,
+            make_synthetic_lpips_weights,
+            multihost_eval_demo,
+            multihost_train_demo,
             render_sweep,
         )
         from aon_tpu_torch.train.checkpoint import CheckpointManager
@@ -704,7 +757,8 @@ def main(argv=None) -> int:
             fused_level_train_art_grads,
             fused_level_train_art_grads_plain,
         )
-        from aon_tpu_torch.train.microbatch import accumulated_grads, stack_step_batches
+        from aon_tpu_torch.parallel.mesh import stack_step_batches
+        from aon_tpu_torch.train.microbatch import accumulated_grads
         from aon_tpu_torch.train.trainer import inject_ramps
         from aon_tpu_torch.train.systems import (
             ART_TABLE,
@@ -2295,6 +2349,12 @@ def main(argv=None) -> int:
         # train_many in dispatches of 8, one 640x480 validation, a resume from
         # last.ckpt, --run_eval and an extraction with the dataset's bounds
         phase = "fit"
+        # synthetic LPIPS weights (the port's script) under the build
+        # directory: every --run_eval from here on reports LPIPS beside them
+        lpips_npz = ROOT / "build" / "aon_tpu_torch" / "lpips_vgg.synthetic.npz"
+        with contextlib.redirect_stdout(io.StringIO()):
+            make_synthetic_lpips_weights.main(["--out", str(lpips_npz), "--seed", str(args.seed)])
+        os.environ["AON_LPIPS_WEIGHTS"] = str(lpips_npz)
         fit_dir = Path(tempfile.mkdtemp(prefix="aon_fit_"))
         cwd = os.getcwd()
         try:
@@ -2454,6 +2514,8 @@ def main(argv=None) -> int:
                 "resume_val_psnr": (len(res_val) == 1
                                     and res_val[0] >= val_psnr[0] - TOL_RESUME_PSNR_DROP),
                 "results_json": all(math.isfinite(results[k]["mean"]) for k in ("PSNR", "SSIM")),
+                "eval_lpips": (results.get("lpips_weights") == "synthetic"
+                               and math.isfinite(results["LPIPS"]["mean"])),
                 "jpgs_decode": (len(jpgs) == 2 * n_test
                                 and all(d.shape == (480, 640, 3) for d in decoded)),
                 "eval_launches": ev_launches["fused_nerf_mlp_xyz_eval"] > 0
@@ -2485,7 +2547,9 @@ def main(argv=None) -> int:
                            "tol_psnr_drop": TOL_RESUME_PSNR_DROP,
                            "launches": {k: v for k, v in res_launches.items() if v}},
                 "eval": {"wall_s": ev_wall_s, "PSNR": results["PSNR"]["mean"],
-                         "SSIM": results["SSIM"]["mean"], "jpgs": len(jpgs),
+                         "SSIM": results["SSIM"]["mean"],
+                         "LPIPS": results.get("LPIPS", {}).get("mean"),
+                         "lpips_weights": results.get("lpips_weights"), "jpgs": len(jpgs),
                          "launches": {k: v for k, v in ev_launches.items() if v}},
                 "geometry": {"queries": geo["queries"], "occupied": geo["occupied"],
                              "bounds": gz["bounds"].tolist(), "seconds": geo["seconds"],
@@ -3061,6 +3125,254 @@ def main(argv=None) -> int:
             shutil.rmtree(ae_dir, ignore_errors=True)
         torch.cuda.empty_cache()
 
+        # ------------------------------------------------------------- lpips
+        # VGG16-LPIPS (aon_tpu_torch/eval/lpips.py: cuDNN convolutions in
+        # float32, TF32 off) of two 640x480 frames on the card, on the
+        # synthetic weights of the fit phase, against the same module on the
+        # CPU; ms per frame pair, host copies included, as Trainer.test calls it
+        phase = "lpips"
+        from aon_tpu_torch.eval import lpips as port_lpips
+
+        lp_rng = np.random.default_rng(args.seed + 1301)
+        yy, xx = np.mgrid[0:LPIPS_WH[1], 0:LPIPS_WH[0]] / float(LPIPS_WH[1])
+        lp_pred = np.stack([0.5 + 0.5 * np.sin(3 * xx + c) * np.cos(2 * yy - c)
+                            for c in (0.0, 1.0, 2.0)], -1).astype(np.float32)
+        lp_gt = np.clip(lp_pred + lp_rng.normal(0, 0.05, lp_pred.shape), 0, 1).astype(np.float32)
+        lp_card, lp_cpu = port_lpips.lpips_fn(dev), port_lpips.lpips_fn("cpu")
+        lp_got, lp_want = float(lp_card(lp_pred, lp_gt)), float(lp_cpu(lp_pred, lp_gt))
+        lp_ms = time_ms(torch, lambda: lp_card(lp_pred, lp_gt), reps=LPIPS_REPS)
+        lp_rel = abs(lp_got - lp_want) / abs(lp_want)
+        emit({"phase": "lpips", "wh": list(LPIPS_WH), "weights": port_lpips.lpips_weights_kind(),
+              "lpips": lp_got, "lpips_cpu": lp_want, "rel_err": lp_rel, "tol_rel": TOL_LPIPS_REL,
+              "ms_per_frame": lp_ms, "card": card})
+        require(port_lpips.lpips_weights_kind() == "synthetic" and math.isfinite(lp_got)
+                and lp_rel <= TOL_LPIPS_REL, "LPIPS on the card disagrees with the CPU's")
+        del lp_card, lp_cpu
+        # configs/lpips_synth_demo.json through the CLI on its own fixture
+        # (the port's make_fixture_dataset at its defaults): fit, then
+        # --run_eval, whose results.json carries LPIPS beside its label
+        demo_dir = Path(tempfile.mkdtemp(prefix="aon_lpips_demo_"))
+        try:
+            os.chdir(demo_dir)
+            with contextlib.redirect_stdout(io.StringIO()):
+                make_fixture_dataset.main([str(demo_dir / "data")])
+                demo_json = json.loads((ROOT / LPIPS_DEMO_CONFIG).read_text())
+                demo_json.update(root_dir=str(demo_dir / "data"))
+                (demo_dir / "cfg.json").write_text(json.dumps(demo_json))
+                port_run.main(get_config(["--config", str(demo_dir / "cfg.json")]), device=dev)
+                port_run.main(get_config(["--config", str(demo_dir / "cfg.json"), "--run_eval",
+                                          "--render_name", "demo"]), device=dev)
+            demo_res = json.loads((demo_dir / "ckpts" / demo_json["exp_name"] /
+                                   "results.json").read_text())
+        finally:
+            os.chdir(cwd)
+            shutil.rmtree(demo_dir, ignore_errors=True)
+        emit({"phase": "lpips", "config": LPIPS_DEMO_CONFIG,
+              "results": {k: (v["mean"] if isinstance(v, dict) else v) for k, v in demo_res.items()},
+              "card": card})
+        require(demo_res.get("lpips_weights") == "synthetic"
+                and math.isfinite(demo_res["LPIPS"]["mean"]),
+                f"{LPIPS_DEMO_CONFIG} through the CLI reported no LPIPS")
+        torch.cuda.empty_cache()
+
+        # ------------------------------------------------------------- optim
+        # The optimizer factories (aon_tpu_torch/train/optim.py): radam with a
+        # cosine schedule and a warmup, OPTIM_STEPS updates of the vanilla
+        # MLPs' tensors on the card against the same updates on the CPU; then
+        # OPTIM_FIT_STEPS steps of the CLI with that optimizer on a 320x240
+        # fixture, whose logged loss falls
+        phase = "optim"
+        from aon_tpu_torch.train import optim as port_optim
+
+        og = torch.Generator().manual_seed(args.seed + 1302)
+        o_cfg = get_config(["--config", str(ROOT / FIT_CONFIG)])
+        o_params = VanillaSystem(o_cfg, 2.0, 6.0, True, device="cpu").init_params(og)
+        o_grads = [{k: 1e-3 * torch.randn(v.shape, generator=og) for k, v in o_params.items()}
+                   for _ in range(OPTIM_STEPS)]
+        o_sched = port_optim.get_scheduler(5e-4, "cosine", 8, 10, warmup_epochs=1,
+                                           warmup_multiplier=2.0)
+        o_tx = port_optim.get_optimizer("radam", schedule=o_sched)
+        o_state = {}
+        for where in ("cpu", dev):
+            p = {k: v.to(where) for k, v in o_params.items()}
+            mu, nu = o_tx.init(p)
+            for step, gr in enumerate(o_grads):
+                p, mu, nu = o_tx.update(p, {k: v.to(where) for k, v in gr.items()}, mu, nu, step)
+            o_state[str(where)] = {k: v.cpu() for k, v in p.items()}
+        o_diff = max((o_state[str(dev)][k] - v).abs().max().item()
+                     for k, v in o_state["cpu"].items())
+        o_ulp = torch.finfo(torch.float32).eps * max(v.abs().max().item()
+                                                      for v in o_state["cpu"].values())
+        o_moved = max((v - o_params[k]).abs().max().item() for k, v in o_state["cpu"].items())
+
+        o_dir = Path(tempfile.mkdtemp(prefix="aon_optim_"))
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                make_fixture_dataset.main([str(o_dir / "data"), "--n", "3", "--wh", "320",
+                                           "240", "--seed", str(args.seed + 1302)])
+            cfg_json = json.loads((ROOT / FIT_CONFIG).read_text())
+            cfg_json.update(root_dir=str(o_dir / "data"), output_path=str(o_dir / "results"),
+                            img_wh=[320, 240], run_max_steps=OPTIM_FIT_STEPS, num_epochs=8,
+                            limit_val_batches=1, log_every_n_steps=8, optimizer="radam",
+                            lr_scheduler="cosine", warmup_epochs=1, warmup_multiplier=2.0)
+            (o_dir / "cfg.json").write_text(json.dumps(cfg_json))
+            o_run_cfg = get_config(["--config", str(o_dir / "cfg.json")])
+            for c in counters.values():
+                c.launches = 0
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                o_trainer = port_run.main(o_run_cfg, device=dev)
+            o_wall = time.perf_counter() - t0
+            optim_launches = {k: c.launches for k, c in counters.items()}
+            o_recs = [json.loads(ln) for ln in (o_dir / "results" / o_run_cfg.exp_name /
+                                                "metrics.jsonl").read_text().splitlines()]
+        finally:
+            shutil.rmtree(o_dir, ignore_errors=True)
+        o_losses = [r["train/loss"] for r in o_recs if "train/loss" in r]
+        o_first, o_last = float(np.mean(o_losses[:5])), float(np.mean(o_losses[-5:]))
+        o_checks = {
+            "card_matches_cpu": o_diff <= OPTIM_STEPS * o_ulp and o_moved > 0,
+            "fit_is_radam": type(o_trainer.system.tx) is port_optim.RAdam
+                            and o_trainer.global_step == OPTIM_FIT_STEPS,
+            "fit_loss_falls": len(o_losses) >= 10 and o_last < OPTIM_FIT_LOSS_FALL * o_first,
+            "fit_launches": optim_launches["fused_level_train_grads"] == 2 * OPTIM_FIT_STEPS,
+        }
+        emit({"phase": "optim", "optimizer": "radam", "scheduler": "cosine", "warmup_epochs": 1,
+              "updates": OPTIM_STEPS, "max_abs_diff": o_diff, "ulp": o_ulp, "moved": o_moved,
+              "fit": {"config": FIT_CONFIG, "steps": OPTIM_FIT_STEPS, "wall_s": o_wall,
+                      "loss_first5": o_first, "loss_last5": o_last,
+                      "fall": OPTIM_FIT_LOSS_FALL, "lr_first": o_trainer.system.lr_schedule(0),
+                      "launches": {k: v for k, v in optim_launches.items() if v}},
+              "checks": o_checks, "card": card})
+        require(all(o_checks.values()), f"optim checks failed: {o_checks}")
+        del o_trainer
+        torch.cuda.empty_cache()
+
+        # ---------------------------------------------------------------- dp
+        # Data parallelism (aon_tpu_torch/parallel/, make_train_many_sharded):
+        # FIT_CONFIG's and FIT_AE_CONFIG's full step at their batch and samples
+        # through multihost_train_demo, one step compared and DP_TIMED_STEPS
+        # timed, on 1 rank over NCCL and on 2 ranks of this card over gloo,
+        # against one process; then a 640x480 frame of FIT_CONFIG rendered by
+        # each rank's block and gathered (multihost_eval_demo) against one
+        # process's.  Each rank is a process of its own (a worker below),
+        # with this process's float32 settings (no TF32: the encoder's
+        # convolutions would otherwise round otherwise than the reference's).
+        phase = "dp"
+        dp_dir = Path(tempfile.mkdtemp(prefix="aon_dp_"))
+        dp_worker = (
+            "import sys, torch, torch.distributed as dist\n"
+            "torch.backends.cuda.matmul.allow_tf32 = False  # as in this process\n"
+            "torch.backends.cudnn.allow_tf32 = False\n"
+            f"sys.path.insert(0, {str(ROOT)!r})\n"
+            "from aon_tpu_torch.parallel.mesh import RENDEZVOUS_TIMEOUT\n"
+            "from aon_tpu_torch.scripts import multihost_eval_demo, multihost_train_demo\n"
+            "rank, world, backend, port, out = sys.argv[1:6]\n"
+            "dist.init_process_group(backend, init_method=f'tcp://localhost:{port}',\n"
+            "                        world_size=int(world), rank=int(rank),\n"
+            "                        timeout=RENDEZVOUS_TIMEOUT)\n"
+            "common = ['--num_processes', world, '--process_id', rank, '--backend', backend,\n"
+            "          '--device', 'cuda:0']\n"
+            "for system, cfg, timed in (\n"
+            f"        ('vanilla', {str(ROOT / FIT_CONFIG)!r}, {DP_TIMED_STEPS['vanilla']}),\n"
+            f"        ('ae', {str(ROOT / FIT_AE_CONFIG)!r}, {DP_TIMED_STEPS['ae']})):\n"
+            "    multihost_train_demo.main(common + ['--system', system, '--config', cfg,\n"
+            "        '--steps', '1', '--timed_steps', str(timed),\n"
+            "        '--out', f'{out}/{system}_{backend}{world}_r{rank}.npz'])\n"
+            f"multihost_eval_demo.main(common + ['--config', {str(ROOT / FIT_CONFIG)!r},\n"
+            f"    '--wh', '{LPIPS_WH[0]}', '{LPIPS_WH[1]}', '--chunk', '{CHUNK_RAYS}',\n"
+            "    '--out', f'{out}/frame_{backend}{world}_r{rank}.npz'])\n"
+            "dist.destroy_process_group()\n")
+
+        def dp_ranks(backend, world):
+            """Run the worker as ``world`` ranks side by side; kill any left
+            at the timeout."""
+            import socket
+
+            with socket.socket() as sock:
+                sock.bind(("localhost", 0))
+                port = sock.getsockname()[1]
+            procs = [subprocess.Popen([sys.executable, "-c", dp_worker, str(r), str(world),
+                                       backend, str(port), str(dp_dir)],
+                                      stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                     for r in range(world)]
+            errs = []
+            try:
+                for proc in procs:
+                    errs.append(proc.communicate(timeout=DP_TIMEOUT)[1])
+            finally:
+                for proc in procs:
+                    if proc.poll() is None:
+                        proc.kill()
+                        proc.communicate()
+            for proc, err in zip(procs, errs):
+                require(proc.returncode == 0, f"a {backend} rank of {world} failed: {err[-3000:]}")
+
+        try:
+            t0 = time.perf_counter()
+            dp_ranks("nccl", 1)
+            dp_ranks("gloo", 2)
+            dp_ranks_s = time.perf_counter() - t0
+            # one process, here: the reference, and the dp path's launches
+            for c in counters.values():
+                c.launches = 0
+            dp_ref = {}
+            with contextlib.redirect_stdout(io.StringIO()):
+                for system, cfg_path in (("vanilla", FIT_CONFIG), ("ae", FIT_AE_CONFIG)):
+                    multihost_train_demo.main([
+                        "--system", system, "--config", str(ROOT / cfg_path), "--steps", "1",
+                        "--timed_steps", str(DP_TIMED_STEPS[system]), "--device", "cuda:0",
+                        "--out", str(dp_dir / f"{system}_single.npz")])
+                multihost_eval_demo.main([
+                    "--config", str(ROOT / FIT_CONFIG), "--wh", str(LPIPS_WH[0]),
+                    str(LPIPS_WH[1]), "--chunk", str(CHUNK_RAYS), "--device", "cuda:0",
+                    "--out", str(dp_dir / "frame_single.npz")])
+            dp_launches = {k: c.launches for k, c in counters.items()}
+            dp_rec, dp_checks = {}, {}
+            for system, cfg_path in (("vanilla", FIT_CONFIG), ("ae", FIT_AE_CONFIG)):
+                want = np.load(dp_dir / f"{system}_single.npz")
+                lr0 = port_optim.make_optimizer(get_config(["--config", str(ROOT / cfg_path)]))[1](0)
+                runs = {"single": {"ms_per_step": 1e3 * float(np.median(want["timed_step_seconds"])),
+                                   "device_idle_share": float(want["device_idle_share"]),
+                                   "loss": float(want["loss"])}}
+                # a flipped step lands 2 lr away, up to the rounding of each sum
+                flip_ulps = 2.0 * np.finfo(np.float32).eps * np.abs(want["params"])
+                for label, world in (("nccl1", 1), ("gloo2", 2)):
+                    ranks = [np.load(dp_dir / f"{system}_{label}_r{r}.npz") for r in range(world)]
+                    diff = np.abs(ranks[0]["params"] - want["params"])
+                    loss_rel = abs(float(ranks[0]["loss"]) - float(want["loss"])) / float(want["loss"])
+                    runs[label] = {
+                        "loss": float(ranks[0]["loss"]), "loss_rel_err": loss_rel,
+                        "params_max_diff": float(diff.max()), "params_mean_diff": float(diff.mean()),
+                        "ms_per_step": [1e3 * float(np.median(r["timed_step_seconds"]))
+                                        for r in ranks],
+                        "device_idle_share": [float(r["device_idle_share"]) for r in ranks]}
+                    dp_checks[f"{system}_{label}"] = bool(
+                        all(int(r["processes"]) == world for r in ranks)
+                        and all(np.array_equal(r["params"], ranks[0]["params"]) for r in ranks)
+                        and loss_rel <= TOL_DP_LOSS and np.all(diff <= 2.0 * lr0 + flip_ulps)
+                        and diff.mean() <= DP_PARAMS_MEAN_LR * lr0)
+                dp_rec[system] = {"config": cfg_path, "lr0": lr0, **runs}
+            frame_want = np.load(dp_dir / "frame_single.npz")
+            frame_err = {}
+            for label, world in (("nccl1", 1), ("gloo2", 2)):
+                for r in range(world):
+                    got = np.load(dp_dir / f"frame_{label}_r{r}.npz")
+                    frame_err[f"{label}_r{r}"] = max(float(np.abs(got[k] - frame_want[k]).max())
+                                                     for k in frame_want.files)
+            dp_checks["frame_gather"] = (frame_want["comp_rgb"].shape == (LPIPS_WH[1], LPIPS_WH[0], 3)
+                                         and max(frame_err.values()) <= TOL_DP_FRAME)
+        finally:
+            shutil.rmtree(dp_dir, ignore_errors=True)
+        emit({"phase": "dp", **dp_rec, "frame": {"wh": list(LPIPS_WH), "max_abs_err": frame_err,
+                                                  "tol": TOL_DP_FRAME},
+              "ranks_wall_s": dp_ranks_s, "tol_loss": TOL_DP_LOSS,
+              "params_mean_lr": DP_PARAMS_MEAN_LR,
+              "launches": {k: v for k, v in dp_launches.items() if v},
+              "checks": dp_checks, "card": card})
+        require(all(dp_checks.values()), f"dp checks failed: {dp_checks}")
+        torch.cuda.empty_cache()
+
         # ----------------------------------------------------- bench_kernels
         # The port's kernel bench (aon_tpu_torch/scripts/bench_kernels.py),
         # every variant at its own shapes: rows 1 and 4 through the training
@@ -3607,6 +3919,12 @@ def main(argv=None) -> int:
             e = by_name[kname]
             e["launches"] += fit_ae_path_launches[kname]
             e["launches_by_path"]["fit_ae"] = fit_ae_path_launches[kname]
+        # the optim phase's CLI fit and the dp phase's one-process steps and frame
+        for path, launched in (("optim", optim_launches), ("dp", dp_launches)):
+            for kname, n in launched.items():
+                if n and kname in by_name:
+                    by_name[kname]["launches"] += n
+                    by_name[kname]["launches_by_path"][path] = n
         # and their checks at the bench's shapes
         for kname in ("resample_union", "fused_level_train_grads", "fused_level_train_art_grads"):
             by_name[kname]["bench_shapes"] = [

@@ -268,6 +268,48 @@ def test_fused_v3_step_matches_jax_in_interpret_mode(rng, params):
     assert aux["opacity_loss"].item() > 0
 
 
+def test_bf16_config_runs_the_encoder_in_float32_and_matches_jax(rng, params):
+    """With ``compute_dtype="bfloat16"`` the encoder still runs in float32
+    (the port's bf16 cuDNN encoder held the opacity BCE on its plateau ~4,000
+    steps longer than JAX's on a TPU; ROADMAP.md).  Its fused step is held
+    against the JAX system's float32-encoder step at the tolerances of
+    ``test_fused_v3_step_matches_jax_in_interpret_mode``."""
+    _, f32_system, jsys = _mode("softplus")
+    system = build_system(Config(**dict(SMALL, compute_dtype="bfloat16"), **MODES["softplus"]),
+                          2.0, 6.0, False, device="cpu")
+    assert system.model.coarse_mlp.dtype == torch.bfloat16
+    assert system.encoder.dtype == torch.float32
+    p = _denser(params[0])
+    src = _t(_batch(rng, 1)["src_imgs"])[None]
+    lat, pred = system._encode(p, src, 0.5)
+    want_lat, want_pred = f32_system._encode(p, src, 0.5)
+    assert all(v.dtype == torch.float32 for v in lat.values())
+    for k in want_lat:
+        assert torch.equal(lat[k], want_lat[k]), k
+    B = 16
+    batch = _batch(rng, B, flat_mask=True)
+    key = jax.random.PRNGKey(13)
+    fn, jfn = _fused_fns(system, jsys)
+    want_loss, want_aux, want_grads = jax.jit(jfn)(
+        jax.tree.map(jnp.asarray, tree_to_flax(p)), {k: jnp.asarray(v) for k, v in batch.items()},
+        key)
+    loss, aux, grads = fn(p, {k: _t(v) for k, v in batch.items()}, None, _fused_draws(key, B))
+    np.testing.assert_allclose(loss.item(), float(want_loss), rtol=5e-3)
+    for k in ("loss0", "loss1", "opacity_loss"):
+        np.testing.assert_allclose(aux[k].item(), float(want_aux[k]), rtol=5e-3, err_msg=k)
+    np.testing.assert_allclose(aux["loss_state"].item(), float(want_aux["loss_state"]),
+                               rtol=1e-5)
+    want = params_from_flax(jax.tree.map(np.asarray, want_grads))
+    for prefix in ("model.coarse_mlp.", "model.fine_mlp."):
+        names = _names(want, prefix)
+        cos, ratio = _cos(grads, want, [k for k in names if ".deform_" not in k])
+        assert cos >= 0.98 and 0.9 <= ratio <= 1.1, (prefix, cos, ratio)
+        assert _cos(grads, want, [k for k in names if ".deform_" in k])[0] >= 0.4, prefix
+    for prefix, limit in (("encoder.", 0.999), ("joint_state.", 0.9999), ("deg_embedding.", 0.4)):
+        cos, _ = _cos(grads, want, _names(want, prefix))
+        assert cos >= limit, (prefix, cos)
+
+
 @pytest.mark.parametrize("name", list(MODES))
 def test_fused_routes_agree_with_each_other(rng, params, name):
     _, system, _ = _mode(name)

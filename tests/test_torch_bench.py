@@ -68,7 +68,8 @@ from aon_tpu_torch.ops import bench_variants as bv  # noqa: E402
 from aon_tpu_torch.ops.fused_mlp import make_posenc_constants, pack_vanilla_mlp_params  # noqa: E402
 from aon_tpu_torch.scripts import bench as port_bench  # noqa: E402
 from aon_tpu_torch.scripts import bench_kernels as port_bench_kernels  # noqa: E402
-from aon_tpu_torch.train.microbatch import accumulated_grads, stack_step_batches  # noqa: E402
+from aon_tpu_torch.parallel.mesh import stack_step_batches  # noqa: E402
+from aon_tpu_torch.train.microbatch import accumulated_grads  # noqa: E402
 from aon_tpu_torch.train.systems import build_system  # noqa: E402
 from aon_tpu_torch.utils.config import Config  # noqa: E402
 

@@ -190,9 +190,13 @@ def test_make_optimizer_default_pair_and_the_rest():
     assert schedule(0) == default_nerf_optimizer(Config()).schedule(0)
     # lr_max_steps pins the decay horizon apart from run_max_steps
     assert make_optimizer(Config(lr_max_steps=24000))[1](24000) == pytest.approx(5e-6, rel=1e-5)
-    for kw in (dict(optimizer="sgd"), dict(lr_scheduler="cosine"), dict(optimizer="ranger")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_optimizer(Config(**kw))
+    # the rest go through the factories (tests/test_torch_optim.py); ranger
+    # raises as the JAX package's make_optimizer does
+    assert type(make_optimizer(Config(optimizer="sgd"))[0]).__name__ == "SGD"
+    tx, schedule = make_optimizer(Config(lr_scheduler="cosine"))
+    assert isinstance(tx, Adam) and schedule(Config().run_max_steps) == 0.0
+    with pytest.raises(ValueError, match="LookaheadParams"):
+        make_optimizer(Config(optimizer="ranger"))
 
 
 @pytest.mark.parametrize("k", [1, 4])

@@ -54,7 +54,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import time
 from typing import Callable, Dict, List, Optional
 
@@ -81,7 +80,7 @@ from aon_tpu_torch.ops.fused_mlp_train import (
     fused_mlp_train_xyz,
     fused_nerf_mlp_xyz_eval,
 )
-from aon_tpu_torch.utils.device import DeviceLike, resolve_device
+from aon_tpu_torch.utils.device import DeviceLike, card_name, resolve_device
 
 PORT_TILE = train_sm90.TILE_ROWS  # rows per tile of the training kernels (ops/csrc/train_sm90.cuh)
 PEAK_BF16_FLOPS = 989e12  # H100 SXM, dense bf16 (NVIDIA's data sheet), at 700 W
@@ -123,15 +122,9 @@ def mlp_params(device: torch.device, seed: int = 0) -> Dict[str, torch.Tensor]:
     return {k: v.detach() for k, v in mlp.state_dict().items()}
 
 
-def card() -> Dict[str, Optional[str]]:
+def card() -> Dict[str, str]:
     """The card's name and `nvidia-smi` name and power limit."""
-    try:
-        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                              "--format=csv,noheader"], capture_output=True, text=True,
-                             timeout=60).stdout.strip().splitlines()
-    except (OSError, subprocess.SubprocessError):
-        smi = []
-    return {"name": torch.cuda.get_device_name(0), "nvidia_smi": smi[0] if smi else None}
+    return {"name": torch.cuda.get_device_name(0), "nvidia_smi": card_name("cuda")}
 
 
 def _timed(fn: Callable[[], object], calls: int):

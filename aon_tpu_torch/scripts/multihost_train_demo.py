@@ -49,6 +49,7 @@ from aon_tpu_torch.parallel.mesh import RENDEZVOUS_TIMEOUT, stack_step_batches
 from aon_tpu_torch.train.systems import build_system
 from aon_tpu_torch.utils.config import Config, get_config
 from aon_tpu_torch.utils.device import resolve_device
+from aon_tpu_torch.utils.profiling import device_idle
 
 EXP_TYPES = {"vanilla": "vanilla", "autodecoder": "vanilla_autodecoder", "ae": "vanilla_ae_art"}
 
@@ -126,20 +127,13 @@ def train(system: str, cfg: Config, n_rays: int, steps: int, device: torch.devic
            "processes": 1 if group is None else dist.get_world_size(group),
            "step_seconds": np.asarray(seconds)}
     if timed_steps:
-        activities = [torch.profiler.ProfilerActivity.CPU]
-        if device.type == "cuda":
-            activities.append(torch.profiler.ProfilerActivity.CUDA)
         timed = []
-        with torch.profiler.profile(activities=activities) as prof:
-            t_window = time.perf_counter()
+        with device_idle(device) as window:
             for i in range(steps, steps + timed_steps):
                 state, _, dt = step(state, i)
                 timed.append(dt)
-            window_ms = 1e3 * (time.perf_counter() - t_window)
-        busy_ms = sum(e.device_time_total for e in prof.key_averages()
-                      if e.device_type.name == "CUDA") / 1e3
-        rec.update(timed_step_seconds=np.asarray(timed), window_ms=window_ms,
-                   device_busy_ms=busy_ms, device_idle_share=1.0 - busy_ms / window_ms)
+        rec.update(timed_step_seconds=np.asarray(timed),
+                   **{k: v for k, v in window.items() if v is not None})
     return rec
 
 

@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import subprocess
 from typing import Union
 
 import torch
@@ -22,3 +23,18 @@ def resolve_device(device: DeviceLike = "cuda") -> torch.device:
             "pass device='cpu' to run the plain PyTorch path"
         )
     return device
+
+
+def card_name(device: DeviceLike = "cuda") -> str:
+    """The card's name and power limit as ``nvidia-smi --query-gpu=name,power.limit
+    --format=csv,noheader`` gives them (its first card; torch's name where
+    ``nvidia-smi`` cannot be run), or ``"cpu"``: the line that stands beside
+    every time a script prints."""
+    if torch.device(device).type != "cuda":
+        return "cpu"
+    try:
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                             capture_output=True, text=True, timeout=60).stdout.strip().splitlines()
+    except (OSError, subprocess.SubprocessError):
+        smi = []
+    return smi[0] if smi else torch.cuda.get_device_name(torch.device(device))

@@ -8,6 +8,9 @@ GPU (run.py:108).  Here:
   (open it in ui.perfetto.dev or chrome://tracing);
 * ``annotate(name)``: a named span in that trace
   (``torch.profiler.record_function``);
+* ``device_idle(device)``: the host-clocked window of its body, the card's
+  busy time in it (every CUDA kernel and copy under ``torch.profiler``) and
+  the idle share, ``1 - busy / window``;
 * the per-epoch ``train/rays_per_sec`` counter is logged by the Trainer.
 
 NaN debugging (the reference runs Lightning's ``detect_anomaly=True``): the
@@ -23,6 +26,8 @@ from __future__ import annotations
 
 import contextlib
 import os
+import time
+from typing import Dict, Optional
 
 import torch
 
@@ -43,6 +48,30 @@ def trace(logdir: str):
         prof.stop()
         os.makedirs(logdir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(logdir, TRACE_FILE))
+
+
+@contextlib.contextmanager
+def device_idle(device):
+    """Trace the body's CUDA activity; the yielded dict gets ``window_ms`` (the
+    host clock around the body), ``device_busy_ms`` and ``device_idle_share``
+    when the body ends.  On the CPU nothing is traced and the two device
+    entries are None.  The body should end with the device synchronized."""
+    rec: Dict[str, Optional[float]] = {}
+    if torch.device(device).type != "cuda":
+        t0 = time.perf_counter()
+        yield rec
+        rec.update(window_ms=1e3 * (time.perf_counter() - t0), device_busy_ms=None,
+                   device_idle_share=None)
+        return
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        yield rec
+        window_ms = 1e3 * (time.perf_counter() - t0)
+    busy_ms = sum(e.device_time_total for e in prof.key_averages()
+                  if e.device_type.name == "CUDA") / 1e3
+    rec.update(window_ms=window_ms, device_busy_ms=busy_ms,
+               device_idle_share=1.0 - busy_ms / window_ms)
 
 
 def annotate(name: str):

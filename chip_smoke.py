@@ -202,6 +202,18 @@ Phases, each printed as one JSON line on stdout (nothing else goes there):
            one 2,048-ray microbatch of each bench batch against the plain
            float32 route, beside the plain route in bf16 against float32 (what
            bf16 rounding alone does to the same gradients);
+  scripts  the port's last scripts through their main() on the card:
+           bench_eval's reference contract (640x480 seeded rays, 64 + 128
+           samples, chunks 30,720 / 61,440 / 153,600 / 307,200; frame ms and
+           peak device memory, exact launches of rows 1 and 2) and its
+           production mode on configs/quality_laptop_vanilla_refsched_occ16.json
+           over a fixture like the fit phase's; bench_art at --fused v3 (rows
+           9, 2) and v2 (rows 10, 11, 2); profile_ae_host (--dispatches 3) and
+           roofline_ae (its default contract) on configs/quality_laptop_ae_aabb24.json
+           over a fixture like the fit_ae phase's; demo_sphere at 120x160 on
+           the card against the CPU under the same draws; analyze_gt_ceiling on
+           a lo/hi pair the phase writes; visualize_cameras on the fit fixture;
+           one line each, with the card, and the phase's launches by kernel;
   kernels  every kernel of the paths with its launches, error, times and bound
            (rows 1-13, rows 12 and 13 by variant, and row 14's check);
 
@@ -440,6 +452,14 @@ DP_TIMEOUT = 600  # seconds, each rank's process
 # the kernel / twin noise of the threshold may flip; at most this share of
 # the grid's voxels may
 TOL_OCC_SHARE = 1e-4
+# the scripts phase's analytic sphere, card against CPU on the same draws: one
+# 8-bit level (a float32 value that rounds on either side of a level), but
+# for a share of pixels: the sphere's surface is a step in density, and a
+# sample within the two devices' rounding of |p| = 1 lies inside on one and
+# outside on the other (and the fine samples follow the coarse weights)
+TOL_SPHERE_LEVELS = 1
+TOL_SPHERE_OFF_SHARE = 0.005
+SCRIPTS_AE_DISPATCHES = 3  # profile_ae_host's timed dispatches in the scripts phase
 
 
 def emit(obj) -> None:
@@ -3768,6 +3788,208 @@ def main(argv=None) -> int:
             profile_steps(system, state_v3, vanilla_batch, "vanilla")
             profile_steps(art_system, art_state_v3, art_batch, "autodecoder")
 
+        # ----------------------------------------------------------- scripts
+        # The port's last scripts on the card, each through its main(): the
+        # eval bench's reference contract at its four chunks and its
+        # production mode on the fit config over a fixture like the fit
+        # phase's; the articulated bench at v3 and v2; the auto-encoder's host
+        # profile and device split on the fit_ae config over a fixture like
+        # that phase's; the analytic sphere on the card against the CPU under
+        # the same draws; the ground-truth ceiling of a lo/hi pair written
+        # here; the camera plot of the fit fixture.  Inputs from a generator
+        # of its own.  One line each, and the launches of rows 1, 2, 9, 10, 11
+        phase = "scripts"
+        from aon_tpu_torch.scripts import (
+            analyze_gt_ceiling,
+            bench_art,
+            bench_eval,
+            demo_sphere,
+            profile_ae_host,
+            roofline_ae,
+            visualize_cameras,
+        )
+        from aon_tpu_torch.utils.imageio import read_png, write_png
+
+        sc_gen = np.random.default_rng(args.seed + 14)
+        scripts_launches = {k: 0 for k in counters}
+        sc_dir = Path(tempfile.mkdtemp(prefix="aon_scripts_"))
+        cwd = os.getcwd()
+
+        def run_script(label, fn):
+            """``fn()`` with its prints kept aside: (its result, its stdout lines,
+            wall seconds, its launches by kernel), the launches also summed
+            for the kernels line."""
+            for c in counters.values():
+                c.launches = 0
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                out = fn()
+            wall = time.perf_counter() - t0
+            launched = {k: c.launches for k, c in counters.items() if c.launches}
+            for k, n in launched.items():
+                scripts_launches[k] += n
+            return out, buf.getvalue().splitlines(), wall, launched
+
+        try:
+            os.chdir(sc_dir)
+            with contextlib.redirect_stdout(io.StringIO()):
+                make_fixture_dataset.main([str(sc_dir / "fit_data"), "--n", str(FIT_VIEWS),
+                                           "--wh", "640", "480", "--seed", str(args.seed)])
+                make_fixture_dataset.main([str(sc_dir / "ae_data"), "--multi", "--n",
+                                           str(FIT_ART_VIEWS), "--wh", "320", "240",
+                                           "--seed", str(args.seed)])
+
+            def with_root(cfg_path, root, **extra):
+                cfg_json = json.loads((ROOT / cfg_path).read_text())
+                cfg_json.update(root_dir=str(root), output_path=str(sc_dir / "results"), **extra)
+                out = sc_dir / Path(cfg_path).name
+                out.write_text(json.dumps(cfg_json))
+                return str(out)
+
+            # bench_eval: the reference contract, then production on the fit config
+            recs, lines, wall, launched = run_script(
+                "bench_eval", lambda: bench_eval.main([], device=dev))
+            require(json.loads(lines[0]) == {"card": card} and len(recs) == 4
+                    and all(math.isfinite(r["frame_ms"]) and r["frame_ms"] > 0 for r in recs),
+                    f"bench_eval's reference contract printed {lines}")
+            want_frames = 4 * sum(r["pieces"] for r in recs)  # a warm frame and three timed
+            require(launched.get("fused_nerf_mlp_xyz_eval") == 2 * want_frames
+                    and launched.get("resample_union") == want_frames,
+                    f"bench_eval's reference contract launched {launched}")
+            eval_rec = {"reference": [{k: r[k] for k in ("chunk", "frame_ms", "frames_per_sec",
+                                                       "peak_device_bytes", "pieces")}
+                                      for r in recs], "reference_launches": launched}
+            prod, lines, wall, launched = run_script(
+                "bench_eval", lambda: bench_eval.main(
+                    ["--config", with_root(FIT_CONFIG, sc_dir / "fit_data")], device=dev))
+            require(np.isfinite(prod["comp_rgb"]).all() and 0 < prod["hit_frac"] <= 1
+                    and prod["n_rays"] == 640 * 480 and launched.get("resample_union", 0) > 0
+                    and launched.get("fused_nerf_mlp_xyz_eval", 0) > 0,
+                    f"bench_eval's production mode: {lines}, launched {launched}")
+            eval_rec["production"] = {**{k: prod[k] for k in (
+                "config", "img_wh", "samples", "use_aabb", "hit_frac", "chunk", "frame_ms",
+                "frames_per_sec", "peak_device_bytes")}, "wall_s": wall, "launches": launched}
+            emit({"phase": "scripts", "script": "bench_eval", **eval_rec, "card": card})
+
+            # bench_art at v3 and v2, at its defaults
+            art_rec = {}
+            for fused, rows in (("v3", ("fused_level_train_art_grads", "resample_union")),
+                                ("v2", ("art_mlp_fwd", "art_mlp_bwd", "resample_union"))):
+                rec, lines, wall, launched = run_script(
+                    "bench_art", lambda: bench_art.main(["--fused", fused], device=dev))
+                require(json.loads(lines[-1])["metric"] == "art_train_rays_per_sec"
+                        and all(math.isfinite(v) for v in rec["losses"])
+                        and all(launched.get(k, 0) > 0 for k in rows),
+                        f"bench_art --fused {fused}: {lines}, launched {launched}")
+                art_rec[fused] = {"art_train_rays_per_sec": rec["value"], "seconds": rec["seconds"],
+                                  "steps": rec["steps"], "losses": rec["losses"],
+                                  "launches": launched}
+            emit({"phase": "scripts", "script": "bench_art", **art_rec, "card": card})
+
+            # profile_ae_host and roofline_ae on the fit_ae config's fixture
+            shutil.copytree(sc_dir / "ae_data" / "obj_a" / "train" / "0_degree",
+                            sc_dir / "ae_data" / "obj_a" / "test_spheric")
+            ae_cfg = with_root(FIT_AE_CONFIG, sc_dir / "ae_data")
+            prof_rep, lines, wall, launched = run_script("profile_ae_host", lambda: profile_ae_host.main(
+                ["--config", ae_cfg, "--dispatches", str(SCRIPTS_AE_DISPATCHES)], device=dev))
+            rates = [v for k, v in prof_rep.items() if k.endswith("_rays_per_sec")]
+            require(len(rates) == 4 and all(v > 0 for v in rates)
+                    and 0 <= prof_rep["dispatch_device_idle_share"] < 1
+                    and launched.get("fused_level_train_art_grads", 0) > 0,
+                    f"profile_ae_host: {prof_rep}, launched {launched}")
+            # the timed loops' share of the wall: the rest is the Trainer's
+            # setup, the warm dispatch and the profiled dispatches
+            timed_s = SCRIPTS_AE_DISPATCHES * sum(prof_rep[f"{k}_ms_per_dispatch"]
+                              for k in ("iterator", "stage", "dispatch", "end2end")) / 1e3
+            emit({"phase": "scripts", "script": "profile_ae_host", "config": FIT_AE_CONFIG,
+                  **{k: v for k, v in prof_rep.items() if k not in ("config", "card")},
+                  "wall_s": wall, "timed_s": timed_s, "launches": launched, "card": card})
+            roof, lines, wall, launched = run_script(
+                "roofline_ae", lambda: roofline_ae.main(
+                    ["--out", str(sc_dir / "torch_roofline_ae.json")], device=dev))
+            require(all(roof[k] > 0 for k in ("ae_full_ms_per_dispatch", "enc_fwd_ms_per_dispatch",
+                                              "enc_fwd_bwd_ms_per_dispatch",
+                                              "autodec_body_ms_per_dispatch",
+                                              "enc_fwd_flops_per_dispatch"))
+                    and launched.get("fused_level_train_art_grads", 0) > 0,
+                    f"roofline_ae: {roof}, launched {launched}")
+            emit({"phase": "scripts", "script": "roofline_ae",
+                  **{k: v for k, v in roof.items() if k not in ("_analysis", "card")},
+                  "wall_s": wall, "launches": launched, "card": card})
+
+            # demo_sphere at 120x160 on the card and on the CPU, the same draws
+            n_px = 120 * 160
+            sphere_draws = {"t_rand": torch.from_numpy(sc_gen.random((n_px, 65), np.float32)),
+                            "u": torch.from_numpy(sc_gen.random((n_px, 128), np.float32))}
+            on_card, lines, wall, launched = run_script(
+                "demo_sphere", lambda: demo_sphere.main(
+                    ["--out", str(sc_dir / "sphere.png")], device=dev, draws=sphere_draws))
+            on_cpu, _, _, _ = run_script(
+                "demo_sphere", lambda: demo_sphere.main(
+                    ["--out", str(sc_dir / "sphere_cpu.png")], device="cpu", draws=sphere_draws))
+            sphere_err = {k: float(np.abs(on_card[k] - on_cpu[k]).max())
+                          for k in ("comp", "acc", "comp2", "acc2")}
+            level_diff = np.abs(read_png(sc_dir / "sphere.png").astype(np.int16)
+                                - read_png(sc_dir / "sphere_cpu.png").astype(np.int16)).max(-1)
+            off_share = float(np.mean(level_diff > TOL_SPHERE_LEVELS))
+            require(off_share <= TOL_SPHERE_OFF_SHARE and lines[-1].endswith("finite+sorted OK"),
+                    f"demo_sphere: {off_share:.4f} of the card's pixels lie more than "
+                    f"{TOL_SPHERE_LEVELS} level from the CPU's")
+            emit({"phase": "scripts", "script": "demo_sphere", "hw": [120, 160],
+                  "lines": lines[:2], "max_abs_err_vs_cpu": sphere_err,
+                  "png_max_level_diff": int(level_diff.max()), "png_off_share": off_share,
+                  "tol_levels": TOL_SPHERE_LEVELS, "tol_off_share": TOL_SPHERE_OFF_SHARE,
+                  "wall_s": wall, "card": card})
+
+            # analyze_gt_ceiling on a lo/hi pair: hi a smooth field, lo its 2x2
+            # mean plus noise, a disk as the seg mask
+            yy, xx = np.mgrid[0:480, 0:640] / 480.0
+            for split in ("lo", "hi"):
+                for sub in ("rgb", "seg"):
+                    (sc_dir / "gt" / split / sub).mkdir(parents=True, exist_ok=True)
+            for i in range(2):
+                hi = np.stack([0.5 + 0.4 * np.sin(6 * xx + i), 0.5 + 0.4 * np.cos(5 * yy),
+                               0.5 + 0.2 * np.sin(3 * (xx + yy))], -1)
+                lo = hi.reshape(240, 2, 320, 2, 3).mean((1, 3)) + sc_gen.normal(0, 0.02, (240, 320, 3))
+                seg = ((np.mgrid[0:240, 0:320][0] - 120) ** 2
+                       + (np.mgrid[0:240, 0:320][1] - 160 - 20 * i) ** 2 < 60 ** 2)
+                write_png(sc_dir / "gt" / "hi" / "rgb" / f"r_{i}.png",
+                          np.rint(255 * np.clip(hi, 0, 1)).astype(np.uint8))
+                write_png(sc_dir / "gt" / "lo" / "rgb" / f"r_{i}.png",
+                          np.rint(255 * np.clip(lo, 0, 1)).astype(np.uint8))
+                write_png(sc_dir / "gt" / "lo" / "seg" / f"r_{i}.png", (255 * seg).astype(np.uint8))
+            gt, lines, wall, _ = run_script("analyze_gt_ceiling", lambda: analyze_gt_ceiling.main(
+                ["--lo", str(sc_dir / "gt" / "lo"), "--hi", str(sc_dir / "gt" / "hi"),
+                 "--out", str(sc_dir / "gt" / "analysis.json")], device=dev))
+            require(len(gt["frames"]) == 2 and math.isfinite(gt["psnr_obj_ceiling_mean"])
+                    and 0 < gt["edge_fraction_mean"] < 1
+                    and json.loads((sc_dir / "gt" / "analysis.json").read_text()) == gt,
+                    f"analyze_gt_ceiling: {lines}")
+            emit({"phase": "scripts", "script": "analyze_gt_ceiling",
+                  **{k: v for k, v in gt.items() if k != "frames"}, "frames": len(gt["frames"]),
+                  "wall_s": wall, "card": card})
+
+            # visualize_cameras on the fit fixture's train split
+            img, lines, wall, _ = run_script("visualize_cameras", lambda: visualize_cameras.main(
+                [str(sc_dir / "fit_data"), "--out", str(sc_dir / "cams.png")], device=dev))
+            poses = visualize_cameras.load_poses(str(sc_dir / "fit_data"), "train")
+            px = np.rint(visualize_cameras.project(
+                poses[:, :3, 3], visualize_cameras.plot_limit(poses))).astype(int)
+            require(lines[-1].endswith(f"({FIT_VIEWS} cameras)")
+                    and np.array_equal(read_png(sc_dir / "cams.png"), img)
+                    and (img[px[:, 1], px[:, 0]] == 0).all(),
+                    f"visualize_cameras: {lines}")
+            emit({"phase": "scripts", "script": "visualize_cameras", "cameras": len(poses),
+                  "image": list(img.shape), "drawn_pixels": int((img != 255).any(-1).sum()),
+                  "wall_s": wall, "card": card})
+        finally:
+            os.chdir(cwd)
+            shutil.rmtree(sc_dir, ignore_errors=True)
+        scripts_launches = {k: n for k, n in scripts_launches.items() if n}
+        emit({"phase": "scripts", "launches": scripts_launches, "card": card})
+        torch.cuda.empty_cache()
+
         phase = "kernels"
         fine = mlp_rows[N_COARSE + 1 + N_FINE]
 
@@ -3920,11 +4142,14 @@ def main(argv=None) -> int:
             e["launches"] += fit_ae_path_launches[kname]
             e["launches_by_path"]["fit_ae"] = fit_ae_path_launches[kname]
         # the optim phase's CLI fit and the dp phase's one-process steps and frame
-        for path, launched in (("optim", optim_launches), ("dp", dp_launches)):
+        for path, launched in (("optim", optim_launches), ("dp", dp_launches),
+                               ("scripts", scripts_launches)):
             for kname, n in launched.items():
                 if n and kname in by_name:
-                    by_name[kname]["launches"] += n
-                    by_name[kname]["launches_by_path"][path] = n
+                    e = by_name[kname]
+                    e.setdefault("launches_by_path", {"train": e["launches"]})
+                    e["launches"] += n
+                    e["launches_by_path"][path] = n
         # and their checks at the bench's shapes
         for kname in ("resample_union", "fused_level_train_grads", "fused_level_train_art_grads"):
             by_name[kname]["bench_shapes"] = [

@@ -42,7 +42,14 @@ Tolerances, and why:
   * the eval kernel (rows 1, 5, 7, 8, 12, 13: one persistent wgmma kernel
     on 128-row tiles) at row counts around its tiles and with rays that
     straddle them: the limits of kernel 1, the two-stream body bit-identical
-    to the base body, rows 1 and 8 bit-identical to each other.
+    to the base body, rows 1 and 8 bit-identical to each other;
+  * the scripts (bench_eval, bench_art, profile_ae_host, roofline_ae,
+    demo_sphere, visualize_cameras) through their main() at small sizes: the
+    exact launches of the rows each runs, finite outputs, and the sphere's
+    image on the card against the CPU's under the same draws within one level
+    on all but 0.5% of its pixels (chip_smoke's TOL_SPHERE_OFF_SHARE: a
+    sample within the two devices' rounding of the surface lies on either
+    side of it).
 """
 
 import numpy as np
@@ -50,6 +57,7 @@ import pytest
 import torch
 
 import json
+import math
 import types
 from pathlib import Path
 
@@ -864,3 +872,93 @@ def test_posenc_sm90_at_row_edges(cuda, n, encoder):
         pre = x.double().cpu().numpy() @ s64[:3] + p64
         exact = np.where(np.arange(width) < 3, pre, np.sin(pre))[:, :n_real]
         assert np.abs(got.cpu().numpy()[:, :n_real] - exact).max() <= 2e-3
+
+
+# ------------------------------------------------ the scripts on the card
+
+
+def _launches():
+    return {"row1": fused_nerf_mlp_xyz_eval.launches, "row2": resample_union.launches,
+            "row9": fused_level_train_art_grads.launches, "row10": fused_art.art_mlp_fwd.launches,
+            "row11": fused_art.art_mlp_bwd.launches}
+
+
+def _launched(before):
+    return {k: v - before[k] for k, v in _launches().items()}
+
+
+def test_bench_eval_script_on_the_card(cuda, tmp_path, monkeypatch):
+    from aon_tpu_torch.scripts import bench_eval, make_fixture_dataset
+
+    before = _launches()
+    recs = bench_eval.main(["--chunks", "153600"], device=cuda)
+    frames = 4 * recs[0]["pieces"]  # a warm frame and three timed ones, two chunks each
+    assert _launched(before)["row1"] == 2 * frames and _launched(before)["row2"] == frames
+    assert recs[0]["peak_device_bytes"] > 0 and recs[0]["frame_ms"] > 0
+    root = tmp_path / "data"
+    make_fixture_dataset.main([str(root), "--n", "3", "--wh", "64", "48"])
+    cfg = tmp_path / "cfg.json"
+    cfg.write_text(json.dumps({"dataset_name": "sapien", "root_dir": str(root), "img_wh": [64, 48],
+                               "use_aabb": True, "white_back": True, "chunk": 1024,
+                               "N_samples": 16, "N_importance": 32}))
+    monkeypatch.chdir(tmp_path)
+    before = _launches()
+    rec = bench_eval.main(["--config", str(cfg)], device=cuda)
+    chunks = 6 * math.ceil(rec["hit_frac"] * rec["n_rays"] / 1024)  # six frames
+    assert _launched(before)["row1"] == 2 * chunks and _launched(before)["row2"] == chunks
+    assert np.isfinite(rec["comp_rgb"]).all()
+
+
+@pytest.mark.parametrize("fused,rows", [("v3", ("row9", "row2")),
+                                        ("v2", ("row10", "row11", "row2"))])
+def test_bench_art_script_on_the_card(cuda, fused, rows):
+    from aon_tpu_torch.scripts import bench_art
+
+    before = _launches()
+    rec = bench_art.main(["--batch", "256", "--steps_per_dispatch", "2", "--fused", fused],
+                         device=cuda)
+    steps = 6 * 2  # two warm dispatches and four timed ones
+    per_step = {"row9": 2, "row2": 1, "row10": 2, "row11": 2}
+    assert {k: _launched(before)[k] for k in rows} == {k: per_step[k] * steps for k in rows}
+    assert all(math.isfinite(v) for v in rec["losses"]) and rec["value"] > 0
+
+
+def test_ae_profile_and_roofline_scripts_on_the_card(cuda, tmp_path, monkeypatch):
+    from aon_tpu_torch.scripts import make_fixture_dataset, profile_ae_host, roofline_ae
+
+    root = tmp_path / "data"
+    make_fixture_dataset.main([str(root), "--multi", "--n", "2", "--wh", "64", "48"])
+    cfg = json.loads((Path(__file__).resolve().parent.parent / "configs"
+                      / "smoke_ae_art.json").read_text())
+    cfg.update(root_dir=str(root), output_path=str(tmp_path / "results"), steps_per_dispatch=2)
+    path = tmp_path / "ae.json"
+    path.write_text(json.dumps(cfg))
+    monkeypatch.chdir(tmp_path)
+    before = _launches()
+    rep = profile_ae_host.main(["--config", str(path), "--dispatches", "1"], device=cuda)
+    assert _launched(before)["row9"] > 0 and _launched(before)["row2"] > 0
+    assert 0 <= rep["dispatch_device_idle_share"] < 1 and rep["end2end_rays_per_sec"] > 0
+    before = _launches()
+    args = roofline_ae.build_parser().parse_args(["--dispatches", "1",
+                                                  "--out", str(tmp_path / "r.json")])
+    roof = roofline_ae.measure(args, device=cuda, batch=256, steps_per_dispatch=2,
+                               img_wh=(64, 48))
+    assert _launched(before)["row9"] > 0 and _launched(before)["row2"] > 0
+    assert roof["enc_fwd_bwd_flops_per_dispatch"] > 0 and roof["ae_full_ms_per_dispatch"] > 0
+
+
+def test_host_scripts_on_the_card(cuda, tmp_path):
+    from aon_tpu_torch.scripts import demo_sphere, make_fixture_dataset, visualize_cameras
+
+    g = np.random.default_rng(0)
+    draws = {"t_rand": torch.from_numpy(g.random((24 * 32, 65), np.float32)),
+             "u": torch.from_numpy(g.random((24 * 32, 128), np.float32))}
+    argv = ["--hw", "24", "32", "--out"]
+    on_card = demo_sphere.main(argv + [str(tmp_path / "a.png")], device=cuda, draws=draws)
+    on_cpu = demo_sphere.main(argv + [str(tmp_path / "b.png")], device="cpu", draws=draws)
+    off = np.abs(on_card["img"].astype(int) - on_cpu["img"].astype(int)).max(-1) > 1
+    assert off.mean() <= 0.005  # chip_smoke's TOL_SPHERE_OFF_SHARE
+    make_fixture_dataset.main([str(tmp_path / "data"), "--n", "3", "--wh", "64", "48"])
+    img = visualize_cameras.main([str(tmp_path / "data"), "--out", str(tmp_path / "c.png")],
+                                 device=cuda)
+    assert (img != 255).any()

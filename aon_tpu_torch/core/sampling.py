@@ -13,10 +13,11 @@ Behavioral contracts match the reference (``models/vanilla_nerf/helper.py``):
 * ``sample_pdf`` (helper.py:246-252): sorted union of coarse and fine
   t-values, recast into sample coordinates.
 
-Randomness comes from an explicit ``torch.Generator`` (the JAX package's
-keys), and every randomized function also takes the uniforms themselves
-(``t_rand=``, ``u=``): torch and JAX streams differ, so a test that compares
-the two injects one set of draws into both.
+Randomness comes from a threefry key (``core/prng.py``), and the draws are
+the JAX package's bit for bit: ``jax.random.uniform(key, (B, n))``, or per
+ray ``uniform(fold_in(key, ray_id), (n,))``.  Every randomized function also
+takes the uniforms themselves (``t_rand=``, ``u=``), for a caller that
+injects them.
 """
 
 from __future__ import annotations
@@ -28,7 +29,9 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
-NEEDS_GENERATOR = "randomized sampling requires a torch.Generator or the draws themselves"
+from aon_tpu_torch.core import prng
+
+NEEDS_KEY = "randomized sampling requires a PRNG key or the draws themselves"
 
 
 def unit_linspace(num: int, device=None) -> torch.Tensor:
@@ -59,49 +62,33 @@ def cast_rays(
     return origins[..., None, :] + t_vals[..., None] * directions[..., None, :]
 
 
-def _mix32(x: torch.Tensor) -> torch.Tensor:
-    """A 32-bit integer hash (two multiply-xorshift rounds) on int64 tensors
-    that hold 32-bit values."""
-    m = 0xFFFFFFFF
-    x = ((x ^ (x >> 16)) * 0x7FEB352D) & m
-    x = ((x ^ (x >> 15)) * 0x846CA68B) & m
-    return x ^ (x >> 16)
-
-
 def per_ray_uniform(
-    generator: torch.Generator, ray_ids: torch.Tensor, n: int, dtype: torch.dtype = torch.float32
+    key, ray_ids: torch.Tensor, n: int, dtype: torch.dtype = torch.float32
 ) -> torch.Tensor:
-    """(B, n) uniforms in [0, 1) where row i depends only on the generator's
-    state and ``ray_ids[i]``: independent of batch size and microbatching.
-
-    The JAX package folds the key with the global ray index; here one seed is
-    drawn from ``generator`` (so the generator advances by the same amount
-    whatever the batch) and hashed with the ray index and the column.
-    """
-    if generator is None:
-        raise ValueError(NEEDS_GENERATOR)
-    device = ray_ids.device
-    seed = torch.randint(0, 2**31 - 1, (2,), generator=generator, device=generator.device).to(device)
-    row = _mix32((ray_ids.to(torch.int64) & 0xFFFFFFFF) ^ seed[0])[:, None]
-    col = torch.arange(n, device=device, dtype=torch.int64)[None, :]
-    bits = _mix32(((row + col * 0x9E3779B1) & 0xFFFFFFFF) ^ seed[1])
-    return ((bits >> 8).to(torch.float32) * 2.0**-24).to(dtype)
+    """(B, n) uniforms where row i depends only on ``(key, ray_ids[i])``:
+    independent of batch size, microbatching and ranks (the key is folded
+    with the global ray index, ``aon_tpu/core/sampling.py:42-50``)."""
+    if key is None:
+        raise ValueError(NEEDS_KEY)
+    return prng.per_ray_uniform(key, ray_ids, n, dtype)
 
 
 def draw_uniform(
     shape: Tuple[int, ...],
-    generator: Optional[torch.Generator],
+    key,
     device: torch.device,
     dtype: torch.dtype = torch.float32,
     ray_ids: Optional[torch.Tensor] = None,
+    row0: int = 0,
 ) -> torch.Tensor:
-    """``shape`` (B, n) uniforms from ``generator``: per ray where ``ray_ids``
-    is given, one block draw otherwise."""
+    """``shape`` (B, n) uniforms of ``key``: per ray where ``ray_ids`` is
+    given, ``jax.random.uniform(key, shape)`` otherwise (its rows from
+    ``row0`` on: a rank's block of the whole batch's draw)."""
     if ray_ids is not None:
-        return per_ray_uniform(generator, ray_ids, shape[-1], dtype)
-    if generator is None:
-        raise ValueError(NEEDS_GENERATOR)
-    return torch.rand(shape, generator=generator, device=generator.device, dtype=dtype).to(device)
+        return per_ray_uniform(key, ray_ids, shape[-1], dtype)
+    if key is None:
+        raise ValueError(NEEDS_KEY)
+    return prng.uniform(key, shape, dtype, device=device, row0=row0)
 
 
 def sample_along_rays(
@@ -112,16 +99,18 @@ def sample_along_rays(
     far: Union[float, torch.Tensor],
     randomized: bool = False,
     lindisp: bool = False,
-    generator: Optional[torch.Generator] = None,
+    key: Optional[torch.Tensor] = None,
     ray_ids: Optional[torch.Tensor] = None,
     t_rand: Optional[torch.Tensor] = None,
+    row0: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Stratified coarse sampling along rays: ``(t_vals (B, S+1), coords (B, S+1, 3))``.
 
     ``near`` / ``far`` may be scalars or per-ray ``(B,)`` tensors.  When
     ``randomized``, each of the S+1 points is jittered uniformly within its
     midpoint-bounded bin (reference helper.py:122-127) by ``t_rand`` (B, S+1)
-    in [0, 1), drawn from ``generator`` unless given.
+    in [0, 1), drawn from ``key`` unless given (per ray where ``ray_ids`` is
+    given, else rows ``row0``... of one draw, ``draw_uniform``).
     """
     bsz = rays_o.shape[0]
     dtype, device = rays_o.dtype, rays_o.device
@@ -138,7 +127,7 @@ def sample_along_rays(
         t_vals = near * (1.0 - t_vals) + far * t_vals
     if randomized:
         if t_rand is None:
-            t_rand = draw_uniform((bsz, num_samples + 1), generator, device, dtype, ray_ids)
+            t_rand = draw_uniform((bsz, num_samples + 1), key, device, dtype, ray_ids, row0)
         mids = 0.5 * (t_vals[..., 1:] + t_vals[..., :-1])
         upper = torch.cat([mids, t_vals[..., -1:]], dim=-1)
         lower = torch.cat([t_vals[..., :1], mids], dim=-1)
@@ -216,22 +205,24 @@ def sorted_piecewise_constant_pdf(
     weights: torch.Tensor,
     num_samples: int,
     randomized: bool = False,
-    generator: Optional[torch.Generator] = None,
+    key: Optional[torch.Tensor] = None,
     ray_ids: Optional[torch.Tensor] = None,
     u: Optional[torch.Tensor] = None,
+    row0: int = 0,
 ) -> torch.Tensor:
     """Inverse-CDF samples ``(B, num_samples)`` from a piecewise-constant pdf.
 
     bins: (B, N) sorted positions; weights: (B, N - 1) bin masses.  When
     ``randomized`` the quantiles are iid uniforms ``u`` (B, num_samples),
-    drawn from ``generator`` unless given; otherwise the eval quantiles.
+    drawn from ``key`` unless given; otherwise the eval quantiles.
     """
     cdf = pdf_cdf(weights)
     if not randomized:
         u = eval_quantiles(num_samples, cdf.device).to(cdf.dtype)
         u = u.expand(*cdf.shape[:-1], num_samples)
     elif u is None:
-        u = draw_uniform((*cdf.shape[:-1], num_samples), generator, cdf.device, cdf.dtype, ray_ids)
+        u = draw_uniform((*cdf.shape[:-1], num_samples), key, cdf.device, cdf.dtype, ray_ids,
+                         row0)
     return invert_cdf(bins, cdf, u)
 
 
@@ -243,13 +234,14 @@ def sample_pdf(
     t_vals: torch.Tensor,
     num_samples: int,
     randomized: bool = False,
-    generator: Optional[torch.Generator] = None,
+    key: Optional[torch.Tensor] = None,
     ray_ids: Optional[torch.Tensor] = None,
     u: Optional[torch.Tensor] = None,
+    row0: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fine resampling: ``(t_union_sorted (B, T + n), coords (B, T + n, 3))``."""
     t_samples = sorted_piecewise_constant_pdf(
-        bins, weights, num_samples, randomized, generator=generator, ray_ids=ray_ids, u=u
+        bins, weights, num_samples, randomized, key=key, ray_ids=ray_ids, u=u, row0=row0
     ).detach()
     t_vals = torch.sort(torch.cat([t_vals, t_samples], dim=-1), dim=-1).values.detach()
     return t_vals, cast_rays(t_vals, origins, directions)

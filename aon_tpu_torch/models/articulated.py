@@ -32,9 +32,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from aon_tpu_torch.core import sampling
+from aon_tpu_torch.core import prng, sampling
 from aon_tpu_torch.core.rendering import volumetric_rendering
-from aon_tpu_torch.models.mlp import xavier_init_
+from aon_tpu_torch.models.init import flax_init_
 
 
 def head_activations(raw_rgb: torch.Tensor, raw_sigma: torch.Tensor, sigma_activation: str,
@@ -74,12 +74,13 @@ class ArticulatedNeRFMLP(nn.Module):
         use_deg_embedding: bool = False,
         dtype: torch.dtype = torch.float32,
         device=None,
-        generator: Optional[torch.Generator] = None,
+        key: Optional[torch.Tensor] = None,
     ):
         """The ``enc_after=True`` deformation variant, the only one the JAX
         package's systems build.  ``dtype`` is the compute dtype of all layers
         but the float32 density and rgb heads; parameters are float32 on
-        ``device``, initialised from ``generator``.  With ``use_deg_embedding``
+        ``device``, drawn as flax's ``init(key)`` draws them (zero without a
+        key, ``models/init.py``).  With ``use_deg_embedding``
         the articulation code is read from ``latents["articulation_deg"]``
         (``articulation_dim`` is then that embedding's width)."""
         super().__init__()
@@ -111,7 +112,7 @@ class ArticulatedNeRFMLP(nn.Module):
         self.rgb = nn.Linear(width_in, num_rgb_channels, **meta)
         # built on the meta device so no default init draws from the global RNG
         self.to_empty(device=torch.device("cpu") if device is None else device)
-        xavier_init_(self, generator)
+        flax_init_(self, key)
 
     def _dense(self, name: str, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         layer = getattr(self, name)
@@ -186,10 +187,12 @@ class ArticulatedNeRF(nn.Module):
         shape_dim: int = 128,
         dtype: torch.dtype = torch.float32,
         device=None,
-        generator: Optional[torch.Generator] = None,
+        key: Optional[torch.Tensor] = None,
     ):
         """``articulation_deg`` is the width of the articulation code the MLPs
-        take (the library's 32, or the auto-encoder's degree embedding)."""
+        take (the library's 32, or the auto-encoder's degree embedding).
+        Parameters are drawn as flax's ``init(key)`` of the JAX
+        ``ArticulatedNeRF`` draws them (zero without a key)."""
         super().__init__()
         if sigma_activation not in ("softplus_bias", "relu"):
             raise ValueError(f"unknown sigma_activation: {sigma_activation}")
@@ -203,10 +206,11 @@ class ArticulatedNeRF(nn.Module):
             min_deg_point=min_deg_point, max_deg_point=max_deg_point,
             view_features=(2 * deg_view + 1) * 3, shape_dim=shape_dim, appearance_dim=shape_dim,
             articulation_dim=articulation_deg, use_deg_embedding=use_deg_embedding,
-            dtype=dtype, device=device, generator=generator,
+            dtype=dtype, device=device,
         )
         self.coarse_mlp = ArticulatedNeRFMLP(**mlp_kw)
         self.fine_mlp = ArticulatedNeRFMLP(**mlp_kw)
+        flax_init_(self, key)
 
     def forward(
         self,
@@ -216,34 +220,39 @@ class ArticulatedNeRF(nn.Module):
         near: Union[float, torch.Tensor],
         far: Union[float, torch.Tensor],
         randomized: bool = False,
-        generator: Optional[torch.Generator] = None,
+        key: Optional[torch.Tensor] = None,
         draws: Optional[Mapping[str, torch.Tensor]] = None,
     ) -> List[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
-        """rays: {rays_o, rays_d, viewdirs} each (B, 3), and optionally the
-        global ``ray_ids`` (B,) that seed each ray's own draws.
+        """rays: {rays_o, rays_d, viewdirs} each (B, 3), and optionally
+        ``draw_row0``, the first row of this block in the draw of the whole
+        batch (a rank's block).
 
         Returns ``[(comp_rgb, acc, depth)]`` per level.  When ``randomized``,
-        the uniforms come from ``generator`` or from ``draws``: ``t_rand``
-        (B, num_coarse + 1), ``u`` (B, num_fine) and, with ``noise_std > 0``,
+        the uniforms come from ``split(key, 2 * num_levels)`` as in the JAX
+        module (``aon_tpu/models/articulated.py:176``; the keys of
+        ``VanillaNeRF.forward``), or from ``draws``: ``t_rand`` (B,
+        num_coarse + 1), ``u`` (B, num_fine) and, with ``noise_std > 0``,
         ``noise0`` / ``noise1`` shaped like raw sigma.
         """
         draws = draws or {}
+        keys = prng.maybe_split(key if randomized else None, 2 * self.num_levels)
+        row0 = int(rays.get("draw_row0", 0))
         ret = []
         t_vals = weights = None
         for i_level in range(self.num_levels):
             if i_level == 0:
                 t_vals, samples = sampling.sample_along_rays(
                     rays["rays_o"], rays["rays_d"], self.num_coarse_samples, near, far,
-                    randomized=randomized, lindisp=self.lindisp, generator=generator,
-                    ray_ids=rays.get("ray_ids"), t_rand=draws.get("t_rand"),
+                    randomized=randomized, lindisp=self.lindisp, key=keys[0],
+                    t_rand=draws.get("t_rand"), row0=row0,
                 )
                 mlp = self.coarse_mlp
             else:
                 t_mids = 0.5 * (t_vals[..., 1:] + t_vals[..., :-1])
                 t_vals, samples = sampling.sample_pdf(
                     t_mids, weights[..., 1:-1], rays["rays_o"], rays["rays_d"], t_vals,
-                    self.num_fine_samples, randomized=randomized, generator=generator,
-                    ray_ids=rays.get("ray_ids"), u=draws.get("u"),
+                    self.num_fine_samples, randomized=randomized, key=keys[2 * i_level],
+                    u=draws.get("u"), row0=row0,
                 )
                 mlp = self.fine_mlp
 
@@ -252,8 +261,8 @@ class ArticulatedNeRF(nn.Module):
             if self.noise_std > 0 and randomized:
                 noise = draws.get(f"noise{i_level}")
                 if noise is None:
-                    noise = sampling.draw_uniform(tuple(raw_sigma.shape), generator,
-                                                  raw_sigma.device, raw_sigma.dtype)
+                    noise = sampling.draw_uniform(tuple(raw_sigma.shape), keys[2 * i_level + 1],
+                                                  raw_sigma.device, raw_sigma.dtype, row0=row0)
                 raw_sigma = raw_sigma + noise * self.noise_std
             rgb, sigma = head_activations(raw_rgb, raw_sigma, self.sigma_activation,
                                           self.rgb_padding, self.density_bias)

@@ -3,7 +3,8 @@
 
 Contract from reference ``models/code_library.py:12-71``: per-instance shape
 and appearance embeddings (``n_max_objs`` x ``n_obj_code_length``) and a
-10 x 32 articulation table, xavier-uniform initialised.  Test-time
+10 x 32 articulation table, xavier-uniform initialised (as flax's ``init``
+draws them, ``models/init.py``).  Test-time
 articulation interpolation produces ``2*10 - 1 = 19`` codes by inserting
 midpoint averages between consecutive learned codes.
 
@@ -18,6 +19,8 @@ from typing import Dict, Optional
 
 import torch
 from torch import nn
+
+from aon_tpu_torch.models.init import flax_init_
 
 N_MAX_ARTICULATIONS = 10
 N_ART_CODE_LENGTH = 32
@@ -41,7 +44,7 @@ class CodeLibraryArticulated(nn.Module):
         n_max_articulations: int = N_MAX_ARTICULATIONS,
         n_art_code_length: int = N_ART_CODE_LENGTH,
         device=None,
-        generator: Optional[torch.Generator] = None,
+        key: Optional[torch.Tensor] = None,
     ):
         super().__init__()
         meta = dict(device="meta")
@@ -51,13 +54,12 @@ class CodeLibraryArticulated(nn.Module):
             n_max_articulations, n_art_code_length, **meta)
         # built on the meta device so no default init draws from the global RNG
         self.to_empty(device=torch.device("cpu") if device is None else device)
-        self.reset_parameters(generator)
+        self.reset_parameters(key)
 
-    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
-        """Xavier-uniform tables drawn from ``generator``."""
-        with torch.no_grad():
-            for table in self.children():
-                nn.init.xavier_uniform_(table.weight, generator=generator)
+    def reset_parameters(self, key: Optional[torch.Tensor]) -> None:
+        """Xavier-uniform tables drawn as flax's ``init(key)`` of the JAX
+        module draws them."""
+        flax_init_(self, key)
 
     def forward(self, instance_id, articulation_id, is_test: bool = False
                 ) -> Dict[str, torch.Tensor]:

@@ -15,12 +15,12 @@ from typing import Optional
 import torch
 from torch import nn
 
-from aon_tpu_torch.models.resnet import lecun_init_
+from aon_tpu_torch.models.init import flax_init_
 
 
 class JointStateDecoder(nn.Module):
     def __init__(self, in_features: int = 32, device=None,
-                 generator: Optional[torch.Generator] = None):
+                 key: Optional[torch.Tensor] = None):
         super().__init__()
         meta = dict(device="meta")
         self.fc1 = nn.Linear(in_features, 64, **meta)
@@ -28,10 +28,12 @@ class JointStateDecoder(nn.Module):
         self.fc_joint_state = nn.Linear(32, 1, **meta)
         # built on the meta device so no default init draws from the global RNG
         self.to_empty(device=torch.device("cpu") if device is None else device)
-        self.reset_parameters(generator)
+        self.reset_parameters(key)
 
-    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
-        lecun_init_(self, generator)
+    def reset_parameters(self, key: Optional[torch.Tensor]) -> None:
+        """flax's ``lecun_normal`` kernels and zero biases, drawn as its
+        ``init(key)`` draws them."""
+        flax_init_(self, key, "lecun_normal")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = torch.relu(self.fc1(x))

@@ -9,7 +9,8 @@ linear bottleneck off the trunk; a view branch of ``netdepth_condition`` x
 
 Layer names follow the flax module (``pts_0..7``, ``density``,
 ``bottleneck``, ``views_0``, ``rgb``) so ``models/convert.py`` maps flax
-params one to one.  Weights are xavier-uniform, biases zero.
+params one to one.  Weights are xavier-uniform, biases zero, drawn as flax
+draws them (``models/init.py``).
 """
 
 from __future__ import annotations
@@ -20,14 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-
-def xavier_init_(module: nn.Module, generator: Optional[torch.Generator] = None) -> None:
-    """Xavier-uniform weights, zero biases, for every ``nn.Linear`` in ``module``."""
-    with torch.no_grad():
-        for m in module.modules():
-            if isinstance(m, nn.Linear):
-                nn.init.xavier_uniform_(m.weight, generator=generator)
-                nn.init.zeros_(m.bias)
+from aon_tpu_torch.models.init import flax_init_
 
 
 class NeRFMLP(nn.Module):
@@ -44,11 +38,12 @@ class NeRFMLP(nn.Module):
         num_density_channels: int = 1,
         dtype: torch.dtype = torch.float32,
         device=None,
-        generator: Optional[torch.Generator] = None,
+        key: Optional[torch.Tensor] = None,
     ):
         """``dtype`` is the compute dtype of the trunk, bottleneck and view
         branch (flax ``dtype``); the density and rgb heads compute in float32.
-        Parameters are float32 on ``device``, initialised from ``generator``."""
+        Parameters are float32 on ``device``, drawn as flax's ``init(key)`` of
+        the JAX module draws them (zero without a key, ``models/init.py``)."""
         super().__init__()
         self.netdepth = netdepth
         self.netdepth_condition = netdepth_condition
@@ -70,7 +65,7 @@ class NeRFMLP(nn.Module):
         self.rgb = nn.Linear(width_in, num_rgb_channels, **meta)
         # built on the meta device so no default init draws from the global RNG
         self.to_empty(device=torch.device("cpu") if device is None else device)
-        xavier_init_(self, generator)
+        flax_init_(self, key)
 
     def _dense(self, name: str, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         layer = getattr(self, name)

@@ -3,8 +3,7 @@
 Contract of reference ``models/vanilla_nerf/model.py:123-199``: a coarse
 level on ``num_coarse_samples + 1`` t-values, an inverse-CDF fine level over
 the interior coarse weights, sigmoid rgb, ReLU sigma and alpha compositing.
-This is the plain, unfused path (``use_pallas=False``); only the
-deterministic forward is ported so far.
+This is the plain, unfused path (``use_pallas=False`` or the CPU).
 """
 
 from __future__ import annotations
@@ -14,8 +13,9 @@ from typing import Dict, List, Mapping, Optional, Tuple, Union
 import torch
 from torch import nn
 
-from aon_tpu_torch.core import sampling
+from aon_tpu_torch.core import prng, sampling
 from aon_tpu_torch.core.rendering import volumetric_rendering
+from aon_tpu_torch.models.init import flax_init_
 from aon_tpu_torch.models.mlp import NeRFMLP
 
 
@@ -37,8 +37,10 @@ class VanillaNeRF(nn.Module):
         skip_layer: int = 4,
         dtype: torch.dtype = torch.float32,
         device=None,
-        generator: Optional[torch.Generator] = None,
+        key: Optional[torch.Tensor] = None,
     ):
+        """Parameters are float32 on ``device``, drawn as flax's ``init(key)``
+        of the JAX ``VanillaNeRF`` draws them (zero without a key)."""
         super().__init__()
         self.num_levels = num_levels
         self.min_deg_point, self.max_deg_point = min_deg_point, max_deg_point
@@ -55,10 +57,10 @@ class VanillaNeRF(nn.Module):
             skip_layer=skip_layer,
             dtype=dtype,
             device=device,
-            generator=generator,
         )
         self.coarse_mlp = NeRFMLP(**mlp_kw)
         self.fine_mlp = NeRFMLP(**mlp_kw)
+        flax_init_(self, key)
 
     def forward(
         self,
@@ -67,34 +69,40 @@ class VanillaNeRF(nn.Module):
         near: Union[float, torch.Tensor],
         far: Union[float, torch.Tensor],
         randomized: bool = False,
-        generator: Optional[torch.Generator] = None,
+        key: Optional[torch.Tensor] = None,
         draws: Optional[Mapping[str, torch.Tensor]] = None,
     ) -> List[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
-        """rays: {rays_o, rays_d, viewdirs} each (B, 3), and optionally the
-        global ``ray_ids`` (B,) that seed each ray's own draws.
+        """rays: {rays_o, rays_d, viewdirs} each (B, 3), and optionally
+        ``draw_row0``, the first row of this block in the draw of the whole
+        batch (a rank's block).
 
         Returns ``[(comp_rgb, acc, depth)]`` per level (reference model.py:147-199).
-        When ``randomized``, the uniforms come from ``generator`` or from
-        ``draws``: ``t_rand`` (B, num_coarse + 1), ``u`` (B, num_fine) and,
-        with ``noise_std > 0``, ``noise0`` / ``noise1`` shaped like raw sigma.
+        When ``randomized``, the uniforms come from ``split(key, 2 *
+        num_levels)`` as in the JAX module (``aon_tpu/models/nerf.py:78``):
+        level i samples with key 2i and draws its sigma noise with key 2i + 1,
+        each one block draw over the batch, not per ray; or from ``draws``:
+        ``t_rand`` (B, num_coarse + 1), ``u`` (B, num_fine) and, with
+        ``noise_std > 0``, ``noise0`` / ``noise1`` shaped like raw sigma.
         """
         draws = draws or {}
+        keys = prng.maybe_split(key if randomized else None, 2 * self.num_levels)
+        row0 = int(rays.get("draw_row0", 0))
         ret = []
         t_vals = weights = None
         for i_level in range(self.num_levels):
             if i_level == 0:
                 t_vals, samples = sampling.sample_along_rays(
                     rays["rays_o"], rays["rays_d"], self.num_coarse_samples, near, far,
-                    randomized=randomized, lindisp=self.lindisp, generator=generator,
-                    ray_ids=rays.get("ray_ids"), t_rand=draws.get("t_rand"),
+                    randomized=randomized, lindisp=self.lindisp, key=keys[0],
+                    t_rand=draws.get("t_rand"), row0=row0,
                 )
                 mlp = self.coarse_mlp
             else:
                 t_mids = 0.5 * (t_vals[..., 1:] + t_vals[..., :-1])
                 t_vals, samples = sampling.sample_pdf(
                     t_mids, weights[..., 1:-1], rays["rays_o"], rays["rays_d"], t_vals,
-                    self.num_fine_samples, randomized=randomized, generator=generator,
-                    ray_ids=rays.get("ray_ids"), u=draws.get("u"),
+                    self.num_fine_samples, randomized=randomized, key=keys[2 * i_level],
+                    u=draws.get("u"), row0=row0,
                 )
                 mlp = self.fine_mlp
 
@@ -104,8 +112,8 @@ class VanillaNeRF(nn.Module):
             if self.noise_std > 0 and randomized:
                 noise = draws.get(f"noise{i_level}")
                 if noise is None:
-                    noise = sampling.draw_uniform(tuple(raw_sigma.shape), generator,
-                                                  raw_sigma.device, raw_sigma.dtype)
+                    noise = sampling.draw_uniform(tuple(raw_sigma.shape), keys[2 * i_level + 1],
+                                                  raw_sigma.device, raw_sigma.dtype, row0=row0)
                 raw_sigma = raw_sigma + noise * self.noise_std
             comp_rgb, acc, weights, depth = volumetric_rendering(
                 torch.sigmoid(raw_rgb), torch.relu(raw_sigma), t_vals, rays["rays_d"],

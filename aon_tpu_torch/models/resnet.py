@@ -13,7 +13,8 @@ one to one (a conv ``kernel`` (kh, kw, in, out) is a ``weight`` (out, in, kh,
 kw)).  The convolutions and the norm run in ``dtype`` (the config's compute
 dtype), the norm's statistics in float32 as ``jnp.mean`` / ``jnp.var`` take
 them; the heads' ``fc`` layers run in float32.  Weights are flax's default
-``lecun_normal`` (a truncated normal of variance 1/fan_in), biases zero.
+``lecun_normal`` (a truncated normal of variance 1/fan_in), biases zero,
+drawn from a threefry key as flax draws them (``models/init.py``).
 
 Pretrained ImageNet weights are optional: ``params_from_npz`` overlays the
 conv kernels that ``scripts/convert_resnet_weights.py`` writes; without them
@@ -22,7 +23,6 @@ the encoder trains from its random init, as the JAX package's runs did.
 
 from __future__ import annotations
 
-import math
 from typing import Dict, Mapping, Optional, Sequence
 
 import numpy as np
@@ -30,38 +30,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from aon_tpu_torch.models.init import flax_init_
+
 # ResNet-34 stage plan: (num_blocks, channels)
 RESNET34_STAGES = ((3, 64), (4, 128), (6, 256), (3, 512))
 HEADS = (("color", 128), ("density", 128), ("articulation", 32))
-# flax's truncated_normal draws a unit normal cut at +-2, whose std is this
-_TRUNC_STD = 0.87962566103423978
-
-
-def _trunc_normal_(w: torch.Tensor, std: float, generator: Optional[torch.Generator]) -> None:
-    """``w`` <- a normal of ``std`` cut at two standard deviations, by
-    redrawing the entries outside the cut (``nn.init.trunc_normal_``'s inverse
-    CDF is ten times slower on the host)."""
-    w.normal_(generator=generator)
-    while True:
-        out = w.abs() > 2.0
-        n = int(out.sum())
-        if n == 0:
-            break
-        w[out] = torch.randn(n, generator=generator, device=w.device, dtype=w.dtype)
-    w.mul_(std)
-
-
-def lecun_init_(module: nn.Module, generator: Optional[torch.Generator] = None) -> None:
-    """flax's default init for every ``nn.Conv2d`` / ``nn.Linear`` in
-    ``module``: ``lecun_normal`` weights (truncated at two standard deviations,
-    variance 1/fan_in) and zero biases."""
-    with torch.no_grad():
-        for m in module.modules():
-            if isinstance(m, (nn.Conv2d, nn.Linear)):
-                _trunc_normal_(m.weight, math.sqrt(1.0 / m.weight[0].numel()) / _TRUNC_STD,
-                               generator)
-                if m.bias is not None:
-                    nn.init.zeros_(m.bias)
 
 
 def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -114,7 +87,7 @@ class ImgEncoderMultiHeadArt(nn.Module):
     """ResNet-34 trunk (conv1..layer3 shared) + per-head layer4 / avgpool / linear."""
 
     def __init__(self, shared_layers: int = 3, dtype: torch.dtype = torch.float32, device=None,
-                 generator: Optional[torch.Generator] = None):
+                 key: Optional[torch.Tensor] = None):
         super().__init__()
         self.dtype = dtype
         self.conv1 = _conv(3, 64, 7, 2, 3)
@@ -131,10 +104,12 @@ class ImgEncoderMultiHeadArt(nn.Module):
             self.add_module(f"{head}_fc", nn.Linear(ch4, size, device="meta"))
         # built on the meta device so no default init draws from the global RNG
         self.to_empty(device=torch.device("cpu") if device is None else device)
-        self.reset_parameters(generator)
+        self.reset_parameters(key)
 
-    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
-        lecun_init_(self, generator)
+    def reset_parameters(self, key: Optional[torch.Tensor]) -> None:
+        """flax's default init, drawn as its ``init(key)`` draws it:
+        ``lecun_normal`` kernels, zero biases."""
+        flax_init_(self, key, "lecun_normal")
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         """x: (B, 3, H, W), the dataset's ``src_imgs`` layout, or (B, H, W, 3).

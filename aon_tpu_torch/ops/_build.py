@@ -21,7 +21,7 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "aon_tpu_torch"
-KERNEL_SOURCES = ("fused_mlp_eval", "resample", "level_train", "art")
+KERNEL_SOURCES = ("fused_mlp_eval", "resample", "level_train", "art", "prng")
 
 # No --use_fast_math: the positional encoding needs the accurate sinf and
 # IEEE division (ops/csrc/fused_mlp_eval.cu).
@@ -34,6 +34,7 @@ _VOID_P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _INT = ctypes.c_int
 _FLOAT = ctypes.c_float
+_UINT = ctypes.c_uint
 # argtypes of every launcher: each pointer and the stream as c_void_p, or
 # ctypes would pass them as 32-bit ints.
 _SIGNATURES = {
@@ -61,6 +62,10 @@ _SIGNATURES = {
         "aon_art_bwd_launch": [_VOID_P] * 17 + [_INT, _LL, _INT, _INT, _VOID_P],
         "aon_art_level_launch": ([_VOID_P] * 25 + [_INT, _INT, _INT, _INT]
                                  + [_FLOAT, _FLOAT, _FLOAT, _INT, _INT, _VOID_P]),
+    },
+    "prng": {
+        "aon_threefry_uniform_launch": [_UINT, _UINT, _VOID_P, _LL, _INT, _LL, _VOID_P, _INT,
+                                        _VOID_P],
     },
 }
 

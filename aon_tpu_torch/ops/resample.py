@@ -220,11 +220,12 @@ def sorted_uniform(uniforms: torch.Tensor) -> torch.Tensor:
     return s[..., :-1] / s[..., -1:]
 
 
-def sorted_per_ray_uniform(generator: torch.Generator, ray_ids: torch.Tensor, n: int,
+def sorted_per_ray_uniform(key, ray_ids: torch.Tensor, n: int,
                            dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """Per-ray-seeded sorted uniforms (B, n): independent of batch layout, like
-    ``core.sampling.per_ray_uniform``."""
-    return sorted_uniform(per_ray_uniform(generator, ray_ids, n + 1, dtype))
+    """Per-ray-seeded sorted uniforms (B, n) from ``uniform(fold_in(key,
+    ray_id), (n + 1,))`` (``aon_tpu/ops/resample_pallas.py:52-60``):
+    independent of batch layout, like ``core.sampling.per_ray_uniform``."""
+    return sorted_uniform(per_ray_uniform(key, ray_ids, n + 1, dtype))
 
 
 def fused_resample(
@@ -255,7 +256,7 @@ def sample_pdf_fused(
     t_vals: torch.Tensor,
     num_samples: int,
     randomized: bool = False,
-    generator: Optional[torch.Generator] = None,
+    key: Optional[torch.Tensor] = None,
     ray_ids: Optional[torch.Tensor] = None,
     u: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -269,9 +270,9 @@ def sample_pdf_fused(
     if not randomized:
         u = eval_quantiles(num_samples, device=bins.device).expand(bins.shape[0], num_samples)
     elif u is None and ray_ids is not None:
-        u = sorted_per_ray_uniform(generator, ray_ids, num_samples, bins.dtype)
+        u = sorted_per_ray_uniform(key, ray_ids, num_samples, bins.dtype)
     elif u is None:
-        u = sorted_uniform(draw_uniform((bins.shape[0], num_samples + 1), generator, bins.device,
+        u = sorted_uniform(draw_uniform((bins.shape[0], num_samples + 1), key, bins.device,
                                         bins.dtype))
     u = u.detach()
     if u.stride(0) != 0:

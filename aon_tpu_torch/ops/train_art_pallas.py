@@ -19,7 +19,7 @@ from typing import Callable, Mapping, Optional
 
 import torch
 
-from aon_tpu_torch.core import sampling
+from aon_tpu_torch.core import prng, sampling
 from aon_tpu_torch.core.rays import effective_intervals
 from aon_tpu_torch.core.rendering import img2mse, volumetric_rendering
 from aon_tpu_torch.models.articulated import head_activations
@@ -44,7 +44,7 @@ def fused_two_level_train(
     rgb_padding: float,
     density_bias: float,
     lindisp: bool = False,
-    generator: Optional[torch.Generator] = None,
+    key: Optional[torch.Tensor] = None,
     draws: Optional[Mapping[str, torch.Tensor]] = None,
 ):
     """Shared randomized two-level fused render of articulated training.
@@ -52,10 +52,12 @@ def fused_two_level_train(
     ``model_params`` holds ``coarse_mlp.*`` and ``fine_mlp.*``.  Returns
     ``((comp0, acc0), (comp1, acc1))``: what the auto-decoder and the
     auto-encoder losses share (they differ in where the latents come from and
-    in which losses they compute)."""
+    in which losses they compute).  The coarse and fine draws take
+    ``split(key)``'s two keys (``aon_tpu/ops/train_art_pallas.py:61``)."""
     rays_o, rays_d, viewdirs = batch["rays_o"], batch["rays_d"], batch["viewdirs"]
     ray_ids = batch.get("ray_ids")
     draws = draws or {}
+    k0, k2 = prng.maybe_split(key)
 
     def level(prefix, t_vals, samples):
         raw_rgb, raw_sigma = fused_art_mlp_train(
@@ -66,14 +68,14 @@ def fused_two_level_train(
 
     t_vals, samples = sampling.sample_along_rays(
         rays_o, rays_d, num_coarse, *effective_intervals(batch, near, far), randomized=True,
-        lindisp=lindisp, generator=generator, ray_ids=ray_ids, t_rand=draws.get("t_rand"),
+        lindisp=lindisp, key=k0, ray_ids=ray_ids, t_rand=draws.get("t_rand"),
     )
     comp0, acc0, weights, _ = level("coarse_mlp", t_vals, samples)
 
     t_mids = 0.5 * (t_vals[..., 1:] + t_vals[..., :-1])
     t_vals, samples = sample_pdf_fused(
         t_mids, weights[..., 1:-1], rays_o, rays_d, t_vals, num_fine, randomized=True,
-        generator=generator, ray_ids=ray_ids, u=draws.get("u"),
+        key=k2, ray_ids=ray_ids, u=draws.get("u"),
     )
     comp1, acc1, _, _ = level("fine_mlp", t_vals, samples)
     return (comp0, acc0), (comp1, acc1)
@@ -102,20 +104,20 @@ def make_fused_autodecoder_loss_fn(
     max_deg: int = 10,
     deg_view: int = 4,
 ) -> Callable:
-    """``loss_fn(params, batch, generator=None, draws=None) -> (loss, aux)`` of
+    """``loss_fn(params, batch, key=None, draws=None) -> (loss, aux)`` of
     the ``AutoDecoderSystem`` contract; ``params`` is the flat state dict
     ``{"model.*", "code_library.*"}``, differentiated by autograd."""
     consts = EncConstsCache(max_deg, deg_view)
 
     def loss_fn(params: Mapping[str, torch.Tensor], batch: Mapping[str, torch.Tensor],
-                generator: Optional[torch.Generator] = None, draws=None):
+                key: Optional[torch.Tensor] = None, draws=None):
         latents = torch.func.functional_call(
             code_library, mlp_params(params, "code_library"),
             (batch["instance_id"], batch["articulation_id"]))
         (comp0, _), (comp1, _) = fused_two_level_train(
             mlp_params(params, "model"), latents, batch, consts.on(batch["rays_o"].device),
             near, far, white_bkgd, num_coarse, num_fine, sigma_activation, rgb_padding,
-            density_bias, lindisp=lindisp, generator=generator, draws=draws)
+            density_bias, lindisp=lindisp, key=key, draws=draws)
         loss0 = weighted_mse(comp0, batch["target"], batch.get("loss_w"))
         loss1 = weighted_mse(comp1, batch["target"], batch.get("loss_w"))
         reg = latent_reg(latents)

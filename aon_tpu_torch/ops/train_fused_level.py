@@ -26,7 +26,7 @@ from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import torch
 
-from aon_tpu_torch.core import sampling
+from aon_tpu_torch.core import prng, sampling
 from aon_tpu_torch.core.rays import effective_intervals
 from aon_tpu_torch.ops import _build, train_sm90
 from aon_tpu_torch.ops.fused_mlp import (
@@ -175,25 +175,27 @@ def make_fused_step_fn(
     deg_view: int = 4,
     lindisp: bool = False,
 ) -> Callable:
-    """v3 step: returns ``fn(params, batch, generator=None, draws=None) ->
+    """v3 step: returns ``fn(params, batch, key=None, draws=None) ->
     (loss, aux, grads)`` with the gradients already computed: no autograd
     runs around it (``fn.returns_grads`` is True).
 
     ``params`` is the ``VanillaNeRF`` state dict and the gradients come back
     under the same names.  Sampling and resampling stay outside the level
     kernel (stratified coarse samples, the resample kernel), as on the
-    two-kernel route.  ``draws`` injects the uniforms instead of drawing them
-    from ``generator``: ``t_rand`` (B, num_coarse + 1) and ``u`` (B,
+    two-kernel route.  The coarse and fine draws take ``split(key)``'s two keys,
+    as the JAX step does (``aon_tpu/ops/train_fused_level.py:450``);
+    ``draws`` injects the uniforms instead: ``t_rand`` (B, num_coarse + 1) and ``u`` (B,
     num_fine), each row of ``u`` ascending.
     """
     enc_consts = EncConstsCache(max_deg, deg_view)
 
     @torch.no_grad()
-    def step_fn(params, batch, generator: Optional[torch.Generator] = None, draws=None):
+    def step_fn(params, batch, key: Optional[torch.Tensor] = None, draws=None):
         rays_o, rays_d = batch["rays_o"], batch["rays_d"]
         viewdirs, target = batch["viewdirs"], batch["target"]
         ray_ids = batch.get("ray_ids")
         draws = draws or {}
+        k0, k2 = prng.maybe_split(key)
         B = rays_o.shape[0]
         device = rays_o.device
         consts = enc_consts.on(device)
@@ -203,7 +205,7 @@ def make_fused_step_fn(
 
         t_vals, _ = sampling.sample_along_rays(
             rays_o, rays_d, num_coarse, *effective_intervals(batch, near, far),
-            randomized=True, lindisp=lindisp, generator=generator, ray_ids=ray_ids,
+            randomized=True, lindisp=lindisp, key=k0, ray_ids=ray_ids,
             t_rand=draws.get("t_rand"),
         )
         err0, wgt, g_c = fused_level_train_grads(
@@ -212,7 +214,7 @@ def make_fused_step_fn(
         t_mids = 0.5 * (t_vals[..., 1:] + t_vals[..., :-1])
         t_union, _ = sample_pdf_fused(
             t_mids, wgt[..., 1:-1], rays_o, rays_d, t_vals, num_fine, randomized=True,
-            generator=generator, ray_ids=ray_ids, u=draws.get("u"),
+            key=k2, ray_ids=ray_ids, u=draws.get("u"),
         )
         err1, _, g_f = fused_level_train_grads(
             packed_f, consts, t_union, rays_o, rays_d, viewdirs, target, white_bkgd)

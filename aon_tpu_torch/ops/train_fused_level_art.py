@@ -35,7 +35,7 @@ from typing import Callable, Dict, Mapping, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from aon_tpu_torch.core import sampling
+from aon_tpu_torch.core import prng, sampling
 from aon_tpu_torch.core.rays import effective_intervals
 from aon_tpu_torch.ops import _build, art_sm90
 from aon_tpu_torch.ops.fused_art import (
@@ -236,7 +236,7 @@ def make_fused_autodecoder_step_fn(
     max_deg: int = 10,
     deg_view: int = 4,
 ) -> Callable:
-    """v3 auto-decoder step: ``fn(params, batch, generator=None, draws=None)
+    """v3 auto-decoder step: ``fn(params, batch, key=None, draws=None)
     -> (loss, aux, grads)`` with the gradients already computed
     (``fn.returns_grads`` is True).
 
@@ -251,11 +251,12 @@ def make_fused_autodecoder_step_fn(
     enc_consts = EncConstsCache(max_deg, deg_view)
 
     @torch.no_grad()
-    def step_fn(params, batch, generator: Optional[torch.Generator] = None, draws=None):
+    def step_fn(params, batch, key: Optional[torch.Tensor] = None, draws=None):
         rays_o, rays_d = batch["rays_o"], batch["rays_d"]
         viewdirs, target = batch["viewdirs"], batch["target"]
         ray_ids = batch.get("ray_ids")
         draws = draws or {}
+        k0, k2 = prng.maybe_split(key)
         B = rays_o.shape[0]
         device = rays_o.device
         consts = enc_consts.on(device)
@@ -287,14 +288,14 @@ def make_fused_autodecoder_step_fn(
         t_near, t_far = effective_intervals(batch, near, far)
         t_vals, _ = sampling.sample_along_rays(
             rays_o, rays_d, num_coarse, t_near, t_far, randomized=True, lindisp=lindisp,
-            generator=generator, ray_ids=ray_ids, t_rand=draws.get("t_rand"),
+            key=k0, ray_ids=ray_ids, t_rand=draws.get("t_rand"),
         )
         loss0, wgt, grads, d_lat_c = level("model.coarse_mlp", t_vals)
 
         t_mids = 0.5 * (t_vals[..., 1:] + t_vals[..., :-1])
         t_union, _ = sample_pdf_fused(
             t_mids, wgt[..., 1:-1], rays_o, rays_d, t_vals, num_fine, randomized=True,
-            generator=generator, ray_ids=ray_ids, u=draws.get("u"),
+            key=k2, ray_ids=ray_ids, u=draws.get("u"),
         )
         loss1, _, grads_f, d_lat_f = level("model.fine_mlp", t_union)
         grads.update(grads_f)
@@ -370,7 +371,7 @@ def make_fused_ae_step_fn(
     max_deg: int = 10,
     deg_view: int = 4,
 ) -> Callable:
-    """v3 auto-encoder step: ``fn(params, batch, generator=None, draws=None)
+    """v3 auto-encoder step: ``fn(params, batch, key=None, draws=None)
     -> (loss, aux, grads)`` with the gradients already computed
     (``fn.returns_grads`` is True).
 
@@ -395,11 +396,12 @@ def make_fused_ae_step_fn(
     enc_keys = ("encoder.", "joint_state.", "deg_embedding.")
 
     @torch.no_grad()
-    def step_fn(params, batch, generator: Optional[torch.Generator] = None, draws=None):
+    def step_fn(params, batch, key: Optional[torch.Tensor] = None, draws=None):
         rays_o, rays_d = batch["rays_o"], batch["rays_d"]
         viewdirs, target = batch["viewdirs"], batch["target"]
         ray_ids = batch.get("ray_ids")
         draws = draws or {}
+        k0, k2 = prng.maybe_split(key)
         consts = enc_consts.on(rays_o.device)
         src = batch["src_imgs"]
         if src.ndim == 3:
@@ -427,14 +429,14 @@ def make_fused_ae_step_fn(
         t_near, t_far = effective_intervals(batch, near, far)
         t_vals, _ = sampling.sample_along_rays(
             rays_o, rays_d, num_coarse, t_near, t_far, randomized=True, lindisp=lindisp,
-            generator=generator, ray_ids=ray_ids, t_rand=draws.get("t_rand"),
+            key=k0, ray_ids=ray_ids, t_rand=draws.get("t_rand"),
         )
         loss0, wgt, acc0, grads, d_lat_c = level("model.coarse_mlp", t_vals)
 
         t_mids = 0.5 * (t_vals[..., 1:] + t_vals[..., :-1])
         t_union, _ = sample_pdf_fused(
             t_mids, wgt[..., 1:-1], rays_o, rays_d, t_vals, num_fine, randomized=True,
-            generator=generator, ray_ids=ray_ids, u=draws.get("u"),
+            key=k2, ray_ids=ray_ids, u=draws.get("u"),
         )
         loss1, _, acc1, grads_f, d_lat_f = level("model.fine_mlp", t_union)
         grads.update(grads_f)

@@ -14,7 +14,7 @@ from typing import Callable, Mapping, Optional
 
 import torch
 
-from aon_tpu_torch.core import sampling
+from aon_tpu_torch.core import prng, sampling
 from aon_tpu_torch.core.rays import effective_intervals
 from aon_tpu_torch.core.rendering import img2mse, volumetric_rendering
 from aon_tpu_torch.ops.fused_mlp import EncConstsCache
@@ -44,7 +44,7 @@ def make_fused_loss_fn(
     lindisp: bool = False,
     randomized: bool = True,
 ) -> Callable:
-    """Returns ``loss_fn(params, batch, generator=None, draws=None) -> (loss,
+    """Returns ``loss_fn(params, batch, key=None, draws=None) -> (loss,
     aux)`` of the ``VanillaSystem`` contract; ``params`` is the ``VanillaNeRF``
     state dict, differentiated by autograd.
 
@@ -53,14 +53,18 @@ def make_fused_loss_fn(
     (the randomized fine quantiles are sorted order statistics, not the plain
     path's iid draws).  ``draws``: ``t_rand`` (B, num_coarse + 1), ``u``
     (B, num_fine) with ascending rows, ``noise0`` / ``noise1`` (B, S, 1).
+    Otherwise they come from ``split(key, 4)`` as in the JAX loss
+    (``aon_tpu/ops/train_pallas.py:69``): the coarse samples, the coarse
+    sigma noise, the fine samples, the fine sigma noise.
     """
     enc_consts = EncConstsCache(max_deg, deg_view)
 
     def loss_fn(params: Mapping[str, torch.Tensor], batch: Mapping[str, torch.Tensor],
-                generator: Optional[torch.Generator] = None, draws=None):
+                key: Optional[torch.Tensor] = None, draws=None):
         rays = {k: batch[k] for k in ("rays_o", "rays_d", "viewdirs")}
         ray_ids = batch.get("ray_ids")
         draws = draws or {}
+        keys = prng.maybe_split(key, 4)
         device = rays["rays_o"].device
         consts = enc_consts.on(device)
 
@@ -69,12 +73,12 @@ def make_fused_loss_fn(
                 return None
             if f"noise{level}" in draws:
                 return draws[f"noise{level}"]
-            return sampling.draw_uniform(shape, generator, device)
+            return sampling.draw_uniform(shape, keys[2 * level + 1], device)
 
         t_vals, samples = sampling.sample_along_rays(
             rays["rays_o"], rays["rays_d"], num_coarse,
             *effective_intervals(batch, near, far),
-            randomized=randomized, lindisp=lindisp, generator=generator, ray_ids=ray_ids,
+            randomized=randomized, lindisp=lindisp, key=keys[0], ray_ids=ray_ids,
             t_rand=draws.get("t_rand"),
         )
         comp0, _, weights, _ = _level_train(
@@ -84,7 +88,7 @@ def make_fused_loss_fn(
         t_mids = 0.5 * (t_vals[..., 1:] + t_vals[..., :-1])
         t_vals, samples = sample_pdf_fused(
             t_mids, weights[..., 1:-1], rays["rays_o"], rays["rays_d"], t_vals, num_fine,
-            randomized=randomized, generator=generator, ray_ids=ray_ids, u=draws.get("u"),
+            randomized=randomized, key=keys[2], ray_ids=ray_ids, u=draws.get("u"),
         )
         comp1, _, _, _ = _level_train(
             mlp_params(params, "fine_mlp"), consts, rays, t_vals, samples,

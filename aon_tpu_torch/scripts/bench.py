@@ -42,6 +42,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from aon_tpu_torch.core import prng
 from aon_tpu_torch.parallel.mesh import stack_step_batches
 from aon_tpu_torch.train.systems import AutoDecoderSystem, VanillaSystem, build_system
 from aon_tpu_torch.utils.config import Config
@@ -91,22 +92,23 @@ def _time_train_many(system, host_batch, microbatch: int, device: torch.device) 
     """Rays/s of ``system.train_many`` on ``host_batch`` repeated for
     STEPS_PER_DISPATCH steps per call, and what the calls saw."""
     super_b = stack_step_batches([host_batch] * STEPS_PER_DISPATCH, microbatch, device)
-    state = system.init_state(torch.Generator(device=device).manual_seed(0))
-    gen = torch.Generator(device=device).manual_seed(1)
+    # the JAX bench's keys: init from key 0, dispatch i from fold_in(key 1, i)
+    state = system.init_state(prng.key(0))
+    key = prng.key(1)
 
-    def dispatch(state):
-        state, metrics = system.train_many(state, super_b, gen)
+    def dispatch(state, i):
+        state, metrics = system.train_many(state, super_b, prng.fold_in(key, i))
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         return state, metrics["train/loss"]
 
     losses = []
-    for _ in range(WARMUP_DISPATCHES):
-        state, loss = dispatch(state)
+    for i in range(WARMUP_DISPATCHES):
+        state, loss = dispatch(state, i)
         losses.append(loss)
     t0 = time.perf_counter()
-    for _ in range(TIMED_DISPATCHES):
-        state, loss = dispatch(state)
+    for i in range(TIMED_DISPATCHES):
+        state, loss = dispatch(state, 10 + i)
         losses.append(loss)
     seconds = time.perf_counter() - t0
     rays = host_batch["rays_o"].shape[0]

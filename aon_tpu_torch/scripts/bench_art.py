@@ -24,8 +24,8 @@ import time
 from typing import Dict, List, Optional
 
 import numpy as np
-import torch
 
+from aon_tpu_torch.core import prng
 from aon_tpu_torch.parallel.mesh import stack_step_batches
 from aon_tpu_torch.train.systems import AutoDecoderSystem
 from aon_tpu_torch.utils.config import Config
@@ -69,21 +69,21 @@ def main(argv: Optional[List[str]] = None, device: DeviceLike = "cuda") -> dict:
     print(json.dumps({"card": card_name(device)}), flush=True)
     cfg = bench_config(args.batch, args.fused)
     system = AutoDecoderSystem(cfg, near=2.0, far=6.0, white_bkgd=False, device=device)
-    state = system.init_state(torch.Generator(device=device).manual_seed(0))
+    state = system.init_state(prng.key(0))
     T = args.steps_per_dispatch
     super_b = stack_step_batches([host_batch(args.batch)] * T, cfg.microbatch_rays, device)
 
     def dispatch(state, i):
-        state, m = system.train_many(state, super_b, torch.Generator(device=device).manual_seed(i))
+        state, m = system.train_many(state, super_b, prng.fold_in(prng.key(1), i))
         return state, m["train/loss"].item()  # forced readback
 
     losses = []
     for i in range(WARMUP_DISPATCHES):
-        state, loss = dispatch(state, 1 + i)
+        state, loss = dispatch(state, i)
         losses.append(loss)
     t0 = time.perf_counter()
     for i in range(TIMED_DISPATCHES):
-        state, loss = dispatch(state, 11 + i)
+        state, loss = dispatch(state, 10 + i)
         losses.append(loss)
     dt = time.perf_counter() - t0
     rays_per_sec = args.batch * T * TIMED_DISPATCHES / dt

@@ -41,6 +41,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from aon_tpu_torch.core import prng
 from aon_tpu_torch.data import dataset_dict
 from aon_tpu_torch.eval.render import render_frame
 from aon_tpu_torch.train.systems import VanillaSystem, build_system
@@ -100,7 +101,7 @@ def bench_reference_contract(chunks: Sequence[int] = REFERENCE_CHUNKS,
     device = resolve_device(device)
     system = VanillaSystem(Config(compute_dtype="bfloat16"), near=2.0, far=6.0, white_bkgd=True,
                            device=device)
-    state = system.init_state(torch.Generator(device=device).manual_seed(0))
+    state = system.init_state(prng.key(0))
     rays = {k: torch.from_numpy(v).to(device) for k, v in reference_frame().items()}
     records = []
     for chunk in chunks:
@@ -142,7 +143,7 @@ def bench_production(cfg: Config, device: DeviceLike = "cuda") -> dict:
             "far below the 640x480 latency budget this benchmark measures"
         )
     system = build_system(cfg, ds.near, ds.far, cfg.white_back, device=device)
-    state = system.init_state(torch.Generator(device=device).manual_seed(0))
+    state = system.init_state(prng.key(0))
     frame = ds.full_frame(0)
     n = frame["rays_o"].shape[0]
     hit_frac = float(np.mean(frame["hit"])) if "hit" in frame else 1.0

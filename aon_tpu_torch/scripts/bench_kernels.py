@@ -60,7 +60,8 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from aon_tpu_torch.models.mlp import NeRFMLP, xavier_init_
+from aon_tpu_torch.core import prng
+from aon_tpu_torch.models.mlp import NeRFMLP
 from aon_tpu_torch.ops import bench_variants, train_sm90
 from aon_tpu_torch.ops.fused_mlp import (
     EVAL_CLUSTER,
@@ -116,9 +117,9 @@ PART_MULT = {"fwd": 1, "bwd": 3, "fwd+bwd": 4}
 
 
 def mlp_params(device: torch.device, seed: int = 0) -> Dict[str, torch.Tensor]:
-    """A ``NeRFMLP`` state dict of xavier-uniform weights from ``seed``."""
-    mlp = NeRFMLP().to(device)
-    xavier_init_(mlp, torch.Generator(device=device).manual_seed(seed))
+    """A ``NeRFMLP`` state dict of xavier-uniform weights drawn from the
+    threefry key ``seed``."""
+    mlp = NeRFMLP(device=device, key=prng.key(seed))
     return {k: v.detach() for k, v in mlp.state_dict().items()}
 
 

@@ -9,7 +9,8 @@ PSNR and the zero-weight ``sample_pdf`` probe's result (finite and sorted).
 
     python -m aon_tpu_torch.scripts.demo_sphere [--out $TMPDIR/aon_sphere.png] [--hw 120 160]
 
-The draws come from a generator seeded 0 on the device, or from ``draws``
+The draws come from the JAX demo's key, ``PRNGKey(0)`` (the same uniforms),
+or from ``draws``
 (``t_rand`` (H*W, 65) and ``u`` (H*W, 128)) where a caller injects them.
 Runs on ``cuda``; ``main(argv, device="cpu")`` runs on the CPU.
 """
@@ -24,6 +25,7 @@ from typing import List, Mapping, Optional
 import numpy as np
 import torch
 
+from aon_tpu_torch.core import prng
 from aon_tpu_torch.core.rays import create_spheric_poses, get_ray_directions, get_rays
 from aon_tpu_torch.core.rendering import img2mse, mse2psnr, volumetric_rendering
 from aon_tpu_torch.core.sampling import sample_along_rays, sample_pdf
@@ -56,21 +58,21 @@ def main(argv: Optional[List[str]] = None, device: DeviceLike = "cuda",
     device = resolve_device(device)
     H, W = args.hw
     draws = {k: torch.as_tensor(v, device=device) for k, v in (draws or {}).items()}
-    generator = None if draws else torch.Generator(device=device).manual_seed(0)
+    key = None if draws else prng.key(0)  # the JAX demo's key, for both levels
 
     poses = create_spheric_poses(radius=4.0)
     dirs = get_ray_directions(H, W, focal=150.0 * W / 160)
     o, _, rd, _ = get_rays(dirs, poses[0][:3, :4], output_view_dirs=True, output_radii=True)
     o, rd = torch.from_numpy(o).to(device), torch.from_numpy(rd).to(device)
 
-    t, pts = sample_along_rays(o, rd, N_COARSE, 2.0, 6.0, randomized=True, generator=generator,
+    t, pts = sample_along_rays(o, rd, N_COARSE, 2.0, 6.0, randomized=True, key=key,
                                t_rand=draws.get("t_rand"))
     rgb, sigma = field(pts)
     comp, acc, weights, _ = volumetric_rendering(rgb, sigma, t, rd, white_bkgd=True)
 
     t_mids = 0.5 * (t[..., 1:] + t[..., :-1])
     t2, pts2 = sample_pdf(t_mids, weights[..., 1:-1], o, rd, t, N_FINE, randomized=True,
-                          generator=generator, u=draws.get("u"))
+                          key=key, u=draws.get("u"))
     rgb2, sigma2 = field(pts2)
     comp2, acc2, _, _ = volumetric_rendering(rgb2, sigma2, t2, rd, white_bkgd=True)
 

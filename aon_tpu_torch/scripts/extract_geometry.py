@@ -50,6 +50,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from aon_tpu_torch.core import prng
 from aon_tpu_torch.data.aabb import scene_aabb
 from aon_tpu_torch.data.sapien_multi import SapienDatasetMulti
 from aon_tpu_torch.ops.fused_art import (
@@ -343,7 +344,8 @@ def main(argv=None, device: DeviceLike = "cuda") -> dict:
     else:
         bounds = dataset_bounds(cfg)
     system = build_system(cfg, NEAR, FAR, cfg.white_back, device=device)
-    state = system.init_state(torch.Generator(device=device).manual_seed(cfg.seed))
+    # the Trainer's init key: a template that the checkpoint overwrites
+    state = system.init_state(prng.split(prng.key(cfg.seed))[1])
     ckpt = CheckpointManager(str(Path(cfg.output_path) / cfg.exp_name), save_top_k=cfg.save_top_k)
     state = ckpt.restore(state, args.ckpt)
     trainer = types.SimpleNamespace(cfg=cfg, state=state, system=system)

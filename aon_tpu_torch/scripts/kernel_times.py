@@ -176,6 +176,7 @@ def measure() -> dict:
     one ``sample_pdf_fused`` call, on seeded inputs."""
     import torch
 
+    from aon_tpu_torch.core import prng
     from aon_tpu_torch.core.sampling import pdf_cdf, unit_linspace
     from aon_tpu_torch.ops.fused_mlp import ENCODERS, make_posenc_constants
     from aon_tpu_torch.ops.fused_mlp_train import posenc_in_kernel
@@ -198,9 +199,8 @@ def measure() -> dict:
             o = torch.randn(n_rays, 3, generator=gen, device=dev)
             d = torch.randn(n_rays, 3, generator=gen, device=dev)
             ids = torch.arange(n_rays, device=dev)
-            step_gen = torch.Generator(device=dev).manual_seed(SEED + 1)
             kw = ({} if shared else
-                  {"randomized": True, "generator": step_gen, "ray_ids": ids})
+                  {"randomized": True, "key": prng.key(SEED + 1), "ray_ids": ids})
             kernels = profiled(torch, lambda: sample_pdf_fused(bins, wgt, o, d, t_vals, n_u, **kw),
                                reps=10)
             calls = per_call(kernels, "resample")

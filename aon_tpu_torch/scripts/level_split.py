@@ -95,6 +95,7 @@ def measure(samples, seed: int = 0, reps: int = 10, art: bool = False) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from aon_tpu_torch.core import prng
     from aon_tpu_torch.ops.fused_mlp import make_posenc_constants, pack_vanilla_mlp_params_f32
     from aon_tpu_torch.ops.render_fused import mlp_params
     from aon_tpu_torch.ops.train_fused_level import fused_level_train_grads
@@ -122,7 +123,7 @@ def measure(samples, seed: int = 0, reps: int = 10, art: bool = False) -> dict:
         from aon_tpu_torch.ops.train_fused_level_art import fused_level_train_art_grads
 
         cfg = Config(exp_type="vanilla_autodecoder", N_max_objs=4, white_back=False)
-        params = build_system(cfg, 2.0, 6.0, False, device=dev).init_params(gen)
+        params = build_system(cfg, 2.0, 6.0, False, device=dev).init_params(prng.key(seed))
         latents = {k: 0.1 * torch.randn(1, n, generator=gen, device=dev)
                    for k, n in (("density", 128), ("color", 128), ("articulation", 32))}
         packed = fold_latents(mlp_params(params, "model.fine_mlp"), latents)
@@ -130,7 +131,7 @@ def measure(samples, seed: int = 0, reps: int = 10, art: bool = False) -> dict:
         level = fused_level_train_art_grads
         stage_macs, has_mask = ART_STAGE_MACS, art_blocked
     else:
-        params = build_system(Config(), 2.0, 6.0, True, device=dev).init_params(gen)
+        params = build_system(Config(), 2.0, 6.0, True, device=dev).init_params(prng.key(seed))
         packed = pack_vanilla_mlp_params_f32(mlp_params(params, "fine_mlp"))
         level, stage_macs = fused_level_train_grads, STAGE_MACS
     out = []

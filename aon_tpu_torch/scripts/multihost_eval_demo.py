@@ -26,6 +26,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from aon_tpu_torch.core import prng
 from aon_tpu_torch.core.rays import create_spheric_poses, get_ray_directions, get_rays
 from aon_tpu_torch.parallel.mesh import pad_to_multiple
 from aon_tpu_torch.parallel.multihost import alter_gather_cat, process_ray_slice
@@ -45,7 +46,7 @@ def render(args, device: torch.device, group) -> dict:
         cfg = Config(N_samples=4, N_importance=4, compute_dtype="float32", use_pallas=False,
                      img_wh=[w, h])
     system = VanillaSystem(cfg, near=2.0, far=6.0, white_bkgd=True, device=device)
-    params = system.init_state(torch.Generator(device=device).manual_seed(0)).params
+    params = system.init_state(prng.key(0)).params
 
     directions = get_ray_directions(h, w, 0.7 * w)
     c2w = np.asarray(create_spheric_poses(radius=4.0)[0], dtype=np.float32)[:3, :4]

@@ -45,6 +45,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from aon_tpu_torch.core import prng
 from aon_tpu_torch.parallel.mesh import RENDEZVOUS_TIMEOUT, stack_step_batches
 from aon_tpu_torch.train.systems import build_system
 from aon_tpu_torch.utils.config import Config, get_config
@@ -98,20 +99,19 @@ def demo_batch(system: str, cfg: Config, n_rays: int) -> dict:
 def train(system: str, cfg: Config, n_rays: int, steps: int, device: torch.device,
           group: Optional[dist.ProcessGroup], timed_steps: int = 0) -> dict:
     """``steps`` steps of ``system`` on the demo batch, each through
-    ``train_many`` with its own seeded generator, then ``timed_steps`` more
+    ``train_many`` with the JAX demo's key ``fold_in(key 7, i)``, then ``timed_steps`` more
     under ``torch.profiler`` for the step time and the device's idle share
     (the loss and parameters are those after ``steps``); every rank returns
     the same record, but for the times."""
     sys_ = build_system(cfg, near=2.0, far=6.0, white_bkgd=(system == "vanilla"),
                         device=device, group=group)
-    state = sys_.init_state(torch.Generator(device=device).manual_seed(0))
+    state = sys_.init_state(prng.key(0))
     superbatch = stack_step_batches([demo_batch(system, cfg, n_rays)], cfg.microbatch_rays,
                                     device, group)
 
     def step(state, i):
         t0 = time.perf_counter()
-        state, metrics = sys_.train_many(state, superbatch,
-                                         torch.Generator(device=device).manual_seed(7 + i))
+        state, metrics = sys_.train_many(state, superbatch, prng.fold_in(prng.key(7), i))
         loss = float(metrics["train/loss"])  # waits for the step
         return state, loss, time.perf_counter() - t0
 

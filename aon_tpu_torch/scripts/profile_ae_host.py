@@ -60,7 +60,7 @@ def main(argv: Optional[List[str]] = None, device: DeviceLike = "cuda") -> dict:
     rays_per_step = cfg.ray_batch_size
     rays_per_dispatch = rays_per_step * t_disp
     it = tr._train_iterator()
-    generator = tr.step_generator(0)
+    key = tr.step_key(0)  # one key for every dispatch, as the JAX script
 
     def sync():
         if device.type == "cuda":
@@ -76,7 +76,7 @@ def main(argv: Optional[List[str]] = None, device: DeviceLike = "cuda") -> dict:
         return stack_step_batches(batches, microbatch=cfg.microbatch_rays, device=device)
 
     def dispatch(state, staged):
-        state, m = tr.system.train_many(state, staged, generator)
+        state, m = tr.system.train_many(state, staged, key)
         _ = m["train/loss"].item()  # forced readback, as the trainer's log step
         return state
 

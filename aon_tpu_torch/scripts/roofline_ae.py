@@ -51,6 +51,7 @@ import numpy as np
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
+from aon_tpu_torch.core import prng
 from aon_tpu_torch.ops.fused_mlp import MLP_MACS_PER_SAMPLE
 from aon_tpu_torch.ops.render_fused import mlp_params
 from aon_tpu_torch.parallel.mesh import stack_step_batches
@@ -119,16 +120,17 @@ def measure(args: argparse.Namespace, device: DeviceLike = "cuda", batch: int = 
 
     def train_many_fn(system, host_batch, microbatch):
         superbatch = stack_step_batches([host_batch] * T, microbatch, device)
-        state = system.init_state(torch.Generator(device=device).manual_seed(0))
+        # the JAX script's keys: init from key 0, warm-up dispatch i from
+        # fold_in(key 1, i), every timed dispatch from fold_in(key 1, 99)
+        state = system.init_state(prng.key(0))
         for i in range(WARMUP_DISPATCHES):
-            state, m = system.train_many(state, superbatch,
-                                         torch.Generator(device=device).manual_seed(1 + i))
+            state, m = system.train_many(state, superbatch, prng.fold_in(prng.key(1), i))
             m["train/loss"].item()
-        gen = torch.Generator(device=device).manual_seed(99)
+        timed_key = prng.fold_in(prng.key(1), 99)
         holder = {"state": state}
 
         def step():
-            holder["state"], m = system.train_many(holder["state"], superbatch, gen)
+            holder["state"], m = system.train_many(holder["state"], superbatch, timed_key)
             return m["train/loss"]
 
         return step, holder

@@ -21,21 +21,22 @@ from typing import Callable, Dict, Mapping, Optional
 import torch
 import torch.distributed as dist
 
+from aon_tpu_torch.core import prng
 # batch entries carrying a per-ray leading axis (everything else is shared)
 from aon_tpu_torch.parallel.mesh import RAY_KEYS, all_reduce_mean, rank_of, size_of
 
 
-def _loss_aux_grads(loss_fn: Callable, params: Mapping[str, torch.Tensor], batch, generator, draws):
+def _loss_aux_grads(loss_fn: Callable, params: Mapping[str, torch.Tensor], batch, key, draws):
     """(loss, aux, grads) from either kind of loss function.
 
     A plain ``loss_fn`` returns (loss, aux) and is differentiated here by
     autograd; a gradient-producing step (``loss_fn.returns_grads`` true, the
     v3 level kernels) returns (loss, aux, grads) itself."""
     if getattr(loss_fn, "returns_grads", False):
-        return loss_fn(params, batch, generator, draws)
+        return loss_fn(params, batch, key, draws)
     leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
     with torch.enable_grad():
-        loss, aux = loss_fn(leaves, batch, generator, draws)
+        loss, aux = loss_fn(leaves, batch, key, draws)
         names = list(leaves)
         grads = torch.autograd.grad(loss, [leaves[k] for k in names])
     aux = {k: v.detach() for k, v in aux.items()}
@@ -46,20 +47,21 @@ def accumulated_grads(
     loss_fn: Callable,
     params: Mapping[str, torch.Tensor],
     batch: Mapping[str, torch.Tensor],
-    generator: Optional[torch.Generator] = None,
+    key: Optional[torch.Tensor] = None,
     draws: Optional[Mapping[str, torch.Tensor]] = None,
     group: Optional[dist.ProcessGroup] = None,
 ):
     """Mean (loss, aux, grads) over stacked microbatches.
 
     ``batch``: ray entries (k, m, ...) or flat (m, ...), shared entries as
-    they are; ``loss_fn(params, flat_batch, generator, draws)`` sees (m, ...)
+    they are; ``loss_fn(params, flat_batch, key, draws)`` sees (m, ...)
     ray entries.  ``draws`` (injected uniforms) are stacked like the rays.
 
-    With ``ray_ids`` in the batch every ray has its own stream already, so
-    each microbatch starts from the same generator state: the trajectory
-    does not depend on the microbatch count k.  Without them the generator
-    simply runs on from one microbatch to the next.
+    The microbatches' keys are the JAX package's (``aon_tpu/train/microbatch.py:89-97``):
+    with ``ray_ids`` in the batch every ray has its own stream already, so
+    each microbatch takes ``key`` itself and the trajectory does not depend
+    on the microbatch count k; without them microbatch i takes ``split(key,
+    k)[i]``.  A flat batch, or a stack of one, takes ``key``.
 
     A ``loss_fn`` may expose ``prepare_shared(batch, group) -> dict`` for
     whole-batch reductions over all k microbatches, and over the ranks of
@@ -75,20 +77,21 @@ def accumulated_grads(
     if batch["rays_o"].ndim == 2:
         # flat batch: a single microbatch.  Decided on rays_o: 1-D ray
         # entries (t_near, loss_w) are 1-D flat and 2-D stacked.
-        return _loss_aux_grads(loss_fn, params, batch, generator, draws)
+        return _loss_aux_grads(loss_fn, params, batch, key, draws)
 
     ray_parts = {n: v for n, v in batch.items() if n in RAY_KEYS}
     shared = {n: v for n, v in batch.items() if n not in RAY_KEYS}
     k = batch["rays_o"].shape[0]
-    same_state = generator.get_state() if "ray_ids" in batch and generator is not None else None
+    if k == 1 or "ray_ids" in batch:
+        keys = [key] * k
+    else:
+        keys = prng.maybe_split(key, k)
 
     loss_acc, aux_acc, grads_acc = None, None, None
     for i in range(k):
-        if same_state is not None:
-            generator.set_state(same_state)
         mb = dict(shared, **{n: v[i] for n, v in ray_parts.items()})
         mb_draws = None if draws is None else {n: v[i] for n, v in draws.items()}
-        loss, aux, grads = _loss_aux_grads(loss_fn, params, mb, generator, mb_draws)
+        loss, aux, grads = _loss_aux_grads(loss_fn, params, mb, keys[i], mb_draws)
         if i == 0:
             loss_acc, aux_acc, grads_acc = loss, dict(aux), dict(grads)
         else:
@@ -107,13 +110,17 @@ def _inject_ray_ids(superbatch: Mapping[str, torch.Tensor], m_global: int,
     """Attach global per-ray indices (T, k, m_local) so randomized sampling
     depends neither on the microbatching nor on the ranks
     (``core.sampling.per_ray_uniform``): ray j of microbatch i on the rank
-    whose block starts at ``offset`` is ray ``i * m_global + offset + j``."""
+    whose block starts at ``offset`` is ray ``i * m_global + offset + j``.
+    The plain modules draw one block over the whole microbatch, as the JAX
+    package's flax modules do: ``draw_row0`` (T,), the rank's first row in
+    it."""
     ref = superbatch["rays_o"]  # (T, k, m_local, 3)
     t_steps, k, m_local = ref.shape[:3]
     micro = torch.arange(k, device=ref.device, dtype=torch.int64)[:, None]
     row = torch.arange(m_local, device=ref.device, dtype=torch.int64)[None, :]
     ids = micro * m_global + offset + row
-    return dict(superbatch, ray_ids=ids.expand(t_steps, k, m_local))
+    return dict(superbatch, ray_ids=ids.expand(t_steps, k, m_local),
+                draw_row0=torch.full((t_steps,), offset, dtype=torch.int64))
 
 
 def make_train_many_sharded(loss_fn: Callable, metrics_fn: Callable,
@@ -125,12 +132,13 @@ def make_train_many_sharded(loss_fn: Callable, metrics_fn: Callable,
     ``shard_map`` on every chip of the mesh; eager PyTorch has no latency to
     amortise, so one plain Python loop serves both.
 
-    Returns ``fn(state, superbatch, generator) -> (state, metrics)``:
+    Returns ``fn(state, superbatch, key) -> (state, metrics)``:
     ``superbatch`` entries carry a leading T axis over stacked ``(k, m, ...)``
     batches, of which each rank holds its block of every microbatch
     (``stack_step_batches`` with the group), with ray ids ``m_global =
     m_local * world`` and ``offset = rank * m_local``, so every ray draws
-    what it draws in one process.  Each step's ``(loss, aux, grads)`` are
+    what it draws in one process.  Step t takes the key ``fold_in(key, t)``
+    (``aon_tpu/train/microbatch.py:145``, ``:199``).  Each step's ``(loss, aux, grads)`` are
     all-reduced to their mean over the ranks (one all-reduce of their
     concatenation) before ``state.apply_gradients``, which every rank
     applies to the same parameters: they stay the same on every rank.  The
@@ -140,14 +148,15 @@ def make_train_many_sharded(loss_fn: Callable, metrics_fn: Callable,
     world, offset_of = size_of(group), rank_of(group)
 
     def train_many(state, superbatch: Mapping[str, torch.Tensor],
-                   generator: Optional[torch.Generator] = None):
+                   key: Optional[torch.Tensor] = None):
         m_local = superbatch["rays_o"].shape[2]
         superbatch = _inject_ray_ids(superbatch, m_local * world, offset_of * m_local)
         t_steps = superbatch["rays_o"].shape[0]
         losses, auxs = [], []
         for t in range(t_steps):
             batch = {n: v[t] for n, v in superbatch.items()}
-            loss, aux, grads = accumulated_grads(loss_fn, state.params, batch, generator,
+            step_key = None if key is None else prng.fold_in(key, t)
+            loss, aux, grads = accumulated_grads(loss_fn, state.params, batch, step_key,
                                                  group=group)
             names, aux_names = list(grads), list(aux)
             reduced = all_reduce_mean([loss] + [aux[n] for n in aux_names]

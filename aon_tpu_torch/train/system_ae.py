@@ -37,11 +37,12 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
+from aon_tpu_torch.core import prng
 from aon_tpu_torch.core.rays import effective_intervals
 from aon_tpu_torch.core.rendering import mse2psnr
 from aon_tpu_torch.models.articulated import ArticulatedNeRF
 from aon_tpu_torch.models.joint_state import JointStateDecoder
-from aon_tpu_torch.models.mlp import xavier_init_
+from aon_tpu_torch.models.init import flax_init_
 from aon_tpu_torch.models.resnet import ImgEncoderMultiHeadArt
 from aon_tpu_torch.ops.fused_mlp import EncConstsCache
 from aon_tpu_torch.ops.render_fused import mlp_params
@@ -74,17 +75,15 @@ class DegEmbedding(nn.Module):
     """The 91 x 32 degree table; flax ``nn.Embed``'s default init,
     ``variance_scaling(1, fan_in, normal)``: a normal of std 1/sqrt(32)."""
 
-    def __init__(self, device=None, generator: Optional[torch.Generator] = None):
+    def __init__(self, device=None, key: Optional[torch.Tensor] = None):
         super().__init__()
         self.deg_embedding = nn.Embedding(N_DEG_EMBEDDINGS, DEG_CODE_LENGTH, device="meta")
         # built on the meta device so no default init draws from the global RNG
         self.to_empty(device=torch.device("cpu") if device is None else device)
-        self.reset_parameters(generator)
+        self.reset_parameters(key)
 
-    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
-        with torch.no_grad():
-            nn.init.normal_(self.deg_embedding.weight, std=DEG_CODE_LENGTH ** -0.5,
-                            generator=generator)
+    def reset_parameters(self, key: Optional[torch.Tensor]) -> None:
+        flax_init_(self, key, "embed_normal")
 
     def forward(self, deg_idx: torch.Tensor) -> torch.Tensor:
         return self.deg_embedding(torch.atleast_1d(deg_idx))
@@ -140,18 +139,22 @@ class AutoEncoderSystem(_System):
             self.loss_fn = self._loss_fn
         self._set_dispatch(group)
 
-    def init_params(self, generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
-        """Fresh weights drawn from ``generator``: xavier-uniform NeRF, flax's
-        defaults for the encoder, the joint-state head and the degree table
-        (the encoder's conv kernels from ``_maybe_pretrained_encoder`` where a
-        converted backbone exists).  The flat state dict on the system's
+    def init_params(self, key: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """Fresh weights drawn as the JAX system's ``init_state(key)`` draws
+        them (``aon_tpu/train/system_ae.py:93-112``): ``split(key, 4)`` for the
+        NeRF (xavier-uniform), the encoder, the joint-state head (flax's
+        ``lecun_normal``) and the degree table (flax's ``Embed`` normal); the
+        encoder's conv kernels from ``_maybe_pretrained_encoder`` where a
+        converted backbone exists.  The flat state dict on the system's
         device."""
-        xavier_init_(self.model, generator)
+        names = ("model", "encoder", "joint_state", "deg_embedding")
+        keys = dict(zip(names, prng.split(key, 4)))
+        flax_init_(self.model, keys["model"])
         params = {}
-        for name in ("model", "encoder", "joint_state", "deg_embedding"):
+        for name in names:
             module = getattr(self, name)
             if name != "model":
-                module.reset_parameters(generator)
+                module.reset_parameters(keys[name])
             sd = {k: v.detach().clone() for k, v in module.state_dict().items()}
             if name == "encoder":
                 sd = self._maybe_pretrained_encoder(sd)
@@ -185,7 +188,7 @@ class AutoEncoderSystem(_System):
             self.deg_embedding, mlp_params(params, "deg_embedding"), (deg_index(deg),))
         return latents, pred_state
 
-    def _loss_fn(self, params, batch, generator=None, draws=None):
+    def _loss_fn(self, params, batch, key=None, draws=None):
         """The plain (CPU) or v2 (two-kernel) loss under autograd."""
         src = batch["src_imgs"]
         if src.ndim == 3:
@@ -197,14 +200,15 @@ class AutoEncoderSystem(_System):
                 self._consts.on(batch["rays_o"].device), self.near, self.far, self.white_bkgd,
                 self.cfg.N_samples, self.cfg.N_importance, sigma_activation=self.sigma_act,
                 rgb_padding=0.0, density_bias=self.density_bias, lindisp=self.cfg.lindisp,
-                generator=generator, draws=draws)
+                key=key, draws=draws)
         else:
-            rays = {k: batch[k] for k in ("rays_o", "rays_d", "viewdirs", "ray_ids") if k in batch}
+            rays = {k: batch[k] for k in ("rays_o", "rays_d", "viewdirs", "draw_row0")
+                if k in batch}
             out = torch.func.functional_call(
                 self.model, mlp_params(params, "model"),
                 (rays, latents, self.white_bkgd,
                  *effective_intervals(batch, self.near, self.far)),
-                dict(randomized=True, generator=generator, draws=draws),
+                dict(randomized=True, key=key, draws=draws),
             )
         mask, lw = ae_loss_weights(batch, float(self.cfg.bg_loss_lambda))
 

@@ -4,9 +4,9 @@ systems of ``aon_tpu/train/systems.py``; the auto-encoder's is
 
 Each system exposes
 
-  * ``init_state(generator)`` -> ``TrainState`` (params, optimizer moments, step)
-  * ``train_step(state, batch, generator)`` -> ``(state, metrics)``
-  * ``train_many(state, superbatch, generator)`` -> T steps from one call
+  * ``init_state(key)`` -> ``TrainState`` (params, optimizer moments, step)
+  * ``train_step(state, batch, key)`` -> ``(state, metrics)``
+  * ``train_many(state, superbatch, key)`` -> T steps from one call
   * ``render_chunk(params, rays, ...)`` -> deterministic renderer of eval
 
 With ``cfg.use_pallas`` on a CUDA device both the step and the renderer go
@@ -33,11 +33,12 @@ from typing import Any, Dict, Mapping, Optional
 import torch
 import torch.distributed as dist
 
+from aon_tpu_torch.core import prng
 from aon_tpu_torch.core.rays import effective_intervals
 from aon_tpu_torch.core.rendering import img2mse, mse2psnr
 from aon_tpu_torch.models.articulated import ArticulatedNeRF
 from aon_tpu_torch.models.code_library import CodeLibraryArticulated
-from aon_tpu_torch.models.mlp import xavier_init_
+from aon_tpu_torch.models.init import flax_init_
 from aon_tpu_torch.models.nerf import VanillaNeRF
 from aon_tpu_torch.ops.render_fused import make_fused_render_fn, mlp_params
 from aon_tpu_torch.ops.train_art_pallas import (
@@ -88,20 +89,21 @@ class _System:
         self.group = group
         self.train_many = make_train_many_sharded(self.loss_fn, self._metrics, group)
 
-    def init_state(self, generator: Optional[torch.Generator] = None) -> TrainState:
-        """Fresh parameters from ``generator``, zero Adam moments, step 0."""
-        params = self.init_params(generator)
+    def init_state(self, key: torch.Tensor) -> TrainState:
+        """Fresh parameters from the threefry ``key`` (those of the JAX
+        system's ``init_state(key)``), zero Adam moments, step 0."""
+        params = self.init_params(key)
         mu, nu = self.tx.init(params)
         return TrainState(step=0, params=params, mu=mu, nu=nu, tx=self.tx)
 
     def train_step(self, state: TrainState, batch: Mapping[str, torch.Tensor],
-                   generator: Optional[torch.Generator] = None,
+                   key: Optional[torch.Tensor] = None,
                    draws: Optional[Mapping[str, torch.Tensor]] = None):
         """One optimizer step: ``(state, metrics)``.  ``batch`` holds rays_o,
         rays_d, viewdirs, target as (B, 3) or stacked (k, m, 3) microbatches
         (+ optional per-ray ``loss_w``, ``t_near``, ``t_far``) and, for the
         auto-decoder, the step's one ``instance_id`` and ``articulation_id``;
-        the sampling uniforms come from ``generator``, or from ``draws``
+        the sampling uniforms come from ``key``, or from ``draws``
         (``core.sampling`` names them) where a caller injects them.  Over
         several ranks ``batch`` holds this rank's block of the rays
         (``parallel.mesh.shard_ray_batch``) and the step goes through
@@ -112,8 +114,8 @@ class _System:
             # one step through the ranks' train_many, as the JAX sharded_step
             if draws is not None:
                 raise ValueError("draws cannot be injected into a step over several ranks")
-            return self.train_many(state, {k: v[None] for k, v in batch.items()}, generator)
-        loss, aux, grads = accumulated_grads(self.loss_fn, state.params, batch, generator, draws)
+            return self.train_many(state, {k: v[None] for k, v in batch.items()}, key)
+        loss, aux, grads = accumulated_grads(self.loss_fn, state.params, batch, key, draws)
         return state.apply_gradients(grads), self._metrics(loss, aux)
 
 
@@ -158,12 +160,13 @@ class VanillaSystem(_System):
             self.loss_fn = self._plain_loss_fn
         self._set_dispatch(group)
 
-    def _plain_loss_fn(self, params, batch, generator=None, draws=None):
-        rays = {k: batch[k] for k in ("rays_o", "rays_d", "viewdirs", "ray_ids") if k in batch}
+    def _plain_loss_fn(self, params, batch, key=None, draws=None):
+        rays = {k: batch[k] for k in ("rays_o", "rays_d", "viewdirs", "draw_row0")
+                if k in batch}
         out = torch.func.functional_call(
             self.model, dict(params),
             (rays, self.white_bkgd, *effective_intervals(batch, self.near, self.far)),
-            dict(randomized=True, generator=generator, draws=draws),
+            dict(randomized=True, key=key, draws=draws),
         )
         loss0 = img2mse(out[0][0], batch["target"])
         loss1 = img2mse(out[1][0], batch["target"])
@@ -174,10 +177,12 @@ class VanillaSystem(_System):
         return {"train/loss": loss, "train/psnr0": mse2psnr(aux["loss0"]),
                 "train/psnr1": mse2psnr(aux["loss1"])}
 
-    def init_params(self, generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
-        """Fresh xavier-uniform weights and zero biases drawn from ``generator``,
-        as a ``VanillaNeRF`` state dict on the system's device."""
-        xavier_init_(self.model, generator)
+    def init_params(self, key: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """Fresh xavier-uniform weights and zero biases drawn from ``key`` as
+        the JAX system's flax ``init(key)`` draws them
+        (``aon_tpu/train/systems.py:153-159``), as a ``VanillaNeRF`` state
+        dict on the system's device."""
+        flax_init_(self.model, key)
         return {k: v.detach().clone() for k, v in self.model.state_dict().items()}
 
     @torch.no_grad()
@@ -219,8 +224,8 @@ def _with_art_smoothness(loss_fn, weight: float):
 
     if getattr(loss_fn, "returns_grads", False):
 
-        def wrapped(params, batch, generator=None, draws=None):
-            loss, aux, grads = loss_fn(params, batch, generator, draws)
+        def wrapped(params, batch, key=None, draws=None):
+            loss, aux, grads = loss_fn(params, batch, key, draws)
             sval, d = smooth(params)
             sgrad = torch.zeros_like(params[ART_TABLE])
             sgrad[1:] += 2.0 * weight * d
@@ -231,8 +236,8 @@ def _with_art_smoothness(loss_fn, weight: float):
         wrapped.returns_grads = True
     else:
 
-        def wrapped(params, batch, generator=None, draws=None):
-            loss, aux = loss_fn(params, batch, generator, draws)
+        def wrapped(params, batch, key=None, draws=None):
+            loss, aux = loss_fn(params, batch, key, draws)
             sval, _ = smooth(params)
             return loss + sval, dict(aux, reg=aux["reg"] + sval)
 
@@ -297,13 +302,14 @@ class AutoDecoderSystem(_System):
             self.code_library, mlp_params(params, "code_library"),
             (batch["instance_id"], batch["articulation_id"]), dict(is_test=is_test))
 
-    def _plain_loss_fn(self, params, batch, generator=None, draws=None):
+    def _plain_loss_fn(self, params, batch, key=None, draws=None):
         latents = self._latents(params, batch)
-        rays = {k: batch[k] for k in ("rays_o", "rays_d", "viewdirs", "ray_ids") if k in batch}
+        rays = {k: batch[k] for k in ("rays_o", "rays_d", "viewdirs", "draw_row0")
+                if k in batch}
         out = torch.func.functional_call(
             self.model, mlp_params(params, "model"),
             (rays, latents, self.white_bkgd, *effective_intervals(batch, self.near, self.far)),
-            dict(randomized=True, generator=generator, draws=draws),
+            dict(randomized=True, key=key, draws=draws),
         )
         loss0 = weighted_mse(out[0][0], batch["target"], batch.get("loss_w"))
         loss1 = weighted_mse(out[1][0], batch["target"], batch.get("loss_w"))
@@ -315,12 +321,15 @@ class AutoDecoderSystem(_System):
         return {"train/loss": loss, "train/loss/reg": aux["reg"],
                 "train/psnr0": mse2psnr(aux["loss0"]), "train/psnr1": mse2psnr(aux["loss1"])}
 
-    def init_params(self, generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+    def init_params(self, key: torch.Tensor) -> Dict[str, torch.Tensor]:
         """Fresh xavier-uniform weights and code tables and zero biases drawn
-        from ``generator``: the flat state dict ``{"model.*", "code_library.*"}``
+        as the JAX system draws them, the model from ``split(key)[0]`` and the
+        code library from ``split(key)[1]`` (``aon_tpu/train/systems.py:301-316``):
+        the flat state dict ``{"model.*", "code_library.*"}``
         on the system's device."""
-        xavier_init_(self.model, generator)
-        self.code_library.reset_parameters(generator)
+        k1, k2 = prng.split(key)
+        flax_init_(self.model, k1)
+        self.code_library.reset_parameters(k2)
         params = {f"model.{k}": v.detach().clone() for k, v in self.model.state_dict().items()}
         params.update({f"code_library.{k}": v.detach().clone()
                        for k, v in self.code_library.state_dict().items()})

@@ -17,10 +17,12 @@ Ray batches stream from the host as fixed-shape numpy (the loader's
 ``batch_size`` random rays of the single-scene dataset, or one (instance,
 articulation) frame's ``ray_batch_size`` rays of ``sapien_multi``) and
 ``steps_per_dispatch`` steps at a time go through ``system.train_many``.  The
-sampling draws of each dispatch come from a ``torch.Generator`` seeded from
-``(cfg.seed, global_step)``, so a run does not depend on how its steps were
-cut into epochs or calls (the JAX trainer folds the global step into its
-PRNG key).  ``profile_dir`` takes a ``utils.profiling.trace`` of the first
+keys are the JAX trainer's (``aon_tpu/train/trainer.py:193-194``, ``:313``):
+``base_key, init_key = split(key(cfg.seed))``, the state from ``init_key``
+and the dispatch that starts at ``global_step`` from ``fold_in(base_key,
+global_step)``, so a run starts from the JAX run's weights, draws its
+uniforms, and does not depend on how its steps were cut into epochs or
+calls.  ``profile_dir`` takes a ``utils.profiling.trace`` of the first
 trained epoch.
 
 Over several ranks (``torch.distributed``, one process per GPU) every rank
@@ -53,6 +55,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from aon_tpu_torch.core import prng
 from aon_tpu_torch.data import dataset_dict
 from aon_tpu_torch.eval import artifacts
 from aon_tpu_torch.eval import metrics as M
@@ -221,14 +224,13 @@ class Trainer:
         self._heartbeat = time.time()
         self._watchdog_started = False
         self._start_watchdog()
-        self.state = self.system.init_state(
-            torch.Generator(device=self.device).manual_seed(cfg.seed))
+        self.base_key, init_key = prng.split(prng.key(cfg.seed))
+        self.state = self.system.init_state(init_key)
         self._beat()
 
-    def step_generator(self, step: int) -> torch.Generator:
-        """The sampling draws' generator of the dispatch that starts at ``step``."""
-        seed = np.random.SeedSequence([self.cfg.seed, step]).generate_state(1, np.uint64)[0]
-        return torch.Generator(device=self.device).manual_seed(int(seed))
+    def step_key(self, step: int) -> torch.Tensor:
+        """The sampling draws' key of the dispatch that starts at ``step``."""
+        return prng.fold_in(self.base_key, step)
 
     # ------------------------------------------------------------- watchdog
 
@@ -291,11 +293,10 @@ class Trainer:
             inject_ramps(cfg, b, self.global_step + j)
         stacked = stack_step_batches(batches, microbatch=cfg.microbatch_rays, device=self.device,
                                      group=self.group)
-        generator = self.step_generator(self.global_step)
+        key = self.step_key(self.global_step)
         if n_steps > 1:
-            return self.system.train_many(self.state, stacked, generator)
-        return self.system.train_step(self.state, {k: v[0] for k, v in stacked.items()},
-                                      generator)
+            return self.system.train_many(self.state, stacked, key)
+        return self.system.train_step(self.state, {k: v[0] for k, v in stacked.items()}, key)
 
     def fit(self, resume: bool = False) -> None:
         cfg = self.cfg

@@ -7,6 +7,15 @@ Phases, each printed as one JSON line on stdout (nothing else goes there):
 
   device   the card (torch, and `nvidia-smi --query-gpu=name,power.limit`);
   build    nvcc builds every kernel of aon_tpu_torch/ops/csrc for sm_90a;
+  prng     the threefry draws (aon_tpu_torch/ops/csrc/prng.cu): jax.random's
+           values for key, split, fold_in, uniform and the per-ray rows
+           (PRNG_GOLDEN, computed with JAX on a CPU), on the card and the
+           CPU; then the kernel, per ray and flat, against core/prng.py's
+           plain twin bit for bit at the training draws' shapes (vanilla
+           2,048 x 17 / x 33, the auto-decoder 4,096 x 25 / x 49, the
+           reference contract 61,440 x 65 / x 129), timed (host-clocked, and
+           on the device with the calls queued behind a sleep kernel) beside
+           the twin and its bound;
   kernel_times  rows 2 (both entries) and 14 (each encoder) at the paths'
            shapes by device time (torch.profiler, over 100 warm calls),
            host-clocked time (an event pair around one call, the median) and
@@ -72,7 +81,7 @@ Phases, each printed as one JSON line on stdout (nothing else goes there):
            against the plain float32 route with the same injected draws; then
            MANY_STEPS x MANY_MICRO stacked microbatches through
            system.train_many on both routes, held against train_step on the
-           same rays, ray ids and generator state;
+           same rays, ray ids and keys;
   art_kernel  the three articulated kernels (forward, MLP backward, fused
            level) on configs/quality_laptop_autodec.json's MLP with seeded
            weights and codes, at their paths' shapes (forward: 61,440 rays x 65
@@ -215,7 +224,8 @@ Phases, each printed as one JSON line on stdout (nothing else goes there):
            a lo/hi pair the phase writes; visualize_cameras on the fit fixture;
            one line each, with the card, and the phase's launches by kernel;
   kernels  every kernel of the paths with its launches, error, times and bound
-           (rows 1-13, rows 12 and 13 by variant, and row 14's check);
+           (rows 1-13, rows 12 and 13 by variant, row 14's check, and the
+           threefry draws with their launches on every training path);
 
 with --seeds K > 1, a ``sweep`` line for each further seed and one that sums
 them up: the articulated kernels' training checks, the checks at the bench's
@@ -234,6 +244,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import importlib.util
 import io
 import json
@@ -255,6 +266,27 @@ ROOT = Path(__file__).resolve().parent
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+# the threefry draws: 32-bit integer operations, at the CUDA cores' float32
+# rate (the data sheet gives no integer rate; the card's int32 lanes are no
+# faster, so this bound is a floor): a threefry-2x32 block is 20 rounds of an
+# add, a rotate and a xor plus 14 of its key schedule, a uniform 4 more
+PEAK_INT32_OPS = PEAK_F32_FLOPS
+THREEFRY_OPS, UNIT_OPS = 74, 4
+# (rays, uniforms a ray) of the training draws: the vanilla and auto-decoder
+# quality configs' coarse and fine draws, and the reference contract's
+PRNG_SHAPES = ((2048, 17), (2048, 33), (4096, 25), (4096, 49), (61440, 65), (61440, 129))
+# jax.random on JAX 0.9 (jax_threefry_partitionable on), computed on a CPU
+# with JAX (the card's machine has none): key words, and uniforms as float32 bits
+PRNG_GOLDEN = {
+    "fold_in(key(0), 2**31)": [917456828, 636652529],
+    "fold_in(key(7), 12345)": [3187294848, 248916179],
+    "split(key(1), 3)": [[507451445, 1853169794], [1948878966, 4237131848],
+                         [2441914641, 3819641963]],
+    "uniform(key(0), (4,))": [1064475214, 1064993846, 1051337244, 1055913296],
+    "uniform(fold_in(key(42), 7), (2, 3))": [1058870020, 1056835660, 1057982622, 1058968326,
+                                             1057282088, 1057256636],
+    "per_ray(key(0), [0, 2**31-1], 2)": [1062707686, 1044038008, 1063849462, 1060252750],
+}
 
 CONFIG = "configs/quality_laptop_vanilla_refsched.json"
 CHUNK_RAYS = 61440
@@ -315,7 +347,7 @@ TOL_INTERVAL_VS_BF16 = 1.5
 TOL_ROUTES_GRAD_MAX, TOL_ROUTES_GRAD_MEAN = 0.1, 0.02  # seen: 0.0012 and 0.0034
 # train_many: steps per call and stacked microbatches per step (of
 # TRAIN_RAYS / MANY_MICRO rays each).  Against train_step on the same rays,
-# ray ids and generator state only the atomicAdd order of the kernels differs;
+# ray ids and keys only the atomicAdd order of the kernels differs;
 # Adam turns that into up to the lr (~5e-6) where a gradient entry is as small
 # as its eps
 MANY_STEPS, MANY_MICRO = 2, 2
@@ -539,6 +571,22 @@ def time_ms(torch, fn, reps: int, warmup: int = 1) -> float:
     return statistics.median(times)
 
 
+def queued_ms(torch, fn, reps: int = 50) -> float:
+    """Device milliseconds a call of ``fn``: ``reps`` calls queued behind a
+    sleep kernel (``torch.cuda._sleep``), so the card runs them back to back
+    and the host's launch time hides behind the queue."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)  # tens of ms: longer than enqueuing the calls
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def library_mlp(torch, packed, consts, samples, viewdirs, encode_plain):
     """Yardstick only: the same layer chain as bf16 cuBLAS calls."""
     B, S, _ = samples.shape
@@ -667,6 +715,29 @@ def as_window(weights):
     return buf[:, 1:-1]
 
 
+def prng_golden_failures(torch, prng, device) -> list:
+    """The PRNG_GOLDEN entries that the port's keys, the kernel's draws on
+    ``device`` or the plain draws on the CPU miss."""
+    bits = lambda t: t.cpu().reshape(-1).view(torch.int32).tolist()  # noqa: E731
+    u32 = lambda vals: [v - (1 << 32) if v >= 1 << 31 else v for v in vals]  # noqa: E731
+    k0 = prng.key(0)
+    ids = torch.tensor([0, 2**31 - 1], device=device)
+    got = {
+        "fold_in(key(0), 2**31)": prng.fold_in(k0, 2**31).tolist(),
+        "fold_in(key(7), 12345)": prng.fold_in(prng.key(7), 12345).tolist(),
+        "split(key(1), 3)": prng.split(prng.key(1), 3).tolist(),
+    }
+    for where in (device, "cpu"):
+        got[f"uniform(key(0), (4,)) on {where}"] = bits(prng.uniform(k0, (4,), device=where))
+        got[f"uniform(fold_in(key(42), 7), (2, 3)) on {where}"] = bits(
+            prng.uniform(prng.fold_in(prng.key(42), 7), (2, 3), device=where))
+        got[f"per_ray(key(0), [0, 2**31-1], 2) on {where}"] = bits(
+            prng.per_ray_uniform(k0, ids.to(where), 2))
+    want = {name: (u32(v) if name.startswith(("uniform", "per_ray")) else v)
+            for name, v in PRNG_GOLDEN.items()}
+    return [name for name, v in got.items() if v != want[name.split(" on ")[0]]]
+
+
 def library_resample(torch, t_vals, bins, cdf, u):
     """Yardstick only: searchsorted inverse CDF + torch.sort of the union."""
     n = cdf.shape[-1]
@@ -703,6 +774,9 @@ def main(argv=None) -> int:
                               "run it from a checkout of the repository")
         sys.path.insert(0, str(ROOT))
         from aon_tpu_torch import run as port_run
+        from aon_tpu_torch.core import prng
+        from aon_tpu_torch.models.init import seeded_params
+        from aon_tpu_torch.ops.prng import threefry_uniform
         from aon_tpu_torch.core.rays import create_spheric_poses, get_ray_directions, get_rays
         from aon_tpu_torch.core.sampling import eval_quantiles, pdf_cdf, sample_along_rays
         from aon_tpu_torch.data.aabb import scene_aabb
@@ -843,6 +917,41 @@ def main(argv=None) -> int:
         require(len(art_spills) == 7 and not any(art_spills.values()),
                 "the articulated kernels' seven instances must build without spills")
 
+        # the threefry draws: golden values of jax.random, and the kernel
+        # against its plain twin bit for bit at the training draws' shapes
+        phase = "prng"
+        golden_missed = prng_golden_failures(torch, prng, dev)
+        prng_rows = []
+        for n_rays, n in PRNG_SHAPES:
+            ids = torch.randint(0, 2**31 - 1, (n_rays,), device=dev, generator=torch.Generator(
+                device=dev).manual_seed(args.seed + n_rays + n))
+            key = prng.fold_in(prng.key(args.seed), n_rays * 1000 + n)
+            got, flat = prng.per_ray_uniform(key, ids, n), prng.uniform(key, (n_rays, n), device=dev)
+            want = prng.per_ray_uniform_plain(key, ids, n)
+            flat_want = prng.uniform_plain(key, (n_rays, n), device=dev)
+            ops = n_rays * THREEFRY_OPS + n_rays * n * (THREEFRY_OPS + UNIT_OPS)
+            nbytes = n_rays * 8 + n_rays * n * 4  # the ids in, the uniforms out
+            prng_rows.append({
+                "shape": [n_rays, n], "bit_equal": bool(torch.equal(got, want)),
+                "flat_bit_equal": bool(torch.equal(flat, flat_want)),
+                "max_abs_err": max((got - want).abs().max().item(),
+                                   (flat - flat_want).abs().max().item()),
+                "ms": time_ms(torch, lambda: prng.per_ray_uniform(key, ids, n), 20),
+                "device_ms": queued_ms(torch, lambda: prng.per_ray_uniform(key, ids, n)),
+                "flat_ms": time_ms(torch, lambda: prng.uniform(key, (n_rays, n), device=dev), 20),
+                "flat_device_ms": queued_ms(
+                    torch, lambda: prng.uniform(key, (n_rays, n), device=dev)),
+                "plain_ms": time_ms(torch, lambda: prng.per_ray_uniform_plain(key, ids, n), 5),
+                "bound_ms": 1e3 * max(ops / PEAK_INT32_OPS, nbytes / PEAK_BYTES),
+                "bound_by": "operations" if ops / PEAK_INT32_OPS >= nbytes / PEAK_BYTES
+                            else "bytes",
+                "library_ms": None})  # no PyTorch call computes threefry
+        emit({"phase": "prng", "golden": len(PRNG_GOLDEN), "golden_missed": golden_missed,
+              "rows": prng_rows, "int32_ops_rate": PEAK_INT32_OPS, "card": card})
+        require(not golden_missed, f"threefry golden values missed: {golden_missed}")
+        require(all(r["bit_equal"] and r["flat_bit_equal"] for r in prng_rows),
+                "the threefry kernel is not its plain twin bit for bit")
+
         # rows 2 and 14 by device time at the paths' shapes, and the kernels
         # one sample_pdf_fused call launches, for this tree and (--parent)
         # another, each in a fresh process: after many profiler sessions in
@@ -890,7 +999,7 @@ def main(argv=None) -> int:
         gen = torch.Generator(device=dev).manual_seed(args.seed)
         cfg = get_config(["--config", str(ROOT / CONFIG)])
         system = build_system(cfg, 2.0, 6.0, cfg.white_back, device=dev)
-        params = system.init_params(gen)
+        params = seeded_params(system, gen)
         packed = pack_vanilla_mlp_params(mlp_params(params, "fine_mlp"))
         consts = make_posenc_constants(cfg.N_emb_xyz, cfg.N_emb_dir, device=dev)
         dirs = torch.nn.functional.normalize(
@@ -1290,6 +1399,7 @@ def main(argv=None) -> int:
                     "fused_mlp_bwd_xyz": fused_mlp_bwd_xyz,
                     "art_mlp_fwd": fused_art.art_mlp_fwd,
                     "art_mlp_bwd": fused_art.art_mlp_bwd,
+                    "threefry_uniform": threefry_uniform,
                     "fused_level_train_art_grads": fused_level_train_art_grads,
                     **{fn.__name__: fn for fn in (*bench_variants.MLP_BODY.values(),
                                                   *bench_variants.XYZ_BODY.values())}}
@@ -1299,7 +1409,8 @@ def main(argv=None) -> int:
         train_rows = {}
         # sample positions as a step makes them: stratified random coarse
         # samples, then (below) their union with the resampled fine ones
-        t_lvl, _ = sample_along_rays(ro, rd, N_COARSE, 2.0, 6.0, randomized=True, generator=gen)
+        t_lvl, _ = sample_along_rays(ro, rd, N_COARSE, 2.0, 6.0, randomized=True, t_rand=torch.rand(
+            TRAIN_RAYS, N_COARSE + 1, generator=gen, device=dev))
         for level, n_samples in (("coarse_mlp", N_COARSE + 1), ("fine_mlp", N_COARSE + 1 + N_FINE)):
             packed32 = pack_vanilla_mlp_params_f32(mlp_params(params, level))
             samples = (ro[:, None, :] + t_lvl[..., None] * rd[:, None, :]).contiguous()
@@ -1503,7 +1614,8 @@ def main(argv=None) -> int:
 
         systems = {"v3": system, "v2": route_system(fused_train="v2"),
                    "plain": route_system(use_pallas=False, compute_dtype="float32")}
-        state0 = system.init_state(torch.Generator(device=dev).manual_seed(args.seed + 1))
+        state0 = dataclasses.replace(system.init_state(prng.key(0)), params=seeded_params(
+            system, torch.Generator(device=dev).manual_seed(args.seed + 1)))
 
         # first step of every route from the same state, batch and draws
         gen = torch.Generator(device=dev).manual_seed(args.seed + 2)
@@ -1526,8 +1638,10 @@ def main(argv=None) -> int:
 
         def run_route(sy, state, batch_fn, steps, rays_per_step, route):
             """``steps`` optimizer steps through ``sy.train_step`` on
-            ``batch_fn(generator, step)``, each timed by CUDA events."""
+            ``batch_fn(generator, step)`` with the keys ``fold_in(key, step)``,
+            each timed by CUDA events."""
             g = torch.Generator(device=dev).manual_seed(args.seed + 3)
+            key = prng.key(args.seed + 3)
             for c in counters.values():
                 c.launches = 0
             metrics, events = [], [torch.cuda.Event(enable_timing=True)]
@@ -1535,7 +1649,7 @@ def main(argv=None) -> int:
             t0 = time.perf_counter()
             events[0].record()
             for i in range(steps):
-                state, m = sy.train_step(state, batch_fn(g, i), g)
+                state, m = sy.train_step(state, batch_fn(g, i), prng.fold_in(key, i))
                 metrics.append(m)
                 events.append(torch.cuda.Event(enable_timing=True))
                 events[-1].record()
@@ -1573,21 +1687,20 @@ def main(argv=None) -> int:
         def run_many(sy, state0, superbatch, route):
             """The superbatch (ray entries (T, k, m, ...), any other entry one
             per step) through train_many, then the same rays through
-            train_step with the ray ids train_many attaches and the generator
-            at the same state."""
+            train_step with the ray ids train_many attaches and the key that
+            train_many gives step t, ``fold_in(key, t)``."""
             t_steps, k, m = superbatch["rays_o"].shape[:3]
             for c in counters.values():
                 c.launches = 0
-            g = torch.Generator(device=dev).manual_seed(args.seed + 6)
-            state, metrics = sy.train_many(state0, superbatch, g)
+            key = prng.key(args.seed + 6)
+            state, metrics = sy.train_many(state0, superbatch, key)
             torch.cuda.synchronize()
             launches = {k_: c.launches for k_, c in counters.items()}  # read before the comparison
-            g = torch.Generator(device=dev).manual_seed(args.seed + 6)
             ray_ids = torch.arange(k * m, device=dev).reshape(k, m)
             ref, losses = state0, []
             for t in range(t_steps):
                 batch = dict({k_: v[t] for k_, v in superbatch.items()}, ray_ids=ray_ids)
-                ref, step_metrics = sy.train_step(ref, batch, g)
+                ref, step_metrics = sy.train_step(ref, batch, prng.fold_in(key, t))
                 losses.append(step_metrics["train/loss"].item())
             mean_loss, last_loss = metrics["train/loss"].item(), metrics["train/loss_last"].item()
             want_mean = sum(losses) / len(losses)
@@ -1628,16 +1741,18 @@ def main(argv=None) -> int:
             "loss_falls": v3["loss_last"] < TRAIN_LOSS_FALL * v3["loss"]["0"],
             "v3_launches": launches_are(
                 v3["launches"], fused_level_train_grads=2 * TRAIN_STEPS_V3,
-                resample_union=TRAIN_STEPS_V3),
+                resample_union=TRAIN_STEPS_V3, threefry_uniform=2 * TRAIN_STEPS_V3),
             "v2_launches": launches_are(
                 v2["launches"], fused_nerf_mlp_xyz_eval=2 * TRAIN_STEPS_V2,
-                fused_mlp_bwd_xyz=2 * TRAIN_STEPS_V2, resample_union=TRAIN_STEPS_V2),
+                fused_mlp_bwd_xyz=2 * TRAIN_STEPS_V2, resample_union=TRAIN_STEPS_V2,
+                threefry_uniform=2 * TRAIN_STEPS_V2),
             "steps_counted": v3["final_step"] == TRAIN_STEPS_V3,
             "many_launches": (
                 launches_are(many["v3"]["launches"], fused_level_train_grads=levels,
-                             resample_union=levels // 2)
+                             resample_union=levels // 2, threefry_uniform=levels)
                 and launches_are(many["v2"]["launches"], fused_nerf_mlp_xyz_eval=levels,
-                                 fused_mlp_bwd_xyz=levels, resample_union=levels // 2)),
+                                 fused_mlp_bwd_xyz=levels, resample_union=levels // 2,
+                                 threefry_uniform=levels)),
             "many_vs_train_step": all(many_ok(r) for r in many.values()),
             "same_first_loss": abs(v2["loss"]["0"] - v3["loss"]["0"]) <= TOL_STEP_LOSS * v3["loss"]["0"],
             "first_step_vs_plain": all(
@@ -1681,7 +1796,9 @@ def main(argv=None) -> int:
         art_systems = {"v3": art_route_system(), "v2": art_route_system(fused_train="v2"),
                        "plain": art_route_system(use_pallas=False, compute_dtype="float32")}
         art_system = art_systems["v3"]
-        art_state0 = art_system.init_state(torch.Generator(device=dev).manual_seed(args.seed + 7))
+        art_state0 = dataclasses.replace(
+            art_system.init_state(prng.key(0)), params=seeded_params(
+                art_system, torch.Generator(device=dev).manual_seed(args.seed + 7)))
         art_params = art_state0.params
         latents = {k: v.detach() for k, v in art_system._latents(
             art_params, {"instance_id": 1, "articulation_id": 2}).items()}
@@ -1764,7 +1881,8 @@ def main(argv=None) -> int:
             samples it, against their twins, on the weights, codes, rays and
             draws of ``seed``; the records by (kernel, arguments, samples)."""
             gen = torch.Generator(device=dev).manual_seed(seed + 17)
-            params_s = art_system.init_params(torch.Generator(device=dev).manual_seed(seed + 7))
+            params_s = seeded_params(art_system,
+                                        torch.Generator(device=dev).manual_seed(seed + 7))
             lat = {k: v.detach() for k, v in art_system._latents(
                 params_s, {"instance_id": 1, "articulation_id": 2}).items()}
             rd = torch.nn.functional.normalize(
@@ -1776,7 +1894,8 @@ def main(argv=None) -> int:
             lw_uniform = torch.full((TRAIN_RAYS,), 1.0 / (3.0 * TRAIN_RAYS), device=dev)
             lw_masked = (mask / (3.0 * mask.sum()).clamp_min(1.0)).contiguous()
             t_lvl, _ = sample_along_rays(ro, rd, N_COARSE, 2.0, 6.0, randomized=True,
-                                         generator=gen)
+                                         t_rand=torch.rand(TRAIN_RAYS, N_COARSE + 1,
+                                                           generator=gen, device=dev))
             recs = {}
             for level in ("coarse_mlp", "fine_mlp"):
                 packed_art = fused_art.fold_latents(mlp_params(params_s, f"model.{level}"), lat)
@@ -1844,7 +1963,7 @@ def main(argv=None) -> int:
             320x240 source, inputs from a generator of its own; the records
             by samples."""
             gen = torch.Generator(device=dev).manual_seed(seed + 23)
-            p = ae_system.init_params(torch.Generator(device=dev).manual_seed(seed + 7))
+            p = seeded_params(ae_system, torch.Generator(device=dev).manual_seed(seed + 7))
             src = torch.randn(1, 3, *reversed(ae_cfg.img_wh), generator=gen, device=dev)
             with torch.no_grad():
                 lat, _ = ae_system._encode(p, src, torch.tensor(0.7, device=dev))
@@ -1864,7 +1983,8 @@ def main(argv=None) -> int:
                     near = 3.2 + 0.4 * torch.rand(TRAIN_RAYS, generator=gen, device=dev)
                     far = near + 0.4 + 0.5 * torch.rand(TRAIN_RAYS, generator=gen, device=dev)
                 t_lvl, _ = sample_along_rays(ro, rd, n_c, near, far, randomized=True,
-                                             generator=gen)
+                                             t_rand=torch.rand(TRAIN_RAYS, n_c + 1,
+                                                               generator=gen, device=dev))
                 path = "fit_ae" if per_ray else "training"
                 for level in ("coarse_mlp", "fine_mlp"):
                     packed_l = fused_art.fold_latents(mlp_params(p, f"model.{level}"), lat)
@@ -1915,12 +2035,15 @@ def main(argv=None) -> int:
                 ro, rd, vd, tg = b["rays_o"], b["rays_d"], b["viewdirs"], b["target"]
                 contract = f"{system_name} bench, {tight} intervals"
                 t_lvl, _ = sample_along_rays(ro, rd, n_c, b["t_near"], b["t_far"],
-                                             randomized=True, generator=gen)
+                                             randomized=True, t_rand=torch.rand(
+                                                 TRAIN_RAYS, n_c + 1, generator=gen, device=dev))
                 vanilla = system_name == "vanilla"
                 if vanilla:
-                    p = system.init_params(torch.Generator(device=dev).manual_seed(seed + 1))
+                    p = seeded_params(system,
+                                         torch.Generator(device=dev).manual_seed(seed + 1))
                 else:
-                    p = art_system.init_params(torch.Generator(device=dev).manual_seed(seed + 7))
+                    p = seeded_params(art_system,
+                                         torch.Generator(device=dev).manual_seed(seed + 7))
                     lat = {k: v.detach() for k, v in art_system._latents(
                         p, {"instance_id": 0, "articulation_id": 1}).items()}
                     lw = torch.full((TRAIN_RAYS,), 1.0 / (3.0 * TRAIN_RAYS), device=dev)
@@ -2135,16 +2258,18 @@ def main(argv=None) -> int:
                            and art_v3["loss_mean_first_last"][1] < art_v3["loss_mean_first_last"][0]),
             "v3_launches": launches_are(
                 art_v3["launches"], fused_level_train_art_grads=per_v3 * ART_STEPS_V3,
-                resample_union=ART_MICRO * ART_STEPS_V3),
+                resample_union=ART_MICRO * ART_STEPS_V3, threefry_uniform=per_v3 * ART_STEPS_V3),
             "v2_launches": launches_are(
                 art_v2["launches"], art_mlp_fwd=per_v3 * ART_STEPS_V2,
-                art_mlp_bwd=per_v3 * ART_STEPS_V2, resample_union=ART_MICRO * ART_STEPS_V2),
+                art_mlp_bwd=per_v3 * ART_STEPS_V2, resample_union=ART_MICRO * ART_STEPS_V2,
+                threefry_uniform=per_v3 * ART_STEPS_V2),
             "steps_counted": art_v3["final_step"] == ART_STEPS_V3,
             "many_launches": (
                 launches_are(art_many["v3"]["launches"], fused_level_train_art_grads=levels,
-                             resample_union=levels // 2)
+                             resample_union=levels // 2, threefry_uniform=levels)
                 and launches_are(art_many["v2"]["launches"], art_mlp_fwd=levels,
-                                 art_mlp_bwd=levels, resample_union=levels // 2)),
+                                 art_mlp_bwd=levels, resample_union=levels // 2,
+                                 threefry_uniform=levels)),
             "many_vs_train_step": all(many_ok(r) for r in art_many.values()),
             "first_step_vs_plain": all(
                 first_step[k]["loss_rel"] <= TOL_STEP_LOSS
@@ -2278,7 +2403,7 @@ def main(argv=None) -> int:
                 ckpt = CheckpointManager(str(run_dir))
                 if not (run_dir / "last.ckpt").exists():  # both auto-decoder runs share it
                     ckpt.save_last(state, epoch=0)
-                restored = ckpt.restore(sy.init_state(torch.Generator(device=dev).manual_seed(0)))
+                restored = ckpt.restore(sy.init_state(prng.key(0)))
                 bit_exact = restored.step == state.step and all(
                     torch.equal(getattr(restored, part)[k], getattr(state, part)[k])
                     for part in ("params", "mu", "nu") for k in state.params)
@@ -2434,12 +2559,13 @@ def main(argv=None) -> int:
             inject_ramps(fit_cfg, batch0, 0)
             batch0 = {k: v[0] for k, v in stack_step_batches(
                 [batch0], microbatch=fit_cfg.microbatch_rays, device=dev).items()}
+            # (the Trainer's init key: split(key(seed))[1], as the JAX trainer's)
             init_params = fit_trainer.system.init_state(
-                torch.Generator(device=dev).manual_seed(fit_cfg.seed)).params
+                prng.split(prng.key(fit_cfg.seed))[1]).params
 
             def fixed_loss(params):
-                g = torch.Generator(device=dev).manual_seed(args.seed + 11)
-                return accumulated_grads(fit_trainer.system.loss_fn, params, batch0, g)[0].item()
+                return accumulated_grads(fit_trainer.system.loss_fn, params, batch0,
+                                         prng.key(args.seed + 11))[0].item()
 
             loss_fresh, loss_fitted = fixed_loss(init_params), fixed_loss(fit_params)
             val_psnr_fresh = eval_metrics.psnr(
@@ -2514,7 +2640,7 @@ def main(argv=None) -> int:
                 "launches": launches_are(
                     fit_launches, fused_level_train_grads=2 * FIT_STEPS,
                     resample_union=FIT_STEPS + val_chunks,
-                    fused_nerf_mlp_xyz_eval=2 * val_chunks),
+                    fused_nerf_mlp_xyz_eval=2 * val_chunks, threefry_uniform=2 * FIT_STEPS),
                 "loss_falls": loss_fitted < FIT_LOSS_FALL * loss_fresh,
                 "val_psnr_finite": len(val_psnr) == 1 and math.isfinite(val_psnr[0]),
                 "resume_continues": (f"resumed from step {FIT_STEPS}" in res_out
@@ -2524,7 +2650,8 @@ def main(argv=None) -> int:
                                          res_launches,
                                          fused_level_train_grads=2 * FIT_RESUME_STEPS,
                                          resample_union=FIT_RESUME_STEPS + val_chunks,
-                                         fused_nerf_mlp_xyz_eval=2 * val_chunks)),
+                                         fused_nerf_mlp_xyz_eval=2 * val_chunks,
+                                         threefry_uniform=2 * FIT_RESUME_STEPS)),
                 "resume_restores_params": (
                     len(restored) == 1 and restored[0][0] == FIT_STEPS
                     and restored[0][1].keys() == fit_params.keys()
@@ -2677,12 +2804,11 @@ def main(argv=None) -> int:
             batch0 = next(fa_trainer.train_dataset.train_batches(seed=fa_cfg.seed))
             batch0 = {k: v[0] for k, v in stack_step_batches(
                 [batch0], microbatch=fa_cfg.microbatch_rays, device=dev).items()}
-            fa_init = fa_trainer.system.init_state(
-                torch.Generator(device=dev).manual_seed(fa_cfg.seed)).params
+            fa_init = fa_trainer.system.init_state(prng.split(prng.key(fa_cfg.seed))[1]).params
 
             def fa_fixed_loss(params):
-                g = torch.Generator(device=dev).manual_seed(args.seed + 11)
-                return accumulated_grads(fa_trainer.system.loss_fn, params, batch0, g)[0].item()
+                return accumulated_grads(fa_trainer.system.loss_fn, params, batch0,
+                                         prng.key(args.seed + 11))[0].item()
 
             fa_loss_fresh, fa_loss_fitted = fa_fixed_loss(fa_init), fa_fixed_loss(fa_params)
             fa_val_fresh = float(np.mean([eval_metrics.psnr(
@@ -2761,7 +2887,7 @@ def main(argv=None) -> int:
                 "launches": launches_are(
                     fa_launches, fused_level_train_art_grads=art_steps * FIT_ART_STEPS,
                     resample_union=ART_MICRO * FIT_ART_STEPS + fa_val_chunks,
-                    art_mlp_fwd=2 * fa_val_chunks),
+                    art_mlp_fwd=2 * fa_val_chunks, threefry_uniform=art_steps * FIT_ART_STEPS),
                 "loss_falls": fa_loss_fitted < FIT_ART_LOSS_FALL * fa_loss_fresh,
                 "val_psnr_rises": len(fa_val) == 1 and fa_val[0] > fa_val_fresh,
                 "resume_continues": (
@@ -2772,7 +2898,8 @@ def main(argv=None) -> int:
                         fa_res_launches,
                         fused_level_train_art_grads=art_steps * FIT_ART_RESUME_STEPS,
                         resample_union=ART_MICRO * FIT_ART_RESUME_STEPS + fa_val_chunks,
-                        art_mlp_fwd=2 * fa_val_chunks)),
+                        art_mlp_fwd=2 * fa_val_chunks,
+                        threefry_uniform=art_steps * FIT_ART_RESUME_STEPS)),
                 "resume_restores_params": (
                     len(fa_restored) == 1 and fa_restored[0][0] == FIT_ART_STEPS
                     and fa_restored[0][1].keys() == fa_params.keys()
@@ -2921,13 +3048,13 @@ def main(argv=None) -> int:
                 ae_batches.append({k: v[0] for k, v in stack_step_batches(
                     [b], microbatch=ae_run_cfg.microbatch_rays, device=dev).items()})
             ae_init = ae_trainer.system.init_state(
-                torch.Generator(device=dev).manual_seed(ae_run_cfg.seed)).params
+                prng.split(prng.key(ae_run_cfg.seed))[1]).params
 
             def ae_fixed_losses(params):
                 out = []
                 for b in ae_batches:
-                    g = torch.Generator(device=dev).manual_seed(args.seed + 11)
-                    loss, aux, _ = accumulated_grads(ae_trainer.system.loss_fn, params, b, g)
+                    loss, aux, _ = accumulated_grads(ae_trainer.system.loss_fn, params, b,
+                                                     prng.key(args.seed + 11))
                     out.append((loss.item(), aux["loss_state"].item()))
                 return [float(np.mean([o[i] for o in out])) for i in (0, 1)]
 
@@ -3049,7 +3176,7 @@ def main(argv=None) -> int:
                 "launches": launches_are(
                     ae_launches, fused_level_train_art_grads=art_steps * FIT_AE_STEPS,
                     resample_union=ART_MICRO * FIT_AE_STEPS + ae_val_chunks,
-                    art_mlp_fwd=2 * ae_val_chunks),
+                    art_mlp_fwd=2 * ae_val_chunks, threefry_uniform=art_steps * FIT_AE_STEPS),
                 "loss_falls": ae_loss_fitted < FIT_AE_LOSS_FALL * ae_loss_fresh,
                 "loss_state_falls": ae_state_fitted < ae_state_fresh,
                 "val_psnr_rises": len(ae_val) == 1 and ae_val[0]["val/psnr"] > ae_val_fresh,
@@ -3063,7 +3190,8 @@ def main(argv=None) -> int:
                         ae_res_launches,
                         fused_level_train_art_grads=art_steps * FIT_AE_RESUME_STEPS,
                         resample_union=ART_MICRO * FIT_AE_RESUME_STEPS + ae_val_chunks,
-                        art_mlp_fwd=2 * ae_val_chunks)),
+                        art_mlp_fwd=2 * ae_val_chunks,
+                        threefry_uniform=art_steps * FIT_AE_RESUME_STEPS)),
                 "resume_restores_params": (
                     len(ae_restored) == 1 and ae_restored[0][0] == FIT_AE_STEPS
                     and ae_restored[0][1].keys() == ae_params.keys()
@@ -3206,7 +3334,7 @@ def main(argv=None) -> int:
 
         og = torch.Generator().manual_seed(args.seed + 1302)
         o_cfg = get_config(["--config", str(ROOT / FIT_CONFIG)])
-        o_params = VanillaSystem(o_cfg, 2.0, 6.0, True, device="cpu").init_params(og)
+        o_params = seeded_params(VanillaSystem(o_cfg, 2.0, 6.0, True, device="cpu"), og)
         o_grads = [{k: 1e-3 * torch.randn(v.shape, generator=og) for k, v in o_params.items()}
                    for _ in range(OPTIM_STEPS)]
         o_sched = port_optim.get_scheduler(5e-4, "cosine", 8, 10, warmup_epochs=1,
@@ -3564,8 +3692,8 @@ def main(argv=None) -> int:
                   "results": res, "launches": bench_launches[label], "card": card})
 
         def bench_launches_want(res):
-            """Launches of the bench's dispatches: per step, two levels and a
-            resample per microbatch."""
+            """Launches of the bench's dispatches: per step, two levels, a
+            resample and two threefry draws per microbatch."""
             want = {}
             calls = port_bench.WARMUP_DISPATCHES + port_bench.TIMED_DISPATCHES
             for system, level in (("vanilla", "fused_level_train_grads"),
@@ -3576,6 +3704,7 @@ def main(argv=None) -> int:
                     micro = calls * r["steps_per_dispatch"] * r["rays_per_step"] // r["microbatch"]
                     want[level] = want.get(level, 0) + 2 * micro
                     want["resample_union"] = want.get("resample_union", 0) + micro
+                    want["threefry_uniform"] = want.get("threefry_uniform", 0) + 2 * micro
             return want
 
         def interval_first_step(seed):
@@ -3601,7 +3730,7 @@ def main(argv=None) -> int:
                                                    False, device=dev)
                               for r, o in route_cfg}
                 g = torch.Generator(device=dev).manual_seed(seed + 13)
-                params0 = routes["v3"].init_params(g)
+                params0 = seeded_params(routes["v3"], g)
                 draws = {"t_rand": torch.rand(TRAIN_RAYS, samples[0] + 1, generator=g, device=dev),
                          "u": sorted_uniform(torch.rand(TRAIN_RAYS, samples[1] + 1, generator=g,
                                                         device=dev))}
@@ -3767,7 +3896,8 @@ def main(argv=None) -> int:
                 with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                     t0 = time.perf_counter()
                     for i in range(n_steps):
-                        state, _ = sy.train_step(state, batch_fn(g, i), g)
+                        state, _ = sy.train_step(state, batch_fn(g, i),
+                                                 prng.fold_in(prng.key(args.seed + 4), i))
                     torch.cuda.synchronize()
                     window_ms = 1e3 * (time.perf_counter() - t0)
                 by_kernel = sorted(((e.key, e.device_time_total / 1e3, e.count)
@@ -4179,8 +4309,29 @@ def main(argv=None) -> int:
             "max_abs_err": max(e["err_twin"] for e in row14["encoders"].values()),
             **{k: timed14[k] for k in keys + device_keys if k != "max_abs_err"},
             "encoders": timed14["encoders"], "check_shape": row14["timed"][0]})
-        require(len(entries) == 18, "the kernels line lists kernel table rows 1-13 (rows 12 and "
-                "13 by variant) and row 14's check")
+        # the threefry draws: every training path's, no TPU kernel's (XLA
+        # generates jax.random's hash on the TPU)
+        by_path = {"train": train_launches["threefry_uniform"],
+                   "art_train": art_train_launches["threefry_uniform"],
+                   "bench": sum(bench_launches[c]["threefry_uniform"] for c in bench_launches),
+                   "fit": fit_path_launches["threefry_uniform"],
+                   "fit_art": fit_art_path_launches["threefry_uniform"],
+                   "fit_ae": fit_ae_path_launches["threefry_uniform"],
+                   "optim": optim_launches["threefry_uniform"],
+                   "scripts": scripts_launches.get("threefry_uniform", 0)}
+        big = max(prng_rows, key=lambda r: r["shape"][0] * r["shape"][1])
+        entries.append({
+            "name": "threefry_uniform", "row": None, "route": "cuda",
+            "source": "aon_tpu_torch/ops/csrc/prng.cu", "entry": "aon_threefry_uniform_launch",
+            "replaces": "aon_tpu/core/sampling.py:42",
+            "tpu_kernel": None, "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "shape": big["shape"], **{k: big[k] for k in keys},
+            "max_abs_err": max(r["max_abs_err"] for r in prng_rows),
+            "device_ms": big["device_ms"],
+            "shapes": [{k: r[k] for k in ("shape", "ms", "device_ms", "flat_ms", "flat_device_ms",
+                                          "plain_ms", "bound_ms")} for r in prng_rows]})
+        require(len(entries) == 19, "the kernels line lists kernel table rows 1-13 (rows 12 and "
+                "13 by variant), row 14's check and the threefry draws")
         require(all(e["launches"] > 0 for e in entries), "a kernel of the path never launched")
         emit({"kernels": entries, "card": card})
         emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -37,6 +37,7 @@ from aon_tpu.models.joint_state import JointStateDecoder as FlaxJointState
 from aon_tpu.models.resnet import ImgEncoderMultiHeadArt as FlaxEncoder
 from aon_tpu.train.system_ae import AutoEncoderSystem as JaxAutoEncoderSystem
 from aon_tpu.utils.config import Config as JaxConfig
+from aon_tpu_torch.core import prng
 from aon_tpu_torch.models.convert import params_from_flax, tree_to_flax
 from aon_tpu_torch.models.joint_state import JointStateDecoder
 from aon_tpu_torch.models.resnet import RESNET34_STAGES, ImgEncoderMultiHeadArt
@@ -66,7 +67,7 @@ def _one_thread():
 @pytest.fixture(scope="module")
 def port_system():
     system = build_system(Config(**SMALL), 2.0, 6.0, False, device="cpu")
-    return system, system.init_params(torch.Generator().manual_seed(0))
+    return system, system.init_params(prng.key(0))
 
 
 @pytest.fixture(scope="module")
@@ -276,7 +277,7 @@ def test_params_from_npz_matches_the_jax_loader(port_system, tmp_path, rng, monk
     assert torch.equal(got["color_fc.weight"], enc["color_fc.weight"])
     # the system overlays it at init where AON_RESNET_WEIGHTS names it
     monkeypatch.setenv("AON_RESNET_WEIGHTS", str(npz))
-    fresh = system.init_params(torch.Generator().manual_seed(4))
+    fresh = system.init_params(prng.key(4))
     assert torch.equal(fresh["encoder.layer2.block0.downsample.weight"],
                        got["layer2.block0.downsample.weight"])
 
@@ -316,8 +317,7 @@ def test_tree_round_trip_is_bit_exact(port_system):
 
 def test_system_widths_are_the_published_configs():
     system = AutoEncoderSystem(Config(exp_type="vanilla_ae_art"), 2.0, 6.0, False, device="cpu")
-    shapes = {k: tuple(v.shape) for k, v in system.init_params(
-        torch.Generator().manual_seed(0)).items()}
+    shapes = {k: tuple(v.shape) for k, v in system.init_params(prng.key(0)).items()}
     assert shapes["model.coarse_mlp.deform_0.weight"] == (128, 3 + 128 + 32)
     assert shapes["deg_embedding.deg_embedding.weight"] == (91, 32)
     assert shapes["encoder.color_fc.weight"] == (128, 512)

@@ -69,6 +69,7 @@ from flax.training.train_state import TrainState as FlaxTrainState  # noqa: E402
 from aon_tpu.ops.resample_pallas import sorted_uniform as jax_sorted_uniform  # noqa: E402
 from aon_tpu.train.system_ae import AutoEncoderSystem as JaxAutoEncoderSystem  # noqa: E402
 from aon_tpu.utils.config import Config as JaxConfig  # noqa: E402
+from aon_tpu_torch.models.init import seeded_params  # noqa: E402
 from aon_tpu_torch.models.convert import params_from_flax, tree_to_flax  # noqa: E402
 from aon_tpu_torch.ops.train_fused_level_art import (  # noqa: E402
     ae_prepare_shared,
@@ -108,10 +109,10 @@ def _t(x):
 
 @pytest.fixture(scope="module")
 def params():
-    """The port's init params (seed 0) and their flax tree: one converted
-    state for both packages."""
+    """Seeded params (``models/init.py::seeded_params``, a generator of seed
+    0) and their flax tree: one converted state for both packages."""
     system = build_system(Config(**SMALL), 2.0, 6.0, False, device="cpu")
-    p = system.init_params(torch.Generator().manual_seed(0))
+    p = seeded_params(system, torch.Generator().manual_seed(0))
     return p, tree_to_flax(p)
 
 

@@ -27,6 +27,7 @@ from aon_tpu.models.articulated import ArticulatedNeRF as FlaxArtNeRF
 from aon_tpu.models.articulated import ArticulatedNeRFMLP as FlaxArtMLP
 from aon_tpu.models.code_library import CodeLibraryArticulated as FlaxCodeLibrary
 from aon_tpu.models.code_library import interpolate_articulations as jax_interpolate
+from aon_tpu_torch.core import prng
 from aon_tpu_torch.core.sampling import pos_enc
 from aon_tpu_torch.data.analytic import articulated_scene, render_articulated
 from aon_tpu_torch.models.articulated import ArticulatedNeRF, ArticulatedNeRFMLP
@@ -75,8 +76,8 @@ def test_interpolate_articulations_midpoints():
 
 
 def test_code_library_init_is_seeded_xavier_and_shaped():
-    a = CodeLibraryArticulated(n_max_objs=8, generator=torch.Generator().manual_seed(1))
-    b = CodeLibraryArticulated(n_max_objs=8, generator=torch.Generator().manual_seed(1))
+    a = CodeLibraryArticulated(n_max_objs=8, key=prng.key(1))
+    b = CodeLibraryArticulated(n_max_objs=8, key=prng.key(1))
     shapes = {k: tuple(v.shape) for k, v in a.state_dict().items()}
     assert shapes == {"embedding_instance_shape.weight": (8, 128),
                       "embedding_instance_appearance.weight": (8, 128),

@@ -56,6 +56,7 @@ import aon_tpu.train.systems as jsystems
 from aon_tpu.models.joint_state import JointStateDecoder as JaxJointState
 from aon_tpu.models.resnet import ImgEncoderMultiHeadArt as JaxEncoder
 from aon_tpu.utils.config import Config as JaxConfig
+from aon_tpu_torch.core import prng
 from aon_tpu_torch.models.convert import tree_to_flax
 from aon_tpu_torch.models.joint_state import JointStateDecoder
 from aon_tpu_torch.models.resnet import ImgEncoderMultiHeadArt
@@ -134,7 +135,7 @@ def test_bench_eval_reference_rays_match_the_jax_script(monkeypatch, capsys):
 def test_bench_eval_contract_chunk_matches_jax_render():
     cfg = Config(compute_dtype="float32")
     tsys = VanillaSystem(cfg, near=2.0, far=6.0, white_bkgd=True, device="cpu")
-    params = tsys.init_state(torch.Generator().manual_seed(0)).params
+    params = tsys.init_state(prng.key(0)).params
     rays = {k: v[:1024] for k, v in bench_eval.reference_frame().items()}
     got = tsys.render_chunk(params, rays)
     jsys = jsystems.VanillaSystem(JaxConfig(compute_dtype="float32"), near=2.0, far=6.0,

@@ -32,6 +32,7 @@ from aon_tpu.core import rendering as jrender  # noqa: E402
 from aon_tpu.core import sampling as jsamp  # noqa: E402
 from aon_tpu.eval import metrics as jmetrics  # noqa: E402
 from aon_tpu.utils import config as jconfig  # noqa: E402
+from aon_tpu_torch.core import prng  # noqa: E402
 from aon_tpu_torch.core import rays as trays  # noqa: E402
 from aon_tpu_torch.core import rendering as trender  # noqa: E402
 from aon_tpu_torch.core import sampling as tsamp  # noqa: E402
@@ -103,12 +104,12 @@ def test_randomized_sampling_not_ported_yet(rng):
     # what still raises is a randomized call with nothing to draw from, as the
     # JAX function raises without a key
     o, d = _rays(rng, 4)
-    with pytest.raises(ValueError, match="Generator"):
+    with pytest.raises(ValueError, match="PRNG key"):
         tsamp.sample_along_rays(_t(o), _t(d), 8, 2.0, 6.0, randomized=True)
     with pytest.raises(ValueError, match="PRNG key"):
         jsamp.sample_along_rays(None, jnp.asarray(o), jnp.asarray(d), 8, 2.0, 6.0, randomized=True)
     t, _ = tsamp.sample_along_rays(_t(o), _t(d), 8, 2.0, 6.0, randomized=True,
-                                   generator=torch.Generator().manual_seed(0))
+                                   key=prng.key(0))
     assert t.shape == (4, 9) and bool((t[:, 1:] >= t[:, :-1]).all())
 
 

@@ -61,6 +61,8 @@ import math
 import types
 from pathlib import Path
 
+from aon_tpu_torch.models.init import seeded_params
+from aon_tpu_torch.core import prng
 from aon_tpu_torch.core.sampling import eval_quantiles, pdf_cdf
 from aon_tpu_torch.eval.render import render_frame
 from aon_tpu_torch.ops import bench_variants as bv
@@ -117,7 +119,7 @@ def cuda():
 
 def _params(device, seed=0):
     system = build_system(Config(), 2.0, 6.0, True, device=device)
-    return system.init_params(torch.Generator(device=device).manual_seed(seed))
+    return seeded_params(system, torch.Generator(device=device).manual_seed(seed))
 
 
 @pytest.mark.parametrize("B,S", [(37, 65), (64, 193)])  # ragged and whole 64-row tiles
@@ -174,7 +176,7 @@ def test_resample_kernel_matches_plain_twin(cuda, B):
 
 def test_render_frame_goes_through_both_kernels(cuda):
     system = build_system(Config(), 2.0, 6.0, True, device=cuda)
-    params = system.init_params(torch.Generator(device=cuda).manual_seed(0))
+    params = seeded_params(system, torch.Generator(device=cuda).manual_seed(0))
     g = np.random.default_rng(3)
     d = g.normal(size=(150, 3)).astype(np.float32)
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
@@ -264,13 +266,13 @@ def test_train_many_runs_the_v3_route_with_per_ray_streams(cuda):
     cfg = Config(N_samples=16, N_importance=16)
     system = build_system(cfg, 2.0, 6.0, True, device=cuda)
     gen = torch.Generator(device=cuda).manual_seed(0)
-    state = system.init_state(gen)
+    state = system.init_state(prng.key(0))
     T, k, m = 2, 2, 48
     d = torch.nn.functional.normalize(torch.randn(T, k, m, 3, generator=gen, device=cuda), dim=-1)
     superbatch = {"rays_o": -4.0 * d, "rays_d": d, "viewdirs": d,
                   "target": torch.rand(T, k, m, 3, generator=gen, device=cuda)}
     level0, res0 = fused_level_train_grads.launches, resample_union.launches
-    state, metrics = system.train_many(state, superbatch, gen)
+    state, metrics = system.train_many(state, superbatch, prng.key(1))
     torch.cuda.synchronize()
     assert state.step == T
     assert fused_level_train_grads.launches - level0 == 2 * T * k  # two levels per microbatch
@@ -292,7 +294,7 @@ def _art_inputs(cuda, B, S, seed):
     bias that makes rays partly opaque) and one level's ray inputs."""
     g = torch.Generator(device=cuda).manual_seed(seed)
     system = _art_system(cuda)
-    params = system.init_params(g)
+    params = seeded_params(system, g)
     mlp = {k: (v if v.ndim == 2 else 0.05 * torch.randn(v.shape, generator=g, device=cuda))
            for k, v in mlp_params(params, "model.coarse_mlp").items()}
     mlp["density.bias"] = mlp["density.bias"] + 1.5
@@ -383,7 +385,7 @@ def test_art_level_kernel_matches_plain_twin(cuda, B, S, case):
 
 
 def test_fused_art_mlp_train_backward_launches_the_kernel(cuda):
-    params = _art_system(cuda).init_params(torch.Generator(device=cuda).manual_seed(3))
+    params = seeded_params(_art_system(cuda), torch.Generator(device=cuda).manual_seed(3))
     mlp = {k: v.requires_grad_(True) for k, v in mlp_params(params, "model.fine_mlp").items()}
     g = torch.Generator(device=cuda).manual_seed(7)
     latents = {k: (0.1 * torch.randn(1, n, generator=g, device=cuda)).requires_grad_(True)
@@ -403,7 +405,7 @@ def test_fused_art_mlp_train_backward_launches_the_kernel(cuda):
 def test_autodecoder_step_and_render_go_through_the_kernels(cuda, fused_train):
     system = _art_system(cuda, N_samples=16, N_importance=16, fused_train=fused_train)
     gen = torch.Generator(device=cuda).manual_seed(0)
-    state = system.init_state(gen)
+    state = system.init_state(prng.key(0))
     k, m = 2, 48
     d = torch.nn.functional.normalize(torch.randn(k, m, 3, generator=gen, device=cuda), dim=-1)
     batch = {"rays_o": -4.0 * d, "rays_d": d, "viewdirs": d,
@@ -412,7 +414,7 @@ def test_autodecoder_step_and_render_go_through_the_kernels(cuda, fused_train):
     counters = (fused_level_train_art_grads, fused_art.art_mlp_fwd, fused_art.art_mlp_bwd,
                 resample_union)
     before = [c.launches for c in counters]
-    new_state, metrics = system.train_step(state, batch, gen)
+    new_state, metrics = system.train_step(state, batch, prng.key(1))
     torch.cuda.synchronize()
     delta = [c.launches - b for c, b in zip(counters, before)]
     assert delta == ([2 * k, 0, 0, k] if fused_train == "v3" else [0, 2 * k, 2 * k, k])
@@ -531,7 +533,7 @@ def test_extract_geometry_goes_through_its_kernel(cuda, tmp_path, monkeypatch, e
                                     "output_path": str(tmp_path / "results")}))
     cfg = Config(exp_type=exp_type, N_max_objs=4)
     system = build_system(cfg, 2.0, 6.0, False, device=cuda)
-    state = system.init_state(torch.Generator(device=cuda).manual_seed(0))
+    state = system.init_state(prng.key(0))
     CheckpointManager(str(tmp_path / "results" / "geo")).save_last(state, epoch=0)
     monkeypatch.chdir(tmp_path)
     counter = tfm.fused_nerf_mlp_xyz if exp_type == "vanilla" else fused_art.art_mlp_fwd
@@ -962,3 +964,24 @@ def test_host_scripts_on_the_card(cuda, tmp_path):
     img = visualize_cameras.main([str(tmp_path / "data"), "--out", str(tmp_path / "c.png")],
                                  device=cuda)
     assert (img != 255).any()
+
+
+# ------------------------------------------------------ threefry draws
+
+
+@pytest.mark.parametrize("rows, n", [(2048, 17), (4096, 49), (61440, 129), (33, 1)])
+def test_threefry_kernel_is_its_plain_twin_bit_for_bit(cuda, rows, n):
+    # the per-ray and the flat draws, against core/prng.py's plain ops on the card
+    from aon_tpu_torch.ops import prng as kprng
+
+    key = prng.fold_in(prng.key(0), 12345)
+    ids = torch.randint(0, 2**31 - 1, (rows,), generator=torch.Generator(device=cuda)
+                        .manual_seed(rows), device=cuda)
+    before = kprng.threefry_uniform.launches
+    got = prng.per_ray_uniform(key, ids, n)
+    flat = prng.uniform(key, (rows, n), device=cuda, row0=7)
+    torch.cuda.synchronize()
+    assert kprng.threefry_uniform.launches - before == 2
+    assert torch.equal(got, prng.per_ray_uniform_plain(key, ids, n))
+    assert torch.equal(flat, prng.uniform_plain(key, (rows, n), device=cuda, row0=7))
+    assert torch.equal(flat.cpu(), prng.uniform(key, (rows, n), row0=7))

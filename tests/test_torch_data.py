@@ -34,6 +34,7 @@ from aon_tpu import native as jnative
 from aon_tpu.data import aabb as jaabb
 from aon_tpu.data import occgrid as jocc
 from aon_tpu.data import sapien as jsapien
+from aon_tpu_torch.core import prng
 from aon_tpu_torch.data import aabb as taabb
 from aon_tpu_torch.data import dataset_dict
 from aon_tpu_torch.data import native as tnative
@@ -386,8 +387,6 @@ def test_port_imports_no_imaging_package():
 
 
 def test_extraction_takes_the_dataset_bounds(fixture_root, tmp_path, monkeypatch):
-    import torch
-
     from aon_tpu_torch.scripts import extract_geometry
     from aon_tpu_torch.train.checkpoint import CheckpointManager
     from aon_tpu_torch.train.systems import build_system
@@ -399,7 +398,7 @@ def test_extraction_takes_the_dataset_bounds(fixture_root, tmp_path, monkeypatch
                img_wh=list(WH), N_samples=4, N_importance=4, compute_dtype="float32")
     (tmp_path / "cfg.json").write_text(json.dumps(cfg))
     system = build_system(Config(**cfg), 2.0, 6.0, False, device="cpu")
-    state = system.init_state(torch.Generator().manual_seed(0))
+    state = system.init_state(prng.key(0))
     CheckpointManager(str(tmp_path / "results" / "geo")).save_last(state, epoch=0)
     monkeypatch.chdir(tmp_path)
     out = extract_geometry.main(["--config", str(tmp_path / "cfg.json"), "--resolution", "8",

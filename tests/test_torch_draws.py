@@ -2,17 +2,19 @@
 part from the JAX step faster than two honest runs part from each other?
 
 ``configs/smoke_vanilla.json`` on the 64x48 fixture, both packages on the
-plain float32 route from one converted init.  Every step injects the JAX
-trainer's draws, ``jax.random.split(jax.random.fold_in(base_key, step), 4)``
-(``keys[0]`` the coarse ``t_rand``, ``keys[2]`` the fine ``u``), into the
-port's ``train_step``; the JAX side is ``VanillaSystem.train_step`` with the
+plain float32 route.  The port draws what the JAX trainer draws: its own
+init from the trainer's ``init_key`` is the JAX init (held here bit for
+bit), and its step's key ``fold_in(base_key, step)`` gives the JAX draws,
+``jax.random.split(key, 4)`` (``keys[0]`` the coarse ``t_rand``, ``keys[2]``
+the fine ``u``).  The JAX side is ``VanillaSystem.train_step`` with the
 step's key.  The runs:
 
   (a) JAX, its jitted step;
-  (b) the port with JAX's draws;
+  (b) the port on its own route: its own init, its own keys;
   (c) JAX again from an init one ulp away in one weight: the control for how
       fast two runs part that differ only in the last bit;
-  (d) the port with its own draws (the 300-step study only);
+  (d) the port with the JAX draws injected into ``train_step`` (the 300-step
+      study only; the same uniforms as (b), so the same run);
   (e) JAX's step run op by op (``jax.disable_jit``), one step (the study
       only: its first op-by-op step compiles every primitive, ~35 s).
 
@@ -65,6 +67,7 @@ import torch  # noqa: E402
 
 from aon_tpu.train import trainer as jtrainer  # noqa: E402
 from aon_tpu.utils.config import Config as JaxConfig  # noqa: E402
+from aon_tpu_torch.core import prng  # noqa: E402
 from aon_tpu_torch.models.convert import params_from_flax  # noqa: E402
 from aon_tpu_torch.scripts import make_fixture_dataset as tfixture  # noqa: E402
 from aon_tpu_torch.train.systems import TrainState, VanillaSystem  # noqa: E402
@@ -106,6 +109,8 @@ class Study:
         self.batches = [next(it) for _ in range(steps)]
         self.tsys = VanillaSystem(Config(**cfg), self.jsys.near, self.jsys.far,
                                   self.jsys.white_bkgd, device="cpu")
+        # the port Trainer's keys: split(key(seed)) into the draws' and the init's
+        self.base_key, self.init_key = prng.split(prng.key(Config(**cfg).seed))
         self.lr0 = float(self.tsys.lr_schedule(0))
 
     def key(self, step: int):
@@ -149,17 +154,22 @@ class Study:
             psnr.append(float(m["train/psnr1"]))
         return traj, np.array(loss), np.array(psnr)
 
-    def run_port(self, steps: int, jax_draws: bool = True):
-        params = params_from_flax(self.init)
-        mu, nu = self.tsys.tx.init(params)
-        state = TrainState(step=0, params=params, mu=mu, nu=nu, tx=self.tsys.tx)
+    def run_port(self, steps: int, own_route: bool = True):
+        """(b) with ``own_route``: the port's own init and keys; else (d):
+        the JAX init converted and the JAX draws injected."""
+        if own_route:
+            state = self.tsys.init_state(self.init_key)
+        else:
+            params = params_from_flax(self.init)
+            mu, nu = self.tsys.tx.init(params)
+            state = TrainState(step=0, params=params, mu=mu, nu=nu, tx=self.tsys.tx)
         traj, loss, psnr = [], [], []
         for s in range(steps):
-            if jax_draws:
-                state, m = self.tsys.train_step(state, self.batches[s], None, self.draws(s))
+            if own_route:
+                state, m = self.tsys.train_step(state, self.batches[s],
+                                                prng.fold_in(self.base_key, s))
             else:
-                gen = torch.Generator().manual_seed(10_000 + s)
-                state, m = self.tsys.train_step(state, self.batches[s], gen)
+                state, m = self.tsys.train_step(state, self.batches[s], None, self.draws(s))
             traj.append(dict(state.params))
             loss.append(m["train/loss"].item())
             psnr.append(m["train/psnr1"].item())
@@ -188,9 +198,12 @@ def test_port_step_parts_from_jax_no_faster_than_two_honest_runs(fixture_root, t
     tb, lb, _ = st.run_port(TIER1_STEPS)
     tc, _, _ = st.run_jax(st.one_ulp_off(), TIER1_STEPS)
 
+    # the port's own init is the JAX trainer's, bit for bit
+    start = params_from_flax(st.init)
+    own = st.tsys.init_state(st.init_key).params
+    assert all(torch.equal(own[k], v) for k, v in start.items())
     # step 1 against the compiled JAX step: test_fit_one_step_matches_jax's measure
     grads = st.jax_grads_of_step0()
-    start = params_from_flax(st.init)
     for k, w in ta[0].items():
         assert (tb[0][k] - start[k]).abs().max().item() > 0, k
         diff = (tb[0][k] - w).abs()
@@ -216,7 +229,7 @@ def test_port_under_jax_draws_300_steps(fixture_root, tmp_path):
     ta, la, pa = st.run_jax(st.init, STUDY_STEPS)
     tb, lb, pb = st.run_port(STUDY_STEPS)
     tc, lc, pc = st.run_jax(st.one_ulp_off(), STUDY_STEPS)
-    _, _, pd = st.run_port(STUDY_STEPS, jax_draws=False)
+    td, _, pd = st.run_port(STUDY_STEPS, own_route=False)
     te, _, _ = st.run_jax(st.init, 1, jit=False)
     tail = slice(-STUDY_TAIL, None)
     d_b = [distance(tb[s], ta[s]) for s in range(STUDY_STEPS)]
@@ -224,8 +237,9 @@ def test_port_under_jax_draws_300_steps(fixture_root, tmp_path):
     d_ae, d_be = distance(ta[0], te[0]), distance(tb[0], te[0])
     report = {
         "steps": STUDY_STEPS, "batch_size": SMOKE["batch_size"],
-        "psnr1_last100_mean": {"a_jax": pa[tail].mean(), "b_port_jax_draws": pb[tail].mean(),
-                               "c_jax_one_ulp": pc[tail].mean(), "d_port_own_draws": pd[tail].mean()},
+        "psnr1_last100_mean": {"a_jax": pa[tail].mean(), "b_port_own_route": pb[tail].mean(),
+                               "c_jax_one_ulp": pc[tail].mean(),
+                               "d_port_jax_draws_injected": pd[tail].mean()},
         "distance_a_b": {"step1": d_b[0], "step8": d_b[7], "final": d_b[-1]},
         "distance_a_c": {"step1": d_c[0], "step8": d_c[7], "final": d_c[-1]},
         "step1_distance_a_e": d_ae, "step1_distance_b_e": d_be,
@@ -233,6 +247,8 @@ def test_port_under_jax_draws_300_steps(fixture_root, tmp_path):
     }
     print(json.dumps(report, indent=1, default=float))
     assert np.all(np.isfinite(pb)) and np.all(np.isfinite(pd))
+    # the port's own draws are the injected ones: (b) and (d) are one run
+    assert all(torch.equal(tb[-1][k], td[-1][k]) for k in tb[-1])
     # the port parts from the compiled step as JAX's unfused step does
     assert d_b[0] <= 2 * d_ae and d_be <= 0.1 * d_ae + 1e-6, (d_b[0], d_ae, d_be)
     assert d_b[-1] / d_b[0] <= 2 * d_c[-1] / d_c[0], (d_b[-1], d_b[0], d_c[-1], d_c[0])

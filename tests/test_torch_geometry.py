@@ -37,6 +37,7 @@ from aon_tpu.train.checkpoint import CheckpointManager as JaxCheckpointManager
 from aon_tpu.train.systems import AutoDecoderSystem as JaxAutoDecoderSystem
 from aon_tpu.train.systems import VanillaSystem as JaxVanillaSystem
 from aon_tpu.utils.config import Config as JaxConfig
+from aon_tpu_torch.core import prng
 from aon_tpu_torch.models.convert import tree_to_flax
 from aon_tpu_torch.ops import fused_art
 from aon_tpu_torch.ops import fused_mlp as tfm
@@ -138,13 +139,13 @@ def test_checkpoint_manager_matches_the_jax_one(tmp_path):
 
 def test_restore_round_trips_a_train_state(tmp_path):
     system = build_system(Config(), 2.0, 6.0, True, device="cpu")
-    state = system.init_state(torch.Generator().manual_seed(0))
+    state = system.init_state(prng.key(0))
     state = TrainState(step=17, params=state.params,
                        mu={k: torch.randn_like(v) for k, v in state.mu.items()},
                        nu={k: torch.rand_like(v) for k, v in state.nu.items()}, tx=state.tx)
     m = CheckpointManager(str(tmp_path / "run"))
     m.save_last(state, epoch=3)
-    fresh = system.init_state(torch.Generator().manual_seed(1))
+    fresh = system.init_state(prng.key(1))
     for name in (None, "last.ckpt", str(tmp_path / "run" / "last.ckpt")):
         back = m.restore(fresh, name)
         assert back.step == 17 and back.tx is fresh.tx
@@ -164,7 +165,7 @@ def test_restore_round_trips_a_train_state(tmp_path):
 def test_load_latent_codes_returns_the_code_tables(tmp_path):
     system = build_system(Config(exp_type="vanilla_autodecoder", N_max_objs=3), 2.0, 6.0,
                           False, device="cpu")
-    state = system.init_state(torch.Generator().manual_seed(0))
+    state = system.init_state(prng.key(0))
     CheckpointManager(str(tmp_path)).save_last(state, epoch=0)
     codes = load_latent_codes(str(tmp_path))
     want = {k[len("code_library."):]: v for k, v in state.params.items()
@@ -175,7 +176,7 @@ def test_load_latent_codes_returns_the_code_tables(tmp_path):
         np.testing.assert_array_equal(codes[k], v.numpy())
     vanilla = build_system(Config(), 2.0, 6.0, True, device="cpu")
     CheckpointManager(str(tmp_path / "v")).save_last(
-        vanilla.init_state(torch.Generator().manual_seed(0)), epoch=0)
+        vanilla.init_state(prng.key(0)), epoch=0)
     with pytest.raises(KeyError, match="code_library"):
         load_latent_codes(str(tmp_path / "v"))
 
@@ -191,7 +192,7 @@ def _config(tmp_path, exp_type, **extra):
 def _saved_state(config, seed):
     cfg = get_config(["--config", config])
     system = build_system(cfg, 2.0, 6.0, cfg.white_back, device="cpu")
-    state = system.init_state(torch.Generator().manual_seed(seed))
+    state = system.init_state(prng.key(seed))
     # partly opaque: a density bias that puts sigma around the auto threshold
     # (the auto-decoder's sigma is softplus(raw - 1))
     bias, shift = (("fine_mlp.density.bias", 1.0) if cfg.exp_type == "vanilla"

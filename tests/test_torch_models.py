@@ -19,6 +19,7 @@ import torch  # noqa: E402
 from aon_tpu.core.sampling import pos_enc  # noqa: E402
 from aon_tpu.models.mlp import NeRFMLP as FlaxMLP  # noqa: E402
 from aon_tpu.models.nerf import VanillaNeRF as FlaxNeRF  # noqa: E402
+from aon_tpu_torch.core import prng  # noqa: E402
 from aon_tpu_torch.core.sampling import pos_enc as tpos_enc  # noqa: E402
 from aon_tpu_torch.models.convert import load_npz, params_from_flax  # noqa: E402
 from aon_tpu_torch.models.mlp import NeRFMLP  # noqa: E402
@@ -64,8 +65,8 @@ def test_nerf_mlp_matches_flax(flax_mlp):
 
 
 def test_init_is_xavier_uniform_zero_bias_and_seeded():
-    a = NeRFMLP(generator=torch.Generator().manual_seed(3)).state_dict()
-    b = NeRFMLP(generator=torch.Generator().manual_seed(3)).state_dict()
+    a = NeRFMLP(key=prng.key(3)).state_dict()
+    b = NeRFMLP(key=prng.key(3)).state_dict()
     for k in a:
         assert torch.equal(a[k], b[k]), k
     w = a["pts_1.weight"]

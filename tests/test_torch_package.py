@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from aon_tpu_torch.core import prng
 from aon_tpu_torch.eval.render import render_frame
 from aon_tpu_torch.ops import _build
 from aon_tpu_torch.ops.fused_mlp import make_posenc_constants, pack_vanilla_mlp_params
@@ -95,8 +96,8 @@ def test_other_exp_types_name_their_roadmap_item():
 def test_cpu_system_runs_plain_module_and_fused_needs_cuda():
     system = build_system(Config(use_pallas=True), 2.0, 6.0, True, device="cpu")
     assert system._fused is None  # use_pallas picks the kernels only on CUDA
-    params = system.init_params(torch.Generator().manual_seed(0))
-    again = system.init_params(torch.Generator().manual_seed(0))
+    params = system.init_params(prng.key(0))
+    again = system.init_params(prng.key(0))
     assert all(torch.equal(params[k], again[k]) for k in params)
     out = system.render_chunk(params, _frame(8))
     assert out["comp_rgb"].shape == (8, 3) and torch.isfinite(out["comp_rgb"]).all()
@@ -104,7 +105,7 @@ def test_cpu_system_runs_plain_module_and_fused_needs_cuda():
 
 def test_kernel_wrappers_raise_on_other_devices():
     system = build_system(Config(), 2.0, 6.0, True, device="cpu")
-    params = system.init_params(torch.Generator().manual_seed(0))
+    params = system.init_params(prng.key(0))
     packed = pack_vanilla_mlp_params(mlp_params(params, "coarse_mlp"))
     consts = make_posenc_constants(device="cpu")
     meta = torch.empty(2, 5, 3, device="meta")

@@ -15,9 +15,11 @@ of ``train/microbatch.py`` and ``eval/render.py``) and its profiling hooks
 * The vanilla system's 2-rank ``make_train_many_sharded`` against the JAX
   package's on 2 of the 8 virtual devices, at ``tests/test_sharded_fused.py``'s
   size (64 rays, 8 + 8 samples, 2 steps of 2 microbatches of 32) and
-  loss tolerance (rtol 1e-4).  Both run the plain float32 module with the
-  deterministic quantiles: the two packages draw their uniforms from
-  different generators, and the quantiles make the draws moot.  The
+  loss tolerance (rtol 1e-4).  Both run the plain float32 module on the
+  real draws, per ray as the fused routes draw across ranks: step t's key
+  ``fold_in(key, t)``, its ``split(key, 4)``, the coarse and fine uniforms
+  ``uniform(fold_in(k, ray_id), (n,))`` of the global ray ids, the same
+  bits in both packages (tests/test_torch_prng.py).  The
   parameters are held as chip_smoke.py holds train_many against train_step:
   an early Adam step moves an entry by ``lr * g / (|g| + eps)``, so an entry
   whose gradient lies within float32 noise of zero may go either way by the
@@ -47,6 +49,9 @@ import numpy as np  # noqa: E402
 import pytest  # noqa: E402
 import torch  # noqa: E402
 
+from aon_tpu.core import rendering as jrendering  # noqa: E402
+from aon_tpu.core import sampling as jsampling  # noqa: E402
+from aon_tpu.models.mlp import NeRFMLP as JaxNeRFMLP  # noqa: E402
 from aon_tpu.parallel import get_mesh  # noqa: E402
 from aon_tpu.parallel import mesh as jax_mesh  # noqa: E402
 from aon_tpu.parallel import multihost as jax_multihost  # noqa: E402
@@ -283,7 +288,9 @@ _SHARDED_WORKER = textwrap.dedent('''
     import numpy as np
     import torch
     import torch.distributed as dist
+    from aon_tpu_torch.core import prng
     from aon_tpu_torch.core.rendering import img2mse
+    from aon_tpu_torch.core.sampling import per_ray_uniform
     from aon_tpu_torch.parallel.mesh import stack_step_batches
     from aon_tpu_torch.train.microbatch import make_train_many_sharded
     from aon_tpu_torch.train.systems import TrainState, VanillaSystem
@@ -297,10 +304,14 @@ _SHARDED_WORKER = textwrap.dedent('''
     system = VanillaSystem(Config(N_samples=8, N_importance=8, compute_dtype="float32"),
                            2.0, 6.0, True, device="cpu")
 
-    def loss_fn(params, batch, generator=None, draws=None):
+    def loss_fn(params, batch, key=None, draws=None):
+        # the plain module on the per-ray draws of the step's key
         rays = {k: batch[k] for k in ("rays_o", "rays_d", "viewdirs")}
-        levels = torch.func.functional_call(system.model, dict(params),
-                                            (rays, True, 2.0, 6.0), dict(randomized=False))
+        k0, _, k2, _ = prng.split(key, 4)
+        draws = {"t_rand": per_ray_uniform(k0, batch["ray_ids"], 9),
+                 "u": per_ray_uniform(k2, batch["ray_ids"], 8)}
+        levels = torch.func.functional_call(system.model, dict(params), (rays, True, 2.0, 6.0),
+                                            dict(randomized=True, draws=draws))
         loss0, loss1 = (img2mse(lv[0], batch["target"]) for lv in levels)
         return loss0 + loss1, {"loss0": loss0, "loss1": loss1}
 
@@ -311,7 +322,7 @@ _SHARDED_WORKER = textwrap.dedent('''
     state = TrainState(0, params, *system.tx.init(params), system.tx)
     batch = {k: data[k] for k in ("rays_o", "rays_d", "viewdirs", "target")}
     superbatch = stack_step_batches([batch] * 2, 32, "cpu", dist.group.WORLD)
-    state, metrics = many(state, superbatch, None)
+    state, metrics = many(state, superbatch, prng.key(1))
     np.savez(out, loss=float(metrics["train/loss"]),
              **{"params/" + k: v.numpy() for k, v in state.params.items()})
     dist.destroy_process_group()
@@ -333,9 +344,22 @@ def test_two_ranks_match_jax_make_train_many_sharded(tmp_path, eight_devices):
     np.savez(inp, **batch, **{"params/" + k: v.numpy() for k, v in init.items()})
 
     def jloss(params, b, key):
-        rays = {k: b[k] for k in ("rays_o", "rays_d", "viewdirs")}
-        levels = jsys.model.apply({"params": params}, rays, None, False, True, 2.0, 6.0)
-        loss0, loss1 = (jax.numpy.mean((lv[0] - b["target"]) ** 2) for lv in levels)
+        # VanillaNeRF's two levels, drawing per ray as the fused losses do
+        o, d, ids = b["rays_o"], b["rays_d"], b["ray_ids"]
+        k0, _, k2, _ = jax.random.split(key, 4)
+        venc = jsampling.pos_enc(b["viewdirs"], 0, 4)
+
+        def level(p, t, pts):
+            rgb, sigma = JaxNeRFMLP().apply({"params": p}, jsampling.pos_enc(pts, 0, 10), venc)
+            return jrendering.volumetric_rendering(jax.nn.sigmoid(rgb), jax.nn.relu(sigma), t,
+                                                   d, white_bkgd=True)
+
+        t, pts = jsampling.sample_along_rays(k0, o, d, 8, 2.0, 6.0, True, ray_ids=ids)
+        comp0, _, w, _ = level(params["coarse_mlp"], t, pts)
+        t, pts = jsampling.sample_pdf(k2, 0.5 * (t[..., 1:] + t[..., :-1]), w[..., 1:-1], o, d,
+                                      t, 8, True, ray_ids=ids)
+        comp1, _, _, _ = level(params["fine_mlp"], t, pts)
+        loss0, loss1 = (jax.numpy.mean((c - b["target"]) ** 2) for c in (comp0, comp1))
         return loss0 + loss1, {"loss0": loss0, "loss1": loss1}
 
     mesh2 = get_mesh(2)

@@ -32,6 +32,7 @@ import torch  # noqa: E402
 from aon_tpu.core import sampling as jsamp  # noqa: E402
 from aon_tpu.ops import resample_pallas as jres  # noqa: E402
 from aon_tpu.train.schedule import nerf_lr_schedule as jax_schedule  # noqa: E402
+from aon_tpu_torch.core import prng  # noqa: E402
 from aon_tpu_torch.core import sampling as tsamp  # noqa: E402
 from aon_tpu_torch.ops import resample as tres  # noqa: E402
 from aon_tpu_torch.train.schedule import nerf_lr_schedule  # noqa: E402
@@ -140,44 +141,46 @@ def test_fused_and_plain_resampling_agree_on_sorted_quantiles(rng):
 
 
 def test_generator_draws_are_seeded_and_needed(rng):
+    # the draws come from a threefry key: the JAX sampler's uniforms from the
+    # same key, bit for bit, and no key and no draws raise
     o, d = _rays(rng, 8)
 
     def draw(seed):
-        g = torch.Generator().manual_seed(seed)
-        return tsamp.sample_along_rays(_t(o), _t(d), 8, 2.0, 6.0, randomized=True, generator=g)[0]
+        return tsamp.sample_along_rays(_t(o), _t(d), 8, 2.0, 6.0, randomized=True,
+                                       key=prng.key(seed))[0]
 
     assert torch.equal(draw(1), draw(1)) and not torch.equal(draw(1), draw(2))
+    want, _ = jsamp.sample_along_rays(jax.random.PRNGKey(1), jnp.asarray(o), jnp.asarray(d), 8,
+                                      2.0, 6.0, randomized=True)
+    np.testing.assert_array_equal(draw(1).numpy(), np.asarray(want))
     t_vals, bins, weights = _pdf_inputs(rng, 8)
-    with pytest.raises(ValueError, match="Generator"):
+    with pytest.raises(ValueError, match="PRNG key"):
         tres.sample_pdf_fused(_t(bins), _t(weights), _t(o), _t(d), _t(t_vals), 16, randomized=True)
-    with pytest.raises(ValueError, match="Generator"):
+    with pytest.raises(ValueError, match="PRNG key"):
         tsamp.sample_pdf(_t(bins), _t(weights), _t(o), _t(d), _t(t_vals), 16, randomized=True)
 
 
 def test_per_ray_uniform_depends_on_the_ray_alone():
     ids = torch.arange(64)
-    state = torch.Generator().manual_seed(4).get_state()
 
     def rows(ray_ids, n=65):
-        g = torch.Generator()
-        g.set_state(state)
-        return tsamp.per_ray_uniform(g, ray_ids, n)
+        return tsamp.per_ray_uniform(prng.key(4), ray_ids, n)
 
     whole = rows(ids)
     assert whole.shape == (64, 65) and bool((whole >= 0).all() and (whole < 1).all())
     # any sub-batch, in any order, sees the same rows: independent of the layout
     perm = torch.randperm(64, generator=torch.Generator().manual_seed(0))[:20]
     assert torch.equal(rows(perm), whole[perm])
-    # rays and columns are decorrelated, and another generator state gives other rows
+    # rays and columns are decorrelated, and another key gives other rows
     assert len(torch.unique(whole)) > 0.99 * whole.numel()
     assert abs(whole.mean().item() - 0.5) < 0.02
-    assert not torch.equal(tsamp.per_ray_uniform(torch.Generator().manual_seed(5), ids, 65), whole)
+    assert not torch.equal(tsamp.per_ray_uniform(prng.key(5), ids, 65), whole)
+    # the JAX package's rows (fold_in of the ray id, then uniform), bit for bit
+    want = jsamp.per_ray_uniform(jax.random.PRNGKey(4), jnp.arange(64), 65)
+    np.testing.assert_array_equal(whole.numpy(), np.asarray(want))
     # the sorted per-ray quantiles inherit it
-    g = torch.Generator()
-    g.set_state(state)
-    u = tres.sorted_per_ray_uniform(g, ids, 16)
-    g.set_state(state)
-    assert torch.equal(tres.sorted_per_ray_uniform(g, ids[10:20], 16), u[10:20])
+    u = tres.sorted_per_ray_uniform(prng.key(4), ids, 16)
+    assert torch.equal(tres.sorted_per_ray_uniform(prng.key(4), ids[10:20], 16), u[10:20])
     assert bool((u[:, 1:] >= u[:, :-1]).all())
 
 

@@ -54,13 +54,14 @@ from aon_tpu.ops.train_pallas import make_fused_loss_fn as jax_fused_loss_fn  # 
 from aon_tpu.train.schedule import nerf_lr_schedule as jax_schedule  # noqa: E402
 from aon_tpu.train.systems import VanillaSystem as JaxVanillaSystem  # noqa: E402
 from aon_tpu.utils.config import Config as JaxConfig  # noqa: E402
+from aon_tpu_torch.core import prng  # noqa: E402
 from aon_tpu_torch.data.analytic import analytic_scene  # noqa: E402
 from aon_tpu_torch.models.convert import params_from_flax, tree_to_flax  # noqa: E402
 from aon_tpu_torch.ops.train_fused_level import make_fused_step_fn  # noqa: E402
 from aon_tpu_torch.ops.train_pallas import make_fused_loss_fn  # noqa: E402
 from aon_tpu_torch.train.microbatch import accumulated_grads  # noqa: E402
 from aon_tpu_torch.train.optim import Adam, default_nerf_optimizer, make_optimizer  # noqa: E402
-from aon_tpu_torch.train.systems import TrainState, build_system  # noqa: E402
+from aon_tpu_torch.train.systems import build_system  # noqa: E402
 from aon_tpu_torch.utils.config import Config  # noqa: E402
 
 SMALL = dict(N_samples=8, N_importance=8, batch_size=32, use_pallas=False,
@@ -111,9 +112,6 @@ def test_train_step_matches_jax_vanilla_system(rng, jax_system):
     B = 32
     batch = _batch(rng, B)
     key = jax.random.PRNGKey(11)
-    keys = jax.random.split(key, 4)  # VanillaNeRF.__call__: one key per level and purpose
-    draws = {"t_rand": _t(jax.random.uniform(keys[0], (B, N_C + 1), dtype=jnp.float32)),
-             "u": _t(jax.random.uniform(keys[2], (B, N_F), dtype=jnp.float32))}
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
 
     jstate = jsys.init_state(jax.random.PRNGKey(0))
@@ -122,19 +120,20 @@ def test_train_step_matches_jax_vanilla_system(rng, jax_system):
     want_flat = {k: 10.0 * v for k, v in params_from_flax(
         jax.tree.map(np.asarray, jstate.opt_state[0].mu)).items()}
 
+    # the port's own init and draws from the same keys: JAX's, nothing injected
     system = build_system(Config(**SMALL), 2.0, 6.0, True, device="cpu")
-    state = system.init_state(torch.Generator().manual_seed(0))
-    state = TrainState(step=0, params=params_from_flax(params_np), mu=state.mu, nu=state.nu,
-                       tx=state.tx)
+    state = system.init_state(prng.key(0))
+    for k, w in params_from_flax(params_np).items():
+        assert torch.equal(state.params[k], w), k
     loss, aux, grads = accumulated_grads(system.loss_fn, state.params,
-                                         {k: _t(v) for k, v in batch.items()}, None, draws)
+                                         {k: _t(v) for k, v in batch.items()}, prng.key(11))
     np.testing.assert_allclose(loss.item(), float(jmetrics["train/loss"]), rtol=1e-5)
     assert set(want_flat) == set(grads)
     errs = {p: _flat_grad_errors(grads, want_flat, p) for p in ("coarse_mlp.", "fine_mlp.")}
     assert errs["coarse_mlp."][0] <= 1e-2 and errs["coarse_mlp."][1] <= 2e-3, errs
     assert errs["fine_mlp."][0] <= 3e-1 and errs["fine_mlp."][1] <= 4e-2, errs
 
-    new_state, metrics = system.train_step(state, batch, None, draws)
+    new_state, metrics = system.train_step(state, batch, prng.key(11))
     assert new_state.step == 1 and int(jstate.step) == 1 and state.step == 0
     assert set(metrics) == set(jmetrics) == {"train/loss", "train/psnr0", "train/psnr1"}
     for k in metrics:
@@ -203,7 +202,7 @@ def test_make_optimizer_default_pair_and_the_rest():
 def test_accumulated_grads_flat_against_stacked(rng, k):
     B = 32
     system = build_system(Config(**SMALL), 2.0, 6.0, True, device="cpu")
-    params = system.init_params(torch.Generator().manual_seed(1))
+    params = system.init_params(prng.key(1))
     batch = {n: _t(v) for n, v in _batch(rng, B).items()}
     draws = {"t_rand": torch.rand(B, N_C + 1, generator=torch.Generator().manual_seed(2)),
              "u": torch.rand(B, N_F, generator=torch.Generator().manual_seed(3))}
@@ -223,23 +222,25 @@ def test_accumulated_grads_flat_against_stacked(rng, k):
 def test_accumulated_grads_per_ray_streams_ignore_the_microbatching(rng):
     B = 32
     system = build_system(Config(**SMALL), 2.0, 6.0, True, device="cpu")
-    params = system.init_params(torch.Generator().manual_seed(1))
+    params = system.init_params(prng.key(1))
     batch = {n: _t(v) for n, v in _batch(rng, B).items()}
     batch["ray_ids"] = torch.arange(B)
     fn = make_fused_step_fn(2.0, 6.0, True, N_C, N_F)  # CPU tensors: the twins
     results = []
     for k in (1, 2, 4):
         stacked = {n: v.reshape(k, B // k, *v.shape[1:]) for n, v in batch.items()}
-        g = torch.Generator().manual_seed(5)
-        results.append(accumulated_grads(fn, params, stacked, g))
+        results.append(accumulated_grads(fn, params, stacked, prng.key(5)))
     for loss, aux, grads in results[1:]:
         np.testing.assert_allclose(loss.item(), results[0][0].item(), rtol=1e-6)
         assert _flat_grad_errors(grads, results[0][2])[0] <= 1e-5
-    # without ray ids the generator runs on from one microbatch to the next
+    # without ray ids microbatch i draws from split(key, k)[i], as in JAX
     del batch["ray_ids"]
     stacked = {n: v.reshape(2, B // 2, *v.shape[1:]) for n, v in batch.items()}
-    a = accumulated_grads(fn, params, stacked, torch.Generator().manual_seed(5))
+    a = accumulated_grads(fn, params, stacked, prng.key(5))
     assert abs(a[0].item() - results[0][0].item()) > 1e-7
+    halves = [fn(params, {n: v[i] for n, v in stacked.items()}, k)[0]
+              for i, k in enumerate(prng.split(prng.key(5), 2))]
+    np.testing.assert_allclose(a[0].item(), (halves[0] + halves[1]).item() / 2, rtol=1e-6)
 
 
 def _fused_setup(rng, jax_system, B=16):
@@ -300,14 +301,14 @@ def test_fused_routes_agree_with_each_other_and_deterministic_switch(rng, jax_sy
     v2 = accumulated_grads(make_fused_loss_fn(2.0, 6.0, True, N_C, N_F), params, tbatch, None, draws)
     np.testing.assert_allclose(v3[0].item(), v2[0].item(), rtol=1e-5)
     assert _flat_grad_errors(v3[2], v2[2])[0] <= 1e-2
-    # randomized=False needs neither generator nor draws, and repeats itself
+    # randomized=False needs neither a key nor draws, and repeats itself
     fixed = make_fused_loss_fn(2.0, 6.0, True, N_C, N_F, randomized=False)
     a, b = fixed(params, tbatch)[0], fixed(params, tbatch)[0]
     assert a.item() == b.item()
     noisy = make_fused_loss_fn(2.0, 6.0, True, N_C, N_F, noise_std=1.0)
-    with pytest.raises(ValueError, match="Generator"):
-        noisy(params, tbatch, None, draws)  # the sigma noise still needs a generator
-    assert torch.isfinite(noisy(params, tbatch, torch.Generator().manual_seed(0), draws)[0])
+    with pytest.raises(ValueError, match="PRNG key"):
+        noisy(params, tbatch, None, draws)  # the sigma noise still needs a key
+    assert torch.isfinite(noisy(params, tbatch, prng.key(0), draws)[0])
 
 
 def test_fine_gradients_are_sensitive_to_the_quantiles(rng):
@@ -318,7 +319,7 @@ def test_fine_gradients_are_sensitive_to_the_quantiles(rng):
     # (seen: 26% of the mean magnitude, cosine 0.97)
     B = 16
     system = build_system(Config(**SMALL), 2.0, 6.0, True, device="cpu")
-    params = system.init_params(torch.Generator().manual_seed(0))
+    params = system.init_params(prng.key(0))
     batch = {k: _t(v) for k, v in _batch(rng, B).items()}
     g = torch.Generator().manual_seed(1)
     draws = {"t_rand": torch.rand(B, N_C + 1, generator=g),
@@ -343,11 +344,10 @@ def _scene_batches(steps, B, seed=0):
 def test_thirty_cpu_steps_on_the_analytic_scene_lower_the_loss():
     cfg = Config(**{**SMALL, "batch_size": 64}, lr_delay_steps=0)
     system = build_system(cfg, 2.0, 6.0, True, device="cpu")
-    gen = torch.Generator().manual_seed(0)
-    state = system.init_state(gen)
+    state = system.init_state(prng.key(0))
     losses = []
-    for batch in _scene_batches(30, 64):
-        state, metrics = system.train_step(state, batch, gen)
+    for i, batch in enumerate(_scene_batches(30, 64)):
+        state, metrics = system.train_step(state, batch, prng.fold_in(prng.key(1), i))
         losses.append(metrics["train/loss"].item())
     assert state.step == 30 and np.isfinite(losses).all()
     assert np.mean(losses[-5:]) < 0.6 * np.mean(losses[:5]), losses
@@ -358,13 +358,12 @@ def test_fused_v3_twin_trains_on_the_analytic_scene():
     cfg = Config(**SMALL, lr_delay_steps=0)
     tx = default_nerf_optimizer(cfg)
     system = build_system(cfg, 2.0, 6.0, True, device="cpu")
-    gen = torch.Generator().manual_seed(0)
-    state = system.init_state(gen)
+    state = system.init_state(prng.key(0))
     fn = make_fused_step_fn(2.0, 6.0, True, N_C, N_F)
     losses = []
-    for batch in _scene_batches(12, 32, seed=1):
+    for i, batch in enumerate(_scene_batches(12, 32, seed=1)):
         loss, _, grads = accumulated_grads(fn, state.params, {k: _t(v) for k, v in batch.items()},
-                                           gen)
+                                           prng.fold_in(prng.key(1), i))
         state = state.apply_gradients(grads)
         losses.append(loss.item())
     assert state.tx.eps == tx.eps and np.isfinite(losses).all()
@@ -374,19 +373,19 @@ def test_fused_v3_twin_trains_on_the_analytic_scene():
 def test_train_many_is_a_loop_of_train_steps(rng):
     T, k, m = 3, 2, 8
     system = build_system(Config(**SMALL), 2.0, 6.0, True, device="cpu")
-    state0 = system.init_state(torch.Generator().manual_seed(0))
+    state0 = system.init_state(prng.key(0))
     flat = _batch(rng, T * k * m)
     superbatch = {n: _t(v).reshape(T, k, m, 3) for n, v in flat.items()}
-    state, metrics = system.train_many(state0, superbatch, torch.Generator().manual_seed(1))
+    state, metrics = system.train_many(state0, superbatch, prng.key(1))
     assert state.step == T and state0.step == 0
     assert set(metrics) == {"train/loss", "train/psnr0", "train/psnr1", "train/loss_last"}
 
-    gen = torch.Generator().manual_seed(1)
+    # step t takes fold_in(key, t) (aon_tpu/train/microbatch.py:199)
     ref, losses = state0, []
     ids = torch.arange(k * m).reshape(k, m)
     for t in range(T):
         batch = {n: v[t] for n, v in superbatch.items()}
-        ref, mt = system.train_step(ref, dict(batch, ray_ids=ids), gen)
+        ref, mt = system.train_step(ref, dict(batch, ray_ids=ids), prng.fold_in(prng.key(1), t))
         losses.append(mt["train/loss"].item())
     np.testing.assert_allclose(metrics["train/loss"].item(), np.mean(losses), rtol=1e-6)
     np.testing.assert_allclose(metrics["train/loss_last"].item(), losses[-1], rtol=1e-6)

@@ -41,6 +41,7 @@ from aon_tpu.train import trainer as jtrainer  # noqa: E402
 from aon_tpu.utils import viz as jviz  # noqa: E402
 from aon_tpu.utils.config import Config as JaxConfig  # noqa: E402
 from aon_tpu_torch import run as trun  # noqa: E402
+from aon_tpu_torch.core import sampling as tsampling  # noqa: E402
 from aon_tpu_torch.data import sapien as tsapien  # noqa: E402
 from aon_tpu_torch.eval import artifacts as tartifacts  # noqa: E402
 from aon_tpu_torch.models.convert import params_from_flax  # noqa: E402
@@ -88,7 +89,12 @@ def trainers(fixture_root, tmp_path_factory):
     jcfg, tcfg = _configs(fixture_root, tmp_path_factory.mktemp("trainers"))
     jt = jtrainer.Trainer(jcfg)
     tt = ttrainer.Trainer(tcfg, device="cpu")
-    tt.state = _converted(tt.state, jt.state)
+    # the port's Trainer initialises from the JAX trainer's init key: the same
+    # xavier-uniform draws, bit for bit
+    want = _converted(tt.state, jt.state)
+    assert set(tt.state.params) == set(want.params)
+    for k, v in want.params.items():
+        assert torch.equal(tt.state.params[k], v), k
     return jt, tt
 
 
@@ -96,6 +102,20 @@ def _converted(tstate, jstate):
     params = params_from_flax(jax.tree.map(np.asarray, jstate.params))
     return TrainState(step=int(jstate.step), params=params, mu=tstate.tx.init(params)[0],
                       nu=tstate.tx.init(params)[1], tx=tstate.tx)
+
+
+def _recorded_draws(monkeypatch):
+    """Record every uniform draw the port's samplers make: (shape, tensor)."""
+    seen = []
+    draw = tsampling.draw_uniform
+
+    def recording(shape, *args, **kwargs):
+        out = draw(shape, *args, **kwargs)
+        seen.append(out.clone())
+        return out
+
+    monkeypatch.setattr(tsampling, "draw_uniform", recording)
+    return seen
 
 
 def _records(path):
@@ -125,27 +145,33 @@ def test_train_iterator_after_resume_matches_jax(trainers, step):
 
 
 def test_step_generators_are_fixed_by_seed_and_step(trainers):
-    _, tt = trainers
-    draw = [torch.rand(4, generator=tt.step_generator(s)) for s in (0, 0, 8)]
-    assert torch.equal(draw[0], draw[1]) and not torch.equal(draw[0], draw[2])
+    # the dispatch at step s draws from fold_in(base_key, s), the JAX trainer's key
+    jt, tt = trainers
+    for s in (0, 8, 2**20):
+        np.testing.assert_array_equal(np.asarray(tt.step_key(s)).astype(np.uint32),
+                                      np.asarray(jax.random.fold_in(jt.base_key, s)))
+    assert not torch.equal(tt.step_key(0), tt.step_key(8))
 
 
-def test_fit_one_step_matches_jax(trainers):
+def test_fit_one_step_matches_jax(trainers, monkeypatch):
     jt, tt = trainers
     cfg = tt.cfg
     B, n_c, n_f = cfg.batch_size, cfg.N_samples, cfg.N_importance
-    # the JAX trainer's key of step 0 and the draws VanillaNeRF takes from it
+    # the JAX trainer's key of step 0 and the draws VanillaNeRF takes from it:
+    # the port's own draws, nothing injected
     keys = jax.random.split(jax.random.fold_in(jt.base_key, 0), 4)
     draws = {"t_rand": torch.from_numpy(np.asarray(
                  jax.random.uniform(keys[0], (B, n_c + 1), dtype=jnp.float32)))[None],
              "u": torch.from_numpy(np.asarray(
                  jax.random.uniform(keys[2], (B, n_f), dtype=jnp.float32)))[None]}
-    step = tt.system.train_step
-    tt.system.train_step = lambda state, batch, generator: step(state, batch, None, draws)
+    seen = _recorded_draws(monkeypatch)
     start = tt.state
     jt.fit()
     tt.fit()
-    tt.system.train_step = step
+    monkeypatch.undo()
+    assert [tuple(d.shape) for d in seen[:2]] == [tuple(v.shape[1:]) for v in draws.values()]
+    for got, want in zip(seen, draws.values()):
+        np.testing.assert_array_equal(got.numpy(), want[0].numpy())
     assert jt.global_step == tt.global_step == tt.state.step == 1
 
     jrec, trec = (_records(Path(c.output_path) / c.exp_name / "metrics.jsonl")

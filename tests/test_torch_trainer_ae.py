@@ -36,6 +36,7 @@ and ``render_chunk``):
 """
 
 import contextlib
+import dataclasses
 import json
 import os
 import shutil
@@ -56,6 +57,8 @@ from aon_tpu.data import sapien_multi as jmulti  # noqa: E402
 from aon_tpu.train import system_ae as jsystem_ae  # noqa: E402
 from aon_tpu.train import trainer as jtrainer  # noqa: E402
 from aon_tpu.utils.config import Config as JaxConfig  # noqa: E402
+from aon_tpu_torch.models.init import seeded_params  # noqa: E402
+from aon_tpu_torch.core import sampling as tsampling  # noqa: E402
 from aon_tpu_torch.data import sapien_multi as tmulti  # noqa: E402
 from aon_tpu_torch.core.sampling import pos_enc  # noqa: E402
 from aon_tpu_torch.models.convert import params_from_flax, tree_to_flax  # noqa: E402
@@ -136,9 +139,13 @@ def _converted(tstate, jstate):
 
 @pytest.fixture(scope="module")
 def trainers(fixture_root, tmp_path_factory):
-    """A JAX and a port Trainer on the fixture from the port's init params."""
+    """A JAX and a port Trainer on the fixture from one state: seeded params
+    (``models/init.py::seeded_params``, a generator of the config's seed; the Trainer's
+    own init is flax's, held in tests/test_torch_init_keys.py)."""
     jcfg, tcfg = _configs(fixture_root, tmp_path_factory.mktemp("trainers_ae"))
     tt = ttrainer.Trainer(tcfg, device="cpu")
+    tt.state = dataclasses.replace(tt.state, params=seeded_params(
+        tt.system, torch.Generator().manual_seed(tcfg.seed)))
     with _jax_init_from(tt.state.params):
         jt = jtrainer.Trainer(jcfg)
     return jt, tt
@@ -175,19 +182,20 @@ def test_fit_one_step_matches_jax(trainers, monkeypatch):
         monkeypatch.setattr(manager, "save_last", lambda self, state, epoch: None)
         monkeypatch.setattr(manager, "save_ranked", lambda self, state, epoch, psnr: None)
     n_c, n_f = SMALL["N_samples"], SMALL["N_importance"]
-    # the JAX trainer's key of step 0 and the draws ArticulatedNeRF takes from it
+    # the JAX trainer's key of step 0 and the draws ArticulatedNeRF takes from
+    # it: the port's own draws, nothing injected
     keys = jax.random.split(jax.random.fold_in(jt.base_key, 0), 4)
-    draws = {"t_rand": torch.from_numpy(np.asarray(
-                 jax.random.uniform(keys[0], (B, n_c + 1), dtype=jnp.float32)))[None],
-             "u": torch.from_numpy(np.asarray(
-                 jax.random.uniform(keys[2], (B, n_f), dtype=jnp.float32)))[None]}
-    step = tt.system.train_step
-    tt.system.train_step = lambda state, batch, generator: step(state, batch, None, draws)
-    try:
-        jt.fit()
-        tt.fit()
-    finally:
-        tt.system.train_step = step
+    draws = [np.asarray(jax.random.uniform(keys[0], (B, n_c + 1), dtype=jnp.float32)),
+             np.asarray(jax.random.uniform(keys[2], (B, n_f), dtype=jnp.float32))]
+    seen = []
+    draw = tsampling.draw_uniform
+    monkeypatch.setattr(tsampling, "draw_uniform",
+                        lambda *a, **kw: seen.append(draw(*a, **kw)) or seen[-1])
+    jt.fit()
+    tt.fit()
+    assert len(seen) == 2
+    for got, want in zip(seen, draws):
+        np.testing.assert_array_equal(got.numpy(), want)
     assert jt.global_step == tt.global_step == tt.state.step == 1
 
     jrec, trec = ([json.loads(ln) for ln in (Path(c.output_path) / c.exp_name / "metrics.jsonl")

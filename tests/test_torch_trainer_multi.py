@@ -39,6 +39,7 @@ from aon_tpu.eval import artifacts as jartifacts  # noqa: E402
 from aon_tpu.train import trainer as jtrainer  # noqa: E402
 from aon_tpu.train.checkpoint import CheckpointManager as JaxCheckpointManager  # noqa: E402
 from aon_tpu.utils.config import Config as JaxConfig  # noqa: E402
+from aon_tpu_torch.core import sampling as tsampling  # noqa: E402
 from aon_tpu_torch.data import sapien_multi as tmulti  # noqa: E402
 from aon_tpu_torch.models.convert import params_from_flax  # noqa: E402
 from aon_tpu_torch.scripts import eval_per_instance as tper  # noqa: E402
@@ -94,8 +95,27 @@ def trainers(fixture_root, tmp_path_factory):
     jcfg, tcfg = _configs(fixture_root, tmp_path_factory.mktemp("trainers_multi"))
     jt = jtrainer.Trainer(jcfg)
     tt = ttrainer.Trainer(tcfg, device="cpu")
-    tt.state = _converted(tt.state, jt.state)
+    # the port's Trainer initialises from the JAX trainer's init key: the same
+    # xavier-uniform draws, bit for bit
+    want = _converted(tt.state, jt.state)
+    assert set(tt.state.params) == set(want.params)
+    for k, v in want.params.items():
+        assert torch.equal(tt.state.params[k], v), k
     return jt, tt
+
+
+def _recorded_draws(monkeypatch):
+    """Record every uniform draw the port's samplers make: (shape, tensor)."""
+    seen = []
+    draw = tsampling.draw_uniform
+
+    def recording(shape, *args, **kwargs):
+        out = draw(shape, *args, **kwargs)
+        seen.append(out.clone())
+        return out
+
+    monkeypatch.setattr(tsampling, "draw_uniform", recording)
+    return seen
 
 
 def _errors(got, want, names):
@@ -122,21 +142,24 @@ def test_train_iterator_is_the_jax_trainers(trainers, step):
     jt.global_step = tt.global_step = 0
 
 
-def test_fit_one_step_matches_jax(trainers):
+def test_fit_one_step_matches_jax(trainers, monkeypatch):
     jt, tt = trainers
     n_c, n_f = SMALL["N_samples"], SMALL["N_importance"]
-    # the JAX trainer's key of step 0 and the draws ArticulatedNeRF takes from it
+    # the JAX trainer's key of step 0 and the draws ArticulatedNeRF takes from it:
+    # the port's own draws, nothing injected
     keys = jax.random.split(jax.random.fold_in(jt.base_key, 0), 4)
     draws = {"t_rand": torch.from_numpy(np.asarray(
                  jax.random.uniform(keys[0], (B, n_c + 1), dtype=jnp.float32)))[None],
              "u": torch.from_numpy(np.asarray(
                  jax.random.uniform(keys[2], (B, n_f), dtype=jnp.float32)))[None]}
-    step = tt.system.train_step
-    tt.system.train_step = lambda state, batch, generator: step(state, batch, None, draws)
+    seen = _recorded_draws(monkeypatch)
     start = tt.state
     jt.fit()
     tt.fit()
-    tt.system.train_step = step
+    monkeypatch.undo()
+    assert [tuple(d.shape) for d in seen[:2]] == [tuple(v.shape[1:]) for v in draws.values()]
+    for got, want in zip(seen, draws.values()):
+        np.testing.assert_array_equal(got.numpy(), want[0].numpy())
     assert jt.global_step == tt.global_step == tt.state.step == 1
 
     jrec, trec = ([json.loads(ln) for ln in (Path(c.output_path) / c.exp_name / "metrics.jsonl")

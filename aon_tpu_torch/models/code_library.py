@@ -9,8 +9,10 @@ articulation interpolation produces ``2*10 - 1 = 19`` codes by inserting
 midpoint averages between consecutive learned codes.
 
 The tables are ordinary parameters, so the one Adam update over the whole
-state dict also trains the codes; a row that a step did not index has a zero
-gradient and does not move.
+state dict also trains the codes.  A row that a step did not index has a
+zero gradient, but Adam still moves it through its moments from earlier
+steps, as optax's dense Adam moves it in the JAX package; only a row that no
+step has indexed yet stays where it was.
 """
 
 from __future__ import annotations

@@ -62,6 +62,7 @@ def fused_level_train_grads_plain(
     viewdirs: torch.Tensor,
     target: torch.Tensor,
     white_bkgd: bool,
+    raws: Optional[Dict[str, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
     """Plain PyTorch twin of ``fused_level_train_grads``, on any device."""
     if t_vals.is_cuda and torch.backends.cuda.matmul.allow_tf32:
@@ -72,6 +73,8 @@ def fused_level_train_grads_plain(
     acts = fwd_activations(enc, venc, packed)
     raw_rgb = acts["rgb"].reshape(B, S, 3)
     raw_sigma = acts["sigma"].reshape(B, S)
+    if raws is not None:
+        raws.update(raw_rgb=raw_rgb, raw_sigma=raw_sigma)
 
     # compositing forward (unit-norm dirs)
     dist = torch.cat([t_vals[:, 1:] - t_vals[:, :-1], torch.full_like(t_vals[:, :1], 1e10)], -1)
@@ -119,6 +122,7 @@ def fused_level_train_grads(
     viewdirs: torch.Tensor,
     target: torch.Tensor,
     white_bkgd: bool,
+    raws: Optional[Dict[str, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
     """One training level, fully fused.
 
@@ -127,11 +131,13 @@ def fused_level_train_grads(
     weights.  Returns ``(sq_err_sum, weights (B, S), packed weight grads)``:
     ``sq_err_sum`` is the sum over rays of the 3-channel squared error (level
     loss = sq_err_sum / (B * 3)) and the grads are d(level loss)/d(packed) in
-    float32.  CUDA tensors launch the kernel; CPU tensors run the plain twin.
+    float32.  A ``raws`` dict receives the forward's raw outputs, ``raw_rgb``
+    (B, S, 3) and ``raw_sigma`` (B, S), as the compositing read them.  CUDA
+    tensors launch the kernel; CPU tensors run the plain twin.
     """
     if t_vals.device.type == "cpu":
         return fused_level_train_grads_plain(packed, enc_consts, t_vals, rays_o, rays_d, viewdirs,
-                                             target, white_bkgd)
+                                             target, white_bkgd, raws)
     if t_vals.device.type != "cuda":
         raise ValueError(f"no kernel for device {t_vals.device}")
     device = t_vals.device
@@ -159,6 +165,8 @@ def fused_level_train_grads(
     )
     _build.check(err, "fused_level_train_grads")
     fused_level_train_grads.launches += 1
+    if raws is not None:
+        raws.update(raw_rgb=raw_rgb.view(B, S, 3), raw_sigma=raw_sigma.view(B, S))
     return sq_err_sum[0], weights, grads_from_blob(gw)
 
 

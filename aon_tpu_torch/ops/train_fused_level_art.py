@@ -75,6 +75,7 @@ def fused_level_train_art_grads_plain(
     density_bias: float = -1.0,
     bce_weight: float = 0.0,
     sigma_act: str = "softplus_bias",
+    raws: Optional[Dict[str, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
     """Plain PyTorch twin of ``fused_level_train_art_grads``, on any device:
     the compositing backward and the MLP backward written out by hand with the
@@ -87,6 +88,8 @@ def fused_level_train_art_grads_plain(
     acts = art_forward(coords, torch.repeat_interleave(viewdirs, S, dim=0), packed, enc_consts)
     raw_rgb = acts["rgb"].reshape(B, S, 3)
     raw_sigma = acts["sigma"].reshape(B, S)
+    if raws is not None:
+        raws.update(raw_rgb=raw_rgb, raw_sigma=raw_sigma)
 
     # head activations
     sig = torch.sigmoid(raw_rgb)
@@ -160,6 +163,7 @@ def fused_level_train_art_grads(
     density_bias: float = -1.0,
     bce_weight: float = 0.0,
     sigma_act: str = "softplus_bias",
+    raws: Optional[Dict[str, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
     """One articulated training level, fully fused.
 
@@ -170,11 +174,13 @@ def fused_level_train_art_grads(
     (``fused_art.fold_latents``).  Returns ``(photo_loss, weights (B, S), acc
     (B,), effective grads)`` where ``photo_loss = sum_r loss_w_r * |comp_r -
     target_r|^2`` and the grads are d(photo_loss [+ bce_weight * mean
-    BCE(acc, mask)])/d(packed): unfold with ``fused_art.unfold_grads``.  CUDA
-    tensors launch the kernel; CPU tensors run the plain twin.
+    BCE(acc, mask)])/d(packed): unfold with ``fused_art.unfold_grads``.  A
+    ``raws`` dict receives the forward's raw outputs, ``raw_rgb`` (B, S, 3) and
+    ``raw_sigma`` (B, S) before the sigma activation, as the compositing read
+    them.  CUDA tensors launch the kernel; CPU tensors run the plain twin.
     """
     args = (packed, enc_consts, t_vals, rays_o, rays_d, viewdirs, target, loss_w, mask,
-            white_bkgd, rgb_padding, density_bias, bce_weight, sigma_act)
+            white_bkgd, rgb_padding, density_bias, bce_weight, sigma_act, raws)
     if t_vals.device.type == "cpu":
         return fused_level_train_art_grads_plain(*args)
     if t_vals.device.type != "cuda":
@@ -210,6 +216,8 @@ def fused_level_train_art_grads(
     )
     _build.check(err, "fused_level_train_art_grads")
     fused_level_train_art_grads.launches += 1
+    if raws is not None:
+        raws.update(raw_rgb=raw_rgb.view(B, S, 3), raw_sigma=raw_sigma.view(B, S))
     return photo_loss[0], weights, acc, grads_from_blob(gw)
 
 

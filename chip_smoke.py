@@ -156,6 +156,14 @@ Phases, each printed as one JSON line on stdout (nothing else goes there):
            eval_per_instance (per_instance.json) and extract_geometry with
            the dataset's bounds (63 launches of row 10), each with its exact
            launches;
+  fit_art_objover  the same CLI on the same fixture with
+           configs/quality_scissors_autodec_objover.json's arguments (64 + 128
+           samples on raw intervals, obj_ray_oversample 0.5, so row 9 takes
+           per-ray loss_w, a black background) and laptop4's
+           art_code_smoothness 0.001: 400 steps in dispatches of 8 and one
+           validation of five frames (rays/s, exact launches of rows 9, 2 and
+           10, loss_w in the items, the fixed batch's loss falling, val PSNR
+           above the initial weights'), checked as fit_art's line;
   fit_ae   the same CLI for the auto-encoder on
            configs/quality_laptop_ae_aabb24.json (a ResNet-34 encoder on
            320x240 source frames, 24 + 48 samples on AABB intervals, 4,096
@@ -435,6 +443,14 @@ FIT_ART_STEPS, FIT_ART_RESUME_STEPS = 400, 16  # whole dispatches of 8 steps
 # weights (the fit phase's measure); the 400 steps run at the start of the
 # 2,500-step lr delay on a 400-step horizon
 FIT_ART_LOSS_FALL = 0.8
+# ---- and the scissors objover config's arguments on the same fixture: 64 +
+# 128 samples on raw intervals, obj_ray_oversample 0.5 (per-ray loss_w into
+# row 9), a black background, with laptop4's art_code_smoothness; fit_art's
+# run length (its lr horizon its own), its loss held as fit_art's (on an H100
+# the fixed batch's loss fell to 0.92 of its start in 240 steps, 0.43 in 400)
+FIT_OBJOVER_CONFIG = "configs/quality_scissors_autodec_objover.json"
+FIT_OBJOVER_SMOOTHNESS = 0.001  # configs/quality_laptop4_autodec.json's
+FIT_OBJOVER_STEPS = 400
 
 # ---- the fit_ae phase: the same CLI on the auto-encoder's quality config
 # over the fit_art phase's fixture
@@ -519,6 +535,101 @@ def worst_tensors(got, want, skip=()) -> dict:
                 for k in names}
     k_max, k_mean = max(max_rel, key=max_rel.get), max(mean_rel, key=mean_rel.get)
     return {"max": [k_max, max_rel[k_max]], "mean": [k_mean, mean_rel[k_mean]]}
+
+
+def level_forward_check(torch, got, twin, t_vals, rays_d, target, *, white_bkgd, tol_raw,
+                        tol_forward, loss_w=None, sigma_act="relu", density_bias=0.0,
+                        rgb_padding=0.0, zeroed=None) -> dict:
+    """A training level's forward, held in parts that leave no entry out.
+
+    1. The kernel's raw outputs (``raw_rgb`` (B, S, 3), ``raw_sigma`` (B, S))
+       against the twin's, at ``tol_raw`` (max, mean of the absolute error),
+       the forward kernels' tolerance.  With ``zeroed`` (the kernel's and the
+       twin's raw outputs of the same launch with the deformation's output
+       layer zeroed) the max is held there and the mean on both launches:
+       a live deformation's phase noise moves single raw outputs of the
+       articulated level past the max (the encoding multiplies x' by up to
+       2^9), as it moves its gradients, which are held by direction.
+    2. The kernel's compositing ``weights`` (B, S), ``acc`` (B,) where it
+       returns one and ``loss`` against the port's plain float32 compositing
+       (``core/rendering.py::volumetric_rendering``) of the kernel's own raw
+       outputs, through the level's sigma activation (``relu`` or
+       ``softplus_bias``) and rgb padding, at ``tol_forward`` (the loss
+       relative).  ``loss`` is the vanilla level's sum of squared errors or,
+       with ``loss_w`` (B,), the articulated level's sum_r loss_w_r |err_r|^2.
+    3. With ``zeroed``, the live launch's forward against the twin's through
+       a map with no jump, at ``tol_forward``: with ``softplus_bias`` (sigma
+       > 0 everywhere) its weights, acc and loss; with ``relu`` its outputs
+       after the activations (rgb after the sigmoid and padding, sigma after
+       the relu).
+
+    The weights are not held to the twin's where sigma may be 0: on the 1e10
+    last interval a relu compositing jumps at raw sigma = 0, where two bf16
+    summation orders may land on either side and move one weight by the
+    ray's transmittance.  ``got`` holds the kernel's outputs, ``twin`` the
+    twin's (raw outputs, and with ``zeroed`` its weights, acc and loss).
+    Returns the record's fields, with ``ok``."""
+    from aon_tpu_torch.core.rendering import volumetric_rendering
+
+    def raw_errors(k, t):
+        return torch.cat([(k["raw_rgb"] - t["raw_rgb"]).abs().reshape(-1),
+                          (k["raw_sigma"] - t["raw_sigma"]).abs().reshape(-1)])
+
+    def activated(out):
+        raw_sigma = out["raw_sigma"].float()
+        if sigma_act == "softplus_bias":
+            sigma = torch.nn.functional.softplus(raw_sigma + density_bias)
+        elif sigma_act == "relu":
+            sigma = torch.clamp_min(raw_sigma, 0.0)
+        else:
+            raise ValueError(f"unknown sigma_act: {sigma_act}")
+        return (torch.sigmoid(out["raw_rgb"].float()) * (1.0 + 2.0 * rgb_padding) - rgb_padding,
+                sigma)
+
+    def loss_rel(a, b):
+        return abs(float(a) - float(b)) / max(abs(float(b)), 1e-30)
+
+    live = raw_errors(got, twin)
+    held = live if zeroed is None else raw_errors(*zeroed)
+    rgb, sigma = activated(got)
+    comp, acc, weights, _ = volumetric_rendering(rgb, sigma[..., None], t_vals, rays_d,
+                                                 white_bkgd)
+    sq_err = ((comp - target) ** 2).sum(dim=-1)
+    loss = sq_err.sum() if loss_w is None else (sq_err * loss_w.reshape(-1)).sum()
+    rec = {
+        "raw_max_abs_err": held.max().item(), "raw_mean_abs_err": live.mean().item(),
+        "tol_raw": list(tol_raw),
+        "weights_max_abs_err": (got["weights"] - weights).abs().max().item(),
+        "loss_rel_err": loss_rel(got["loss"], loss),
+        "tol_forward": tol_forward,
+        "forward_is": ("raw outputs against the twin's; weights, acc and loss against the "
+                       "plain compositing of the kernel's raw outputs"),
+    }
+    fwd = [rec["weights_max_abs_err"], rec["loss_rel_err"]]
+    if "acc" in got:
+        rec.update(acc_max_abs_err=(got["acc"] - acc).abs().max().item(),
+                   acc_mean=acc.mean().item())
+        fwd.append(rec["acc_max_abs_err"])
+    if zeroed is not None:
+        if sigma_act == "softplus_bias":
+            live_is = "weights, acc and loss against the twin's"
+            live_fwd = [(got["weights"] - twin["weights"]).abs().max().item(),
+                        (got["acc"] - twin["acc"]).abs().max().item(),
+                        loss_rel(got["loss"], twin["loss"])]
+        else:
+            live_is = "rgb and sigma after the activations against the twin's"
+            rgb_t, sigma_t = activated(twin)
+            live_fwd = [(rgb - rgb_t).abs().max().item(), (sigma - sigma_t).abs().max().item()]
+        rec.update(raw_max_is="deform_out zeroed", raw_zeroed_mean_abs_err=held.mean().item(),
+                   raw_live_max_abs_err=live.max().item(), live_forward_is=live_is,
+                   live_forward_max_err=max(live_fwd))
+        fwd.append(rec["live_forward_max_err"])
+    finite = all(bool(torch.isfinite(got[k]).all()) for k in ("raw_rgb", "raw_sigma", "weights"))
+    rec["ok"] = (finite and rec["raw_max_abs_err"] <= tol_raw[0]
+                 and rec["raw_mean_abs_err"] <= tol_raw[1]
+                 and (zeroed is None or rec["raw_zeroed_mean_abs_err"] <= tol_raw[1])
+                 and max(fwd) <= tol_forward)
+    return rec
 
 
 def geometry_files_ok(out_dir, out) -> bool:
@@ -1047,35 +1158,52 @@ def main(argv=None) -> int:
                     "bound_ms": 1e3 * max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES)}
 
         def grad_record(kname, fn, fn_plain, fn_args, *, shape, rows, flops, nbytes, library,
-                        kw=None, art=False, timed=True, strict=True, **extra):
+                        kw=None, art=False, forward=None, timed=True, strict=True, **extra):
             """One ``kernel`` line of a training kernel (a level or an MLP
             backward) against its twin on the same inputs, checked (unless
             ``strict`` is off: then its ``ok`` says): every gradient tensor by
             the max and mean measures (the articulated kernels' deformation
-            gradients by direction and size instead), and a level's
-            compositing weights, acc and loss; timed beside the twin, the
-            library yardstick and the bound unless ``timed`` is off."""
+            gradients by direction and size instead), and a level's forward
+            by ``level_forward_check`` (its raw outputs against the twin's,
+            its weights, acc and loss against the plain compositing of its
+            own raw outputs, an articulated level's live forward against
+            the twin's); timed beside the twin, the library yardstick
+            and the bound unless ``timed`` is off.  A level gives
+            ``forward``, the check's inputs: ``t_vals``, ``rays_d``,
+            ``target`` and, for the vanilla level, ``white_bkgd`` or, for
+            the articulated one, ``loss_w`` (its other arguments are in
+            ``kw``); its packed weights come first in ``fn_args``."""
             kw = kw or {}
-            got = fn(*fn_args, **kw)
+            level = forward is not None
+            raws, raws_p = {}, {}
+            got = fn(*fn_args, **kw, **({"raws": raws} if level else {}))
             torch.cuda.synchronize()
-            want = fn_plain(*fn_args, **kw)
+            want = fn_plain(*fn_args, **kw, **({"raws": raws_p} if level else {}))
             again = fn(*fn_args, **kw)
             grads, grads_p, grads2 = (got, want, again) if isinstance(got, dict) else (
                 got[-1], want[-1], again[-1])
             rec = {"phase": "kernel", "name": kname, **extra, "shape": shape, "rows": rows}
-            twin_tol = fused_art.TWIN_TOL_MAX if art else TWIN_TOL_MAX
             fwd_ok = True
-            if not isinstance(got, dict):  # a level: (loss, weights, [acc,] grads)
-                loss_key = "photo_loss_rel_err" if art else "sq_err_rel_err"
-                rec.update({"weights_max_abs_err": (got[1] - want[1]).abs().max().item(),
-                            loss_key: abs(got[0].item() - want[0].item()) / want[0].item(),
-                            "tol_forward": twin_tol})
-                fwd = [rec["weights_max_abs_err"], rec[loss_key]]
-                if art:
-                    rec.update(acc_max_abs_err=(got[2] - want[2]).abs().max().item(),
-                               acc_mean=want[2].mean().item())
-                    fwd.append(rec["acc_max_abs_err"])
-                fwd_ok = max(fwd) <= twin_tol and bool(torch.isfinite(got[1]).all())
+            if level:  # (loss, weights, [acc,] grads)
+                out, twin = (dict(r, loss=o[0], weights=o[1], **({"acc": o[2]} if art else {}))
+                             for r, o in ((raws, got), (raws_p, want)))
+                tol_raw = ((fused_art.TWIN_TOL_MAX, fused_art.TWIN_TOL_MEAN) if art
+                           else (TWIN_TOL_MAX, TWIN_TOL_MEAN))
+                zeroed, art_kw = None, {}
+                if art:  # the same launch with the deformation's output layer zeroed
+                    packed = fn_args[0]
+                    still = dict(packed, wdo=torch.zeros_like(packed["wdo"]),
+                                 bdo=torch.zeros_like(packed["bdo"]))
+                    zeroed = ({}, {})
+                    fn(still, *fn_args[1:], **kw, raws=zeroed[0])
+                    fn_plain(still, *fn_args[1:], **kw, raws=zeroed[1])
+                    art_kw = {k: kw[k] for k in ("white_bkgd", "sigma_act", "density_bias",
+                                                 "rgb_padding")}
+                check = level_forward_check(torch, out, twin, **forward, **art_kw,
+                                            tol_raw=tol_raw, tol_forward=tol_raw[0],
+                                            zeroed=zeroed)
+                fwd_ok = check.pop("ok")
+                rec.update(check)
             if art:
                 max_rel, mean_rel = fused_art.grad_errors(grads, grads_p)
                 tol = (fused_art.GRAD_TOL_REL, fused_art.GRAD_TOL_MEAN_REL)
@@ -1431,21 +1559,22 @@ def main(argv=None) -> int:
                  fused_level_train_grads_plain, level_args,
                  4 * (2 * rows + 4 * 3 * TRAIN_RAYS + 2 * n_params + 1),
                  lambda: library_level(torch, packed32, consts, t_lvl, ro, rd, rd, target,
-                                       encode_plain)),
+                                       encode_plain),
+                 dict(t_vals=t_lvl, rays_d=rd, target=target, white_bkgd=True)),
                 # xyz and g (B, S, 3 + 4), viewdirs, f32 params in, f32 grads out
                 ("fused_mlp_bwd_xyz", fused_mlp_bwd_xyz, fused_mlp_bwd_xyz_plain, bwd_args,
                  4 * (7 * rows + 3 * TRAIN_RAYS + 2 * n_params),
                  lambda: library_level(torch, packed32, consts, t_lvl, ro, rd, rd, target,
-                                       encode_plain, cotangent=cot)),
+                                       encode_plain, cotangent=cot), None),
                 # enc, venc and g (N, 64 + 32 + 4), f32 params in, f32 grads out
                 ("fused_mlp_bwd", fused_mlp_bwd, fused_mlp_bwd_plain, enc_bwd_args,
                  4 * (100 * rows + 2 * n_params),
-                 lambda: library_mlp_vjp(torch, *enc_bwd_args)),
+                 lambda: library_mlp_vjp(torch, *enc_bwd_args), None),
             )
-            for kname, fn, fn_plain, fn_args, nbytes, library in runs:
+            for kname, fn, fn_plain, fn_args, nbytes, library, forward in runs:
                 train_rows[kname, n_samples] = grad_record(
                     kname, fn, fn_plain, fn_args, shape=f"{TRAIN_RAYS}x{n_samples}", rows=rows,
-                    flops=flops, nbytes=nbytes, library=library)
+                    flops=flops, nbytes=nbytes, library=library, forward=forward)
             # the eval MLP as the v2 forward launches it: the float32 packing
             # of training, rounded to bf16 for the launch
             train_rows["fused_nerf_mlp_xyz_eval", n_samples] = mlp_eval_record(
@@ -1910,7 +2039,8 @@ def main(argv=None) -> int:
                      (packed_art, consts, samples, rd, cot), {},
                      4 * (7 * rows + 3 * TRAIN_RAYS + 2 * n_art_params),
                      lambda: library_art_level(torch, packed_art, consts, t_lvl, ro, rd, rd,
-                                               target, lw_uniform, encode_plain, cotangent=cot)),
+                                               target, lw_uniform, encode_plain, cotangent=cot),
+                     None),
                 ]
                 for mode, kw in art_level_modes.items():
                     if mode == "ae_quality" or (mode != "autodecoder" and level == "coarse_mlp"):
@@ -1924,11 +2054,13 @@ def main(argv=None) -> int:
                          4 * (2 * rows + (4 * 3 + 3) * TRAIN_RAYS + 2 * n_art_params + 1),
                          lambda lw=lw, kw=kw: library_art_level(
                              torch, packed_art, consts, t_lvl, ro, rd, rd, target, lw,
-                             encode_plain, mask=mask, **kw)))
-                for kname, mode, fn, fn_plain, fn_args, kw, nbytes, library in runs:
+                             encode_plain, mask=mask, **kw),
+                         dict(t_vals=t_lvl, rays_d=rd, target=target, loss_w=lw)))
+                for kname, mode, fn, fn_plain, fn_args, kw, nbytes, library, forward in runs:
                     extra = {"arguments": dict(kw, mode=mode)} if mode else {}
                     recs[kname, mode, n_samples] = grad_record(
-                        kname, fn, fn_plain, fn_args, kw=kw, shape=f"{TRAIN_RAYS}x{n_samples}",
+                        kname, fn, fn_plain, fn_args, kw=kw, forward=forward,
+                        shape=f"{TRAIN_RAYS}x{n_samples}",
                         rows=rows, flops=3 * 2.0 * art_macs * rows,  # forward, two backward
                         nbytes=nbytes, library=library, art=True, timed=timed, strict=strict,
                         seed=seed, **extra)
@@ -1994,6 +2126,7 @@ def main(argv=None) -> int:
                     recs[n_samples] = grad_record(
                         "fused_level_train_art_grads", fused_level_train_art_grads,
                         fused_level_train_art_grads_plain, fn_args, kw=kw,
+                        forward=dict(t_vals=t_lvl, rays_d=rd, target=target, loss_w=lw),
                         shape=f"{TRAIN_RAYS}x{n_samples}", rows=rows,
                         flops=3 * 2.0 * art_macs * rows,
                         nbytes=4 * (2 * rows + (4 * 3 + 3) * TRAIN_RAYS + 2 * n_art_params + 1),
@@ -2056,6 +2189,7 @@ def main(argv=None) -> int:
                         kname, fn, fn_plain, kw = ("fused_level_train_grads", fused_level_train_grads,
                                                    fused_level_train_grads_plain, {})
                         fn_args = (packed_l, consts, t_lvl, ro, rd, vd, tg, True)
+                        forward = dict(t_vals=t_lvl, rays_d=rd, target=tg, white_bkgd=True)
                         macs, n_p = MLP_MACS_PER_SAMPLE, n_params
                         library = (lambda packed_l=packed_l, t=t_lvl: library_level(
                             torch, packed_l, consts, t, ro, rd, vd, tg, encode_plain))
@@ -2066,12 +2200,14 @@ def main(argv=None) -> int:
                                                fused_level_train_art_grads_plain)
                         kw = art_level_modes["autodecoder"]
                         fn_args = (packed_l, consts, t_lvl, ro, rd, vd, tg, lw, ones)
+                        forward = dict(t_vals=t_lvl, rays_d=rd, target=tg, loss_w=lw)
                         macs, n_p = art_macs, n_art_params
                         library = (lambda packed_l=packed_l, t=t_lvl: library_art_level(
                             torch, packed_l, consts, t, ro, rd, vd, tg, lw, encode_plain,
                             mask=ones, **art_level_modes["autodecoder"]))
                     recs[kname, n_samples] = grad_record(
-                        kname, fn, fn_plain, fn_args, kw=kw, shape=f"{TRAIN_RAYS}x{n_samples}",
+                        kname, fn, fn_plain, fn_args, kw=kw, forward=forward,
+                        shape=f"{TRAIN_RAYS}x{n_samples}",
                         rows=rows, flops=3 * 2.0 * macs * rows,
                         # t and weights (B, S); o, d, viewdirs, target [, loss_w, mask,
                         # acc] per ray; f32 params in, f32 grads out
@@ -2729,14 +2865,93 @@ def main(argv=None) -> int:
                 make_fixture_dataset.main([str(data), "--multi", "--n", str(FIT_ART_VIEWS),
                                            "--wh", "320", "240", "--seed", str(args.seed)])
             shutil.copytree(data / "obj_a" / "train" / "0_degree", data / "obj_a" / "test_spheric")
-            cfg_json = json.loads((ROOT / FIT_ART_CONFIG).read_text())
+
+            def fit_config(config, out, steps, samples_per_epoch, **overrides):
+                """``config`` on the fixture, run for ``steps`` steps into
+                ``out``, written beside it: its path and the loaded config."""
+                cfg_json = json.loads((ROOT / config).read_text())
+                cfg_json.update(root_dir=str(data), output_path=str(fa_dir / out),
+                                run_max_steps=steps, samples_per_epoch=samples_per_epoch,
+                                num_epochs=1, **overrides)
+                cfg_path = fa_dir / Path(config).name
+                cfg_path.write_text(json.dumps(cfg_json))
+                return cfg_path, get_config(["--config", str(cfg_path)])
+
+            def chunks_of(frame, cfg):
+                """A frame's render chunks: its box-hitting rays on AABB
+                intervals, else every pixel."""
+                rays = (int(np.asarray(frame["hit"]).sum()) if "hit" in frame
+                        else np.asarray(frame["rays_o"]).reshape(-1, 3).shape[0])
+                return math.ceil(rays / cfg.chunk)
+
+            def fit_run(cfg, out, loss_seed):
+                """The CLI's fit of ``cfg`` (one validation of five frames)
+                and what a fit line checks: exact launches of rows 9, 2, 10
+                and the draws, the run's first batch's loss under one set of
+                draws falling from the initial weights' to under
+                FIT_ART_LOSS_FALL of it, and the val PSNR above the initial
+                weights'.  Returns the run's trainer, metrics and numbers."""
+                val_ds = SapienDatasetMulti(
+                    cfg.root_dir, "val", img_wh=tuple(cfg.img_wh), use_aabb=cfg.use_aabb,
+                    aabb_pad=cfg.aabb_pad, ray_batch_size=cfg.ray_batch_size,
+                    need_src_imgs=False)
+                val_frames = [val_ds.val_frame(seed=cfg.seed + i)
+                              for i in range(min(cfg.limit_val_batches, 5))]
+                val_chunks = sum(chunks_of(f, cfg) for f in val_frames)
+                trainer, wall_s, launches, _ = run_cli(cfg)
+                params = {k: v.detach().clone() for k, v in trainer.state.params.items()}
+                recs = [json.loads(ln) for ln in (fa_dir / out / cfg.exp_name
+                                                  / "metrics.jsonl").read_text().splitlines()]
+                # learning: the run's first batch with one fixed set of draws
+                # under the run's initial weights and the fitted ones; the
+                # val frames under the initial weights
+                item0 = next(trainer.train_dataset.train_batches(seed=cfg.seed))
+                batch0 = {k: v[0] for k, v in stack_step_batches(
+                    [item0], microbatch=cfg.microbatch_rays, device=dev).items()}
+                init = trainer.system.init_state(prng.split(prng.key(cfg.seed))[1]).params
+
+                def fixed_loss(p):
+                    return accumulated_grads(trainer.system.loss_fn, p, batch0,
+                                             prng.key(loss_seed))[0].item()
+
+                run = {"cfg": cfg, "trainer": trainer, "params": params, "recs": recs,
+                       "wall_s": wall_s, "launches": launches, "val_chunks": val_chunks,
+                       "item0": item0,
+                       "rate": [r["train/rays_per_sec"] for r in recs
+                                if "train/rays_per_sec" in r],
+                       "val": [r["val/psnr"] for r in recs if "val/psnr" in r],
+                       "loss_fresh": fixed_loss(init), "loss_fitted": fixed_loss(params),
+                       "val_fresh": float(np.mean([eval_metrics.psnr(
+                           trainer._render_full(init, f)["comp_rgb"], f["target"])
+                           for f in val_frames]))}
+                steps = cfg.run_max_steps
+                run["checks"] = {
+                    "launches": launches_are(
+                        launches, fused_level_train_art_grads=art_steps * steps,
+                        resample_union=ART_MICRO * steps + val_chunks,
+                        art_mlp_fwd=2 * val_chunks, threefry_uniform=art_steps * steps),
+                    "loss_falls": run["loss_fitted"] < FIT_ART_LOSS_FALL * run["loss_fresh"],
+                    "val_psnr_rises": len(run["val"]) == 1 and run["val"][0] > run["val_fresh"],
+                }
+                run["line"] = {
+                    "steps_per_dispatch": cfg.steps_per_dispatch,
+                    "rays_per_step": cfg.ray_batch_size, "microbatch_rays": cfg.microbatch_rays,
+                    "samples": [cfg.N_samples, cfg.N_importance], "wall_s": wall_s,
+                    "rays_per_sec": run["rate"],
+                    "ms_per_step": [1e3 * cfg.ray_batch_size / r for r in run["rate"]],
+                    "launches": {k: v for k, v in launches.items() if v},
+                    "val_chunks": val_chunks,
+                    "fixed_batch_loss": {"initial_weights": run["loss_fresh"],
+                                         "fitted": run["loss_fitted"],
+                                         "ratio": run["loss_fitted"] / run["loss_fresh"],
+                                         "fall": FIT_ART_LOSS_FALL},
+                    "val_psnr": run["val"], "val_psnr_initial_weights": run["val_fresh"]}
+                return run
+
+            art_steps = 2 * ART_MICRO  # row 9 per step: two levels per microbatch
             # one epoch holds the run and its resume: one validation each
-            cfg_json.update(root_dir=str(data), output_path=str(fa_dir / "results"),
-                            run_max_steps=FIT_ART_STEPS,
-                            samples_per_epoch=FIT_ART_STEPS + FIT_ART_RESUME_STEPS, num_epochs=1)
-            fa_cfg_path = fa_dir / Path(FIT_ART_CONFIG).name
-            fa_cfg_path.write_text(json.dumps(cfg_json))
-            fa_cfg = get_config(["--config", str(fa_cfg_path)])
+            fa_cfg_path, fa_cfg = fit_config(FIT_ART_CONFIG, "results", FIT_ART_STEPS,
+                                             FIT_ART_STEPS + FIT_ART_RESUME_STEPS)
             _, bench_rays, _, _, bench_samples = BENCH_CONTRACTS[1]
             require((fa_cfg.N_samples, fa_cfg.N_importance, fa_cfg.ray_batch_size,
                      fa_cfg.microbatch_rays) == (FIT_ART_COARSE, FIT_ART_FINE, bench_rays,
@@ -2771,50 +2986,22 @@ def main(argv=None) -> int:
                 next(items)
             fa_loader_s["item_ms_warm"] = 1e3 * (time.perf_counter() - t0) / 16
 
-            def chunks_of(frame):
-                return math.ceil(int(np.asarray(frame["hit"]).sum()) / fa_cfg.chunk)
-
-            fa_val_ds = SapienDatasetMulti(fa_cfg.root_dir, "val", **ds_kw)
-            fa_val_frames = [fa_val_ds.val_frame(seed=fa_cfg.seed + i)
-                             for i in range(min(fa_cfg.limit_val_batches, 5))]
-            fa_val_chunks = sum(chunks_of(f) for f in fa_val_frames)
             fa_test_ds = SapienDatasetMulti(fa_cfg.root_dir, "test_val", eval_inference="x",
                                             **ds_kw)
             n_test = len(fa_test_ds)
-            test_chunks = sum(chunks_of(fa_test_ds.test_frame(i, seed=fa_cfg.seed))
+            test_chunks = sum(chunks_of(fa_test_ds.test_frame(i, seed=fa_cfg.seed), fa_cfg)
                               for i in range(n_test))
             per_inst_chunks = sum(chunks_of(fa_test_ds.test_frame(i, seed=fa_cfg.seed,
-                                                                  instance=inst))
+                                                                  instance=inst), fa_cfg)
                                   for inst in range(len(fa_test_ds.ids)) for i in range(n_test))
             sweep_ids = 2 * len(fa_test_ds._degree_dirs(fa_test_ds.ids[0])) - 1
             sweep_chunks = sweep_ids * chunks_of(
-                dict(hit=fa_test_ds._read_frame(fa_test_ds.ids[0], "0_degree", 0)[5][0]))
+                dict(hit=fa_test_ds._read_frame(fa_test_ds.ids[0], "0_degree", 0)[5][0]), fa_cfg)
 
-            fa_trainer, fa_wall_s, fa_launches, _ = run_cli(fa_cfg)
-            fa_params = {k: v.detach().clone() for k, v in fa_trainer.state.params.items()}
+            fa = fit_run(fa_cfg, "results", args.seed + 11)
+            fa_trainer, fa_params, fa_recs = fa["trainer"], fa["params"], fa["recs"]
+            fa_launches, fa_val, fa_val_chunks = fa["launches"], fa["val"], fa["val_chunks"]
             fa_run_dir = fa_dir / "results" / fa_cfg.exp_name
-            fa_recs = [json.loads(ln) for ln in
-                       (fa_run_dir / "metrics.jsonl").read_text().splitlines()]
-            fa_rate = [r["train/rays_per_sec"] for r in fa_recs if "train/rays_per_sec" in r]
-            fa_val = [r["val/psnr"] for r in fa_recs if "val/psnr" in r]
-
-            # learning: the run's first batch with one fixed set of draws
-            # under the run's initial weights and the fitted ones; the five
-            # val frames under the initial weights
-            batch0 = next(fa_trainer.train_dataset.train_batches(seed=fa_cfg.seed))
-            batch0 = {k: v[0] for k, v in stack_step_batches(
-                [batch0], microbatch=fa_cfg.microbatch_rays, device=dev).items()}
-            fa_init = fa_trainer.system.init_state(prng.split(prng.key(fa_cfg.seed))[1]).params
-
-            def fa_fixed_loss(params):
-                return accumulated_grads(fa_trainer.system.loss_fn, params, batch0,
-                                         prng.key(args.seed + 11))[0].item()
-
-            fa_loss_fresh, fa_loss_fitted = fa_fixed_loss(fa_init), fa_fixed_loss(fa_params)
-            fa_val_fresh = float(np.mean([eval_metrics.psnr(
-                fa_trainer._render_full(fa_init, f)["comp_rgb"], f["target"])
-                for f in fa_val_frames]))
-            del fa_init
 
             from torch.profiler import ProfilerActivity, profile
 
@@ -2882,14 +3069,8 @@ def main(argv=None) -> int:
             fa_bounds = scene_aabb(sorted(str(d) for d in data.glob("*/train/*_degree")),
                                    tuple(fa_cfg.img_wh), pad=fa_cfg.aabb_pad)
 
-            art_steps = 2 * ART_MICRO  # row 9 per step: two levels per microbatch
             fa_checks = {
-                "launches": launches_are(
-                    fa_launches, fused_level_train_art_grads=art_steps * FIT_ART_STEPS,
-                    resample_union=ART_MICRO * FIT_ART_STEPS + fa_val_chunks,
-                    art_mlp_fwd=2 * fa_val_chunks, threefry_uniform=art_steps * FIT_ART_STEPS),
-                "loss_falls": fa_loss_fitted < FIT_ART_LOSS_FALL * fa_loss_fresh,
-                "val_psnr_rises": len(fa_val) == 1 and fa_val[0] > fa_val_fresh,
+                **fa["checks"],
                 "resume_continues": (
                     f"resumed from step {FIT_ART_STEPS}" in fa_res_out
                     and fa_res_trainer.global_step == FIT_ART_STEPS + FIT_ART_RESUME_STEPS
@@ -2932,25 +3113,15 @@ def main(argv=None) -> int:
                 "phase": "fit_art", "config": FIT_ART_CONFIG,
                 "fixture": {"wh": [320, 240], "instances": len(fa_train.ids), "degrees": 10,
                             "train_per_degree": FIT_ART_VIEWS, "test_spheric": "obj_a"},
-                "steps": FIT_ART_STEPS, "steps_per_dispatch": fa_cfg.steps_per_dispatch,
-                "rays_per_step": fa_cfg.ray_batch_size, "microbatch_rays": fa_cfg.microbatch_rays,
-                "samples": [fa_cfg.N_samples, fa_cfg.N_importance],
-                "loader": fa_loader_s, "wall_s": fa_wall_s,
-                "rays_per_sec": fa_rate,
-                "ms_per_step": [1e3 * fa_cfg.ray_batch_size / r for r in fa_rate],
+                "steps": FIT_ART_STEPS, **fa["line"], "loader": fa_loader_s,
                 "profile": {"dispatches": FIT_PROFILE_DISPATCHES, "window_ms": fa_window_ms,
                             "ms_per_step": fa_window_ms / (FIT_PROFILE_DISPATCHES
                                                            * fa_cfg.steps_per_dispatch),
                             "device_busy_ms": fa_busy_ms,
                             "device_idle_share": 1.0 - fa_busy_ms / fa_window_ms},
-                "launches": {k: v for k, v in fa_launches.items() if v},
                 "launches_per_step": {"fused_level_train_art_grads": art_steps,
                                       "resample_union": ART_MICRO},
-                "val_chunks": fa_val_chunks, "test_chunks": test_chunks,
-                "fixed_batch_loss": {"initial_weights": fa_loss_fresh, "fitted": fa_loss_fitted,
-                                     "ratio": fa_loss_fitted / fa_loss_fresh,
-                                     "fall": FIT_ART_LOSS_FALL},
-                "val_psnr": fa_val, "val_psnr_initial_weights": fa_val_fresh,
+                "test_chunks": test_chunks,
                 "resume": {"wall_s": fa_res_wall_s, "val_psnr": fa_res_val,
                            "launches": {k: v for k, v in fa_res_launches.items() if v}},
                 "eval": {"wall_s": fa_ev_wall_s,
@@ -2968,9 +3139,42 @@ def main(argv=None) -> int:
                 "checks": fa_checks, "card": card}
             emit(fa_rec)
             require(all(fa_checks.values()), f"fit_art checks failed: {fa_checks}")
+
+            # the objover configuration on the same fixture: its own line
+            phase = "fit_art_objover"
+            _, ov_cfg = fit_config(FIT_OBJOVER_CONFIG, "results_objover", FIT_OBJOVER_STEPS,
+                                   FIT_OBJOVER_STEPS, art_code_smoothness=FIT_OBJOVER_SMOOTHNESS)
+            require((ov_cfg.N_samples, ov_cfg.N_importance, ov_cfg.use_aabb, ov_cfg.use_occgrid,
+                     ov_cfg.obj_ray_oversample, ov_cfg.white_back, ov_cfg.ray_batch_size,
+                     ov_cfg.microbatch_rays) == (64, 128, False, False, 0.5, False,
+                                                 fa_cfg.ray_batch_size, fa_cfg.microbatch_rays),
+                    f"{FIT_OBJOVER_CONFIG} no longer has the objover arguments")
+            ov = fit_run(ov_cfg, "results_objover", args.seed + 12)
+            ov_launches, ov_loss_w = ov["launches"], ov["item0"].get("loss_w")
+            ov_reg = [r["train/loss/reg"] for r in ov["recs"] if "train/loss/reg" in r]
+            ov_checks = {
+                **ov["checks"],
+                "items_carry_loss_w": (ov_loss_w is not None
+                                       and ov_loss_w.shape == (ov_cfg.ray_batch_size,)
+                                       and bool(np.isfinite(ov_loss_w).all())
+                                       and float(ov_loss_w.min()) < 1.0 < float(ov_loss_w.max())),
+                "smoothness_on": (ov["trainer"].cfg.art_code_smoothness == FIT_OBJOVER_SMOOTHNESS
+                                  and len(ov_reg) > 0 and all(math.isfinite(r) for r in ov_reg)),
+            }
+            emit({
+                "phase": "fit_art_objover", "config": FIT_OBJOVER_CONFIG,
+                "overrides": {"art_code_smoothness": FIT_OBJOVER_SMOOTHNESS,
+                              "run_max_steps": FIT_OBJOVER_STEPS},
+                "fixture": "fit_art's", "steps": FIT_OBJOVER_STEPS, **ov["line"],
+                "intervals": "raw", "obj_ray_oversample": ov_cfg.obj_ray_oversample,
+                "loss_w": ({"min": float(ov_loss_w.min()), "max": float(ov_loss_w.max()),
+                            "mean": float(ov_loss_w.mean())} if ov_loss_w is not None else None),
+                "reg": ov_reg, "checks": ov_checks, "card": card})
+            require(all(ov_checks.values()), f"fit_art_objover checks failed: {ov_checks}")
+            del ov
             fit_art_path_launches = {
                 k: fa_launches[k] + fa_res_launches[k] + fa_ev_launches[k] + sweep_launches[k]
-                + per_launches[k] + fa_geo_launches[k] for k in counters}
+                + per_launches[k] + fa_geo_launches[k] + ov_launches[k] for k in counters}
         finally:
             os.chdir(cwd)
             shutil.rmtree(fa_dir, ignore_errors=True)
@@ -3466,19 +3670,21 @@ def main(argv=None) -> int:
                 c.launches = 0
             dp_ref = {}
             with contextlib.redirect_stdout(io.StringIO()):
-                for system, cfg_path in (("vanilla", FIT_CONFIG), ("ae", FIT_AE_CONFIG)):
+                # dp_system, not system: the sweep's checks below still use the
+                # vanilla system built at the start
+                for dp_system, cfg_path in (("vanilla", FIT_CONFIG), ("ae", FIT_AE_CONFIG)):
                     multihost_train_demo.main([
-                        "--system", system, "--config", str(ROOT / cfg_path), "--steps", "1",
-                        "--timed_steps", str(DP_TIMED_STEPS[system]), "--device", "cuda:0",
-                        "--out", str(dp_dir / f"{system}_single.npz")])
+                        "--system", dp_system, "--config", str(ROOT / cfg_path), "--steps", "1",
+                        "--timed_steps", str(DP_TIMED_STEPS[dp_system]), "--device", "cuda:0",
+                        "--out", str(dp_dir / f"{dp_system}_single.npz")])
                 multihost_eval_demo.main([
                     "--config", str(ROOT / FIT_CONFIG), "--wh", str(LPIPS_WH[0]),
                     str(LPIPS_WH[1]), "--chunk", str(CHUNK_RAYS), "--device", "cuda:0",
                     "--out", str(dp_dir / "frame_single.npz")])
             dp_launches = {k: c.launches for k, c in counters.items()}
             dp_rec, dp_checks = {}, {}
-            for system, cfg_path in (("vanilla", FIT_CONFIG), ("ae", FIT_AE_CONFIG)):
-                want = np.load(dp_dir / f"{system}_single.npz")
+            for dp_system, cfg_path in (("vanilla", FIT_CONFIG), ("ae", FIT_AE_CONFIG)):
+                want = np.load(dp_dir / f"{dp_system}_single.npz")
                 lr0 = port_optim.make_optimizer(get_config(["--config", str(ROOT / cfg_path)]))[1](0)
                 runs = {"single": {"ms_per_step": 1e3 * float(np.median(want["timed_step_seconds"])),
                                    "device_idle_share": float(want["device_idle_share"]),
@@ -3486,7 +3692,7 @@ def main(argv=None) -> int:
                 # a flipped step lands 2 lr away, up to the rounding of each sum
                 flip_ulps = 2.0 * np.finfo(np.float32).eps * np.abs(want["params"])
                 for label, world in (("nccl1", 1), ("gloo2", 2)):
-                    ranks = [np.load(dp_dir / f"{system}_{label}_r{r}.npz") for r in range(world)]
+                    ranks = [np.load(dp_dir / f"{dp_system}_{label}_r{r}.npz") for r in range(world)]
                     diff = np.abs(ranks[0]["params"] - want["params"])
                     loss_rel = abs(float(ranks[0]["loss"]) - float(want["loss"])) / float(want["loss"])
                     runs[label] = {
@@ -3495,12 +3701,12 @@ def main(argv=None) -> int:
                         "ms_per_step": [1e3 * float(np.median(r["timed_step_seconds"]))
                                         for r in ranks],
                         "device_idle_share": [float(r["device_idle_share"]) for r in ranks]}
-                    dp_checks[f"{system}_{label}"] = bool(
+                    dp_checks[f"{dp_system}_{label}"] = bool(
                         all(int(r["processes"]) == world for r in ranks)
                         and all(np.array_equal(r["params"], ranks[0]["params"]) for r in ranks)
                         and loss_rel <= TOL_DP_LOSS and np.all(diff <= 2.0 * lr0 + flip_ulps)
                         and diff.mean() <= DP_PARAMS_MEAN_LR * lr0)
-                dp_rec[system] = {"config": cfg_path, "lr0": lr0, **runs}
+                dp_rec[dp_system] = {"config": cfg_path, "lr0": lr0, **runs}
             frame_want = np.load(dp_dir / "frame_single.npz")
             frame_err = {}
             for label, world in (("nccl1", 1), ("gloo2", 2)):

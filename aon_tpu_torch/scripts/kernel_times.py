@@ -43,9 +43,10 @@ import sys
 import time
 
 # (rays, coarse t-values, fine quantiles, shared eval row): the render chunk,
-# a training microbatch, and the bench's two contracts' microbatches
+# a training microbatch, the bench's two contracts' microbatches and the occ8
+# config's
 RESAMPLE_SHAPES = ((61440, 65, 128, True), (2048, 65, 128, False),
-                   (2048, 17, 32, False), (2048, 25, 48, False))
+                   (2048, 17, 32, False), (2048, 25, 48, False), (2048, 9, 16, False))
 POSENC_ROWS = (256, 65536)  # row 14's check and one extraction block
 REPS = 100  # warm calls per profiled and per back-to-back time
 SEED = 0

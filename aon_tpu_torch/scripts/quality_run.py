@@ -35,7 +35,10 @@ from ``DIR/results/{exp_name}/last.ckpt`` where one exists, and then, unless
 auto-decoder ``eval_per_instance`` and ``render_sweep``, and an extraction
 over the dataset's bounds; their ``ckpts/`` land under ``DIR``.  It prints one
 JSON line per part (``fit``, ``test``, ``test_split``, ``per_instance``,
-``sweep``, ``geometry``, ``curve``) and returns them.
+``sweep``, ``geometry``, ``curve``, and ``gaps``: the mean gap over the
+shared vals, over the last five and at the last, of val/psnr and, where both
+files log them, val/psnr_obj and val/state_error_rad) and returns them.
+``PORT_METRICS_JSONL --gaps`` prints those gaps alone.
 
 ``--sweep FILE ...`` prints the 19-frame sweeps' PSNR split into the
 learned codes' (even) frames and the interpolated codes' (odd) frames, from
@@ -53,21 +56,42 @@ from pathlib import Path
 REFERENCE = "results/laptop_vanilla_refsched_occ16/metrics.jsonl"
 
 
-def val_curve(metrics_jsonl) -> dict:
-    """{step: val/psnr} of a metrics.jsonl."""
+# the val metrics compare() reads: PSNR, the object's PSNR, and the
+# auto-encoder's joint-state error
+CURVE_KEYS = ("val/psnr", "val/psnr_obj", "val/state_error_rad")
+
+
+def val_curve(metrics_jsonl, key: str = "val/psnr") -> dict:
+    """{step: ``key``} of a metrics.jsonl, at the steps that log it."""
     curve = {}
     for line in Path(metrics_jsonl).read_text().splitlines():
         rec = json.loads(line)
-        if "val/psnr" in rec:
-            curve[int(rec["step"])] = float(rec["val/psnr"])
+        if key in rec:
+            curve[int(rec["step"])] = float(rec[key])
     return curve
 
 
-def compare(port_jsonl, reference_jsonl) -> list:
-    """[step, port val/psnr, reference val/psnr, port - reference] at every
+def compare(port_jsonl, reference_jsonl, key: str = "val/psnr") -> list:
+    """[step, port ``key``, reference ``key``, port - reference] at every
     step both curves have."""
-    port, ref = val_curve(port_jsonl), val_curve(reference_jsonl)
+    port, ref = val_curve(port_jsonl, key), val_curve(reference_jsonl, key)
     return [[s, port[s], ref[s], port[s] - ref[s]] for s in sorted(port) if s in ref]
+
+
+def curves(port_jsonl, reference_jsonl) -> dict:
+    """compare() of each of CURVE_KEYS that both files log at a shared step."""
+    out = {key: compare(port_jsonl, reference_jsonl, key) for key in CURVE_KEYS}
+    return {key: rows for key, rows in out.items() if rows}
+
+
+def gaps(rows) -> dict:
+    """A compare() curve in a few numbers: the mean gap over its steps, over
+    its last five, and its last step's values."""
+    last = rows[-1]
+    return {"steps": len(rows), "mean_gap": sum(r[3] for r in rows) / len(rows),
+            "mean_gap_last5": sum(r[3] for r in rows[-5:]) / len(rows[-5:]),
+            "last_step": last[0], "last_port": last[1], "last_reference": last[2],
+            "last_gap": last[3]}
 
 
 def sweep_split(path) -> dict:
@@ -144,6 +168,8 @@ def run(config, out, overrides=(), reference=None, evals: bool = True,
                               if k in geo})
         if reference:
             emit("curve", compare(metrics, Path(cwd) / reference))
+            emit("gaps", {key: gaps(rows)
+                          for key, rows in curves(metrics, Path(cwd) / reference).items()})
     finally:
         os.chdir(cwd)
     return parts
@@ -159,6 +185,8 @@ def main(argv=None):
     ap.add_argument("--set", action="append", default=[], metavar="KEY=JSON",
                     help="a config override (with --run)")
     ap.add_argument("--no_eval", action="store_true", help="train only (with --run)")
+    ap.add_argument("--gaps", action="store_true",
+                    help="print gaps() of each of CURVE_KEYS both files log, not the curve")
     ap.add_argument("--sweep", nargs="+", default=None, metavar="JSON",
                     help="results.json or per_instance.json files: print each sweep's "
                          "learned- and interpolated-code means")
@@ -173,7 +201,12 @@ def main(argv=None):
         return run(args.run, args.out, args.set, args.reference, evals=not args.no_eval)
     if not args.port:
         ap.error("give a metrics.jsonl or --run")
-    rows = compare(args.port, args.reference or REFERENCE)
+    reference = args.reference or REFERENCE
+    if args.gaps:
+        out = {key: gaps(rows) for key, rows in curves(args.port, reference).items()}
+        print(json.dumps(out), flush=True)
+        return out
+    rows = compare(args.port, reference)
     print(json.dumps(rows), flush=True)
     return rows
 

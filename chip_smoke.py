@@ -99,7 +99,12 @@ Phases, each printed as one JSON line on stdout (nothing else goes there):
            2 and 9 at the bench's shapes: the first 2,048 rays of each bench
            batch, t stratified in their per-ray intervals and then resampled
            (vanilla 17 and 49 samples on occupancy intervals, the auto-decoder
-           25 and 73 on AABB intervals);
+           25 and 73 on AABB intervals); then the occ8 config's shapes
+           (configs/quality_laptop_vanilla_refsched_occ8.json, 8 + 16
+           samples): rows 3 and 2 the same way at 2,048 x 9, 16 fine draws
+           and x 25 on the bench's occupancy intervals with a white
+           background, and row 1 at 61,440 x 9 and x 25 on occupancy
+           intervals, each against its twin and timed;
   art_path three 640x480 frames (one cold, two timed) through
            AutoDecoderSystem.render_chunk at chunk 61440, two (instance,
            articulation) pairs and one is_test midpoint id, launch counts per
@@ -180,6 +185,14 @@ Phases, each printed as one JSON line on stdout (nothing else goes there):
            --run_eval (19 frames, each encoding its own image) and
            extract_geometry with the dataset's bounds, each with its exact
            launches;
+  fit_ae_raw  the auto-encoder's own config, configs/quality_laptop_ae.json
+           (64 + 128 samples on raw intervals, relu sigma, 4,096 rays a step),
+           through the same CLI on fit_ae's fixture, overriding only
+           root_dir, output_path, run_max_steps, samples_per_epoch and
+           num_epochs: FIT_AE_RAW_STEPS steps and one validation (rays/s,
+           exact launches of rows 9, 2 and 10, the loss and the joint-state
+           loss over the run's first eight batches falling as fit_ae's, val
+           PSNR and the joint-state metrics finite);
   lpips    VGG16-LPIPS (aon_tpu_torch/eval/lpips.py) of two 640x480 frames on
            the card, on synthetic weights that the port's
            make_synthetic_lpips_weights writes under build/ at the start of
@@ -237,7 +250,7 @@ Phases, each printed as one JSON line on stdout (nothing else goes there):
 
 with --seeds K > 1, a ``sweep`` line for each further seed and one that sums
 them up: the articulated kernels' training checks, the checks at the bench's
-shapes and the bench's interval first step, untimed, on the weights and
+shapes and at the occ8 config's and the bench's interval first step, untimed, on the weights and
 draws of seeds seed+1 .. seed+K-1 (every check must pass on every seed);
 
 with --profile, two ``profile`` lines as well: torch.profiler over five warm v3
@@ -466,6 +479,17 @@ FIT_AE_STEPS, FIT_AE_RESUME_STEPS = 240, 16
 # (0.72) after 400 steps on an H100, the joint-state part 0.282 -> 0.003
 FIT_AE_LOSS_FALL = 0.95
 ENCODER_REPS = 10  # timed encoder forward / backward passes
+# ---- the fit_ae_raw phase: the auto-encoder's own config (64 + 128 samples
+# on raw intervals, relu sigma) through the same CLI on fit_ae's fixture, cut
+# only in depth (its lr horizon its own step count), its fixed batches' loss
+# held as fit_ae's
+FIT_AE_RAW_CONFIG = "configs/quality_laptop_ae.json"
+FIT_AE_RAW_STEPS = 240
+
+# ---- the occ8 vanilla config (8 + 16 samples on occupancy intervals: 9 and
+# 25 a ray, which no other path gives rows 1, 2 and 3): its level checks on the
+# bench's occupancy intervals, row 1 at the render chunk
+OCC8_CONFIG = "configs/quality_laptop_vanilla_refsched_occ8.json"
 
 # ---- the lpips, optim and dp phases: each draws from a generator of its own
 LPIPS_WH = (640, 480)
@@ -630,6 +654,15 @@ def level_forward_check(torch, got, twin, t_vals, rays_d, target, *, white_bkgd,
                  and (zeroed is None or rec["raw_zeroed_mean_abs_err"] <= tol_raw[1])
                  and max(fwd) <= tol_forward)
     return rec
+
+
+def config_contract(config, batch_seed: int = 0) -> tuple:
+    """A vanilla quality config's level checks as an entry of
+    BENCH_CONTRACTS: (system, rays a step, interval kind, _synthetic_batch
+    seed, samples of each level)."""
+    c = json.loads((ROOT / config).read_text())
+    kind = "occ" if c.get("use_occgrid") else "aabb" if c.get("use_aabb") else None
+    return ("vanilla", c["batch_size"], kind, batch_seed, (c["N_samples"], c["N_importance"]))
 
 
 def geometry_files_ok(out_dir, out) -> bool:
@@ -2154,19 +2187,22 @@ def main(argv=None) -> int:
         # weights
         phase = "kernel:bench_shapes"
 
-        def bench_shape_checks(seed, timed=True, strict=True):
+        def bench_shape_checks(seed, timed=True, strict=True, contracts=BENCH_CONTRACTS,
+                               label="bench"):
             """Rows 3 and 9, and row 2 between their levels, on the first
             2,048 rays of each bench batch (vanilla 17 + 32 samples on
             occupancy intervals, white background; the auto-decoder 25 + 48 on
             AABB intervals), against their twins, on the weights and draws of
-            ``seed``; the records by (kernel, samples)."""
+            ``seed``; the records by (kernel, samples).  ``contracts`` and
+            ``label`` put other shapes through the same checks (the occ8
+            config's)."""
             gen = torch.Generator(device=dev).manual_seed(seed + 14)
             recs = {}
-            for system_name, n_rays, tight, batch_seed, (n_c, n_f) in BENCH_CONTRACTS:
+            for system_name, n_rays, tight, batch_seed, (n_c, n_f) in contracts:
                 hb = port_bench._synthetic_batch(n_rays, tight, seed=batch_seed)
                 b = {k: torch.from_numpy(v[:TRAIN_RAYS]).to(dev) for k, v in hb.items()}
                 ro, rd, vd, tg = b["rays_o"], b["rays_d"], b["viewdirs"], b["target"]
-                contract = f"{system_name} bench, {tight} intervals"
+                contract = f"{system_name} {label}, {tight} intervals"
                 t_lvl, _ = sample_along_rays(ro, rd, n_c, b["t_near"], b["t_far"],
                                              randomized=True, t_rand=torch.rand(
                                                  TRAIN_RAYS, n_c + 1, generator=gen, device=dev))
@@ -2229,6 +2265,26 @@ def main(argv=None) -> int:
             return recs
 
         bench_shape_rows = bench_shape_checks(args.seed)
+
+        # ------------------------------------------------------ occ8 shapes
+        # rows 3 and 2 between the occ8 config's levels (2,048 x 9, then 16
+        # fine draws to x 25) through the bench shapes' checks, and row 1 at
+        # the render chunk on occupancy intervals at 61,440 x 9 and x 25
+        phase = "kernel:occ8"
+        occ8_contract = config_contract(OCC8_CONFIG)
+        require(occ8_contract == ("vanilla", TRAIN_RAYS, "occ", 0, (8, 16)),
+                f"{OCC8_CONFIG} no longer has the occ8 shapes")
+        occ8_rows = bench_shape_checks(args.seed, contracts=(occ8_contract,), label="occ8 config")
+        occ8_batch = port_bench._synthetic_batch(CHUNK_RAYS, "occ", seed=0)
+        near, far = (torch.from_numpy(occ8_batch[k]).to(dev) for k in ("t_near", "t_far"))
+        n_c, n_f = occ8_contract[-1]
+        occ8_mlp_rows = {}
+        for n_samples in (n_c + 1, n_c + 1 + n_f):
+            _, samples = sample_along_rays(origins, dirs, n_samples - 1, near, far)
+            occ8_mlp_rows[n_samples] = mlp_eval_record(packed, samples.contiguous(), dirs)
+            del samples
+        del occ8_batch, near, far
+        torch.cuda.empty_cache()
 
         # --------------------------------------------------------- art path
         phase = "art_path"
@@ -3244,26 +3300,34 @@ def main(argv=None) -> int:
             # 8 joint angles) with one fixed set of draws under the run's
             # initial weights and the fitted ones; the five val frames under
             # the initial weights
-            ae_it = ae_trainer.train_dataset.train_batches(seed=ae_run_cfg.seed)
-            ae_batches = []
-            for j in range(ae_run_cfg.steps_per_dispatch):
-                b = next(ae_it)
-                inject_ramps(ae_run_cfg, b, j)
-                ae_batches.append({k: v[0] for k, v in stack_step_batches(
-                    [b], microbatch=ae_run_cfg.microbatch_rays, device=dev).items()})
-            ae_init = ae_trainer.system.init_state(
-                prng.split(prng.key(ae_run_cfg.seed))[1]).params
-
-            def ae_fixed_losses(params):
+            def ae_fixed_batches(trainer, cfg):
+                """The run's first dispatch of items, stacked as a step
+                stacks them, each with its step's ramps."""
+                it = trainer.train_dataset.train_batches(seed=cfg.seed)
                 out = []
-                for b in ae_batches:
-                    loss, aux, _ = accumulated_grads(ae_trainer.system.loss_fn, params, b,
+                for j in range(cfg.steps_per_dispatch):
+                    b = next(it)
+                    inject_ramps(cfg, b, j)
+                    out.append({k: v[0] for k, v in stack_step_batches(
+                        [b], microbatch=cfg.microbatch_rays, device=dev).items()})
+                return out
+
+            def ae_fixed_losses(trainer, batches, params):
+                """The mean loss and joint-state loss over ``batches`` under
+                one fixed set of draws."""
+                out = []
+                for b in batches:
+                    loss, aux, _ = accumulated_grads(trainer.system.loss_fn, params, b,
                                                      prng.key(args.seed + 11))
                     out.append((loss.item(), aux["loss_state"].item()))
                 return [float(np.mean([o[i] for o in out])) for i in (0, 1)]
 
+            ae_batches = ae_fixed_batches(ae_trainer, ae_run_cfg)
+            ae_init = ae_trainer.system.init_state(
+                prng.split(prng.key(ae_run_cfg.seed))[1]).params
             (ae_loss_fresh, ae_state_fresh), (ae_loss_fitted, ae_state_fitted) = (
-                ae_fixed_losses(ae_init), ae_fixed_losses(ae_params))
+                ae_fixed_losses(ae_trainer, ae_batches, ae_init),
+                ae_fixed_losses(ae_trainer, ae_batches, ae_params))
             ae_val_fresh = float(np.mean([eval_metrics.psnr(
                 ae_trainer._render_full(ae_init, f)["comp_rgb"], f["target"])
                 for f in ae_val_frames]))
@@ -3472,6 +3536,78 @@ def main(argv=None) -> int:
             fit_ae_path_launches = {
                 k: ae_launches[k] + ae_res_launches[k] + ae_ev_launches[k] + ae_geo_launches[k]
                 for k in counters}
+            del ae_trainer, ae_res_trainer, ae_params, ae_batches
+            torch.cuda.empty_cache()
+
+            # the auto-encoder's own config on the same fixture: 64 + 128
+            # samples on raw intervals, relu sigma; a fit and its validation
+            phase = "fit_ae_raw"
+            raw_json = json.loads((ROOT / FIT_AE_RAW_CONFIG).read_text())
+            raw_json.update(root_dir=str(data), output_path=str(ae_dir / "results_raw"),
+                            run_max_steps=FIT_AE_RAW_STEPS, samples_per_epoch=FIT_AE_RAW_STEPS,
+                            num_epochs=1)
+            raw_cfg_path = ae_dir / Path(FIT_AE_RAW_CONFIG).name
+            raw_cfg_path.write_text(json.dumps(raw_json))
+            raw_cfg = get_config(["--config", str(raw_cfg_path)])
+            require((raw_cfg.exp_type, raw_cfg.N_samples, raw_cfg.N_importance, raw_cfg.use_aabb,
+                     raw_cfg.ae_sigma_activation, raw_cfg.ray_batch_size,
+                     raw_cfg.microbatch_rays, tuple(raw_cfg.img_wh))
+                    == ("vanilla_ae_art", N_COARSE, N_FINE, False, "relu",
+                        ART_MICRO * TRAIN_RAYS, TRAIN_RAYS, (320, 240)),
+                    f"{FIT_AE_RAW_CONFIG} no longer has the raw auto-encoder's arguments")
+            # raw intervals: a val frame renders every pixel
+            raw_val_chunks = min(raw_cfg.limit_val_batches, 5) * math.ceil(
+                raw_cfg.img_wh[0] * raw_cfg.img_wh[1] / raw_cfg.chunk)
+            raw_trainer, raw_wall_s, raw_launches, _ = run_cli(raw_cfg)
+            raw_params = {k: v.detach().clone() for k, v in raw_trainer.state.params.items()}
+            raw_recs = [json.loads(ln) for ln in (ae_dir / "results_raw" / raw_cfg.exp_name
+                                                  / "metrics.jsonl").read_text().splitlines()]
+            raw_rate = [r["train/rays_per_sec"] for r in raw_recs if "train/rays_per_sec" in r]
+            raw_val = [r for r in raw_recs if "val/psnr" in r]
+            raw_batches = ae_fixed_batches(raw_trainer, raw_cfg)
+            raw_init = raw_trainer.system.init_state(
+                prng.split(prng.key(raw_cfg.seed))[1]).params
+            (raw_loss_fresh, raw_state_fresh), (raw_loss_fitted, raw_state_fitted) = (
+                ae_fixed_losses(raw_trainer, raw_batches, raw_init),
+                ae_fixed_losses(raw_trainer, raw_batches, raw_params))
+            del raw_init
+            raw_checks = {
+                "launches": launches_are(
+                    raw_launches, fused_level_train_art_grads=art_steps * FIT_AE_RAW_STEPS,
+                    resample_union=ART_MICRO * FIT_AE_RAW_STEPS + raw_val_chunks,
+                    art_mlp_fwd=2 * raw_val_chunks,
+                    threefry_uniform=art_steps * FIT_AE_RAW_STEPS),
+                "raw_intervals": "t_near" not in raw_batches[0],
+                "loss_falls": raw_loss_fitted < FIT_AE_LOSS_FALL * raw_loss_fresh,
+                "loss_state_falls": raw_state_fitted < raw_state_fresh,
+                "val_finite": len(raw_val) == 1 and math.isfinite(raw_val[0]["val/psnr"]),
+                "val_state_metrics": len(raw_val) == 1 and all(
+                    math.isfinite(raw_val[0].get(k, math.nan)) for k in val_keys),
+            }
+            emit({
+                "phase": "fit_ae_raw", "config": FIT_AE_RAW_CONFIG,
+                "overrides": {"run_max_steps": FIT_AE_RAW_STEPS}, "fixture": "fit_ae's",
+                "steps": FIT_AE_RAW_STEPS, "steps_per_dispatch": raw_cfg.steps_per_dispatch,
+                "rays_per_step": raw_cfg.ray_batch_size,
+                "microbatch_rays": raw_cfg.microbatch_rays,
+                "samples": [raw_cfg.N_samples, raw_cfg.N_importance], "intervals": "raw",
+                "sigma_activation": raw_cfg.ae_sigma_activation, "wall_s": raw_wall_s,
+                "rays_per_sec": raw_rate,
+                "ms_per_step": [1e3 * raw_cfg.ray_batch_size / r for r in raw_rate],
+                "launches": {k: v for k, v in raw_launches.items() if v},
+                "val_chunks": raw_val_chunks,
+                "fixed_batches_loss": {"batches": len(raw_batches),
+                                       "initial_weights": raw_loss_fresh,
+                                       "fitted": raw_loss_fitted,
+                                       "ratio": raw_loss_fitted / raw_loss_fresh,
+                                       "fall": FIT_AE_LOSS_FALL,
+                                       "loss_state_initial_weights": raw_state_fresh,
+                                       "loss_state_fitted": raw_state_fitted},
+                "val": [{k: r.get(k) for k in val_keys} for r in raw_val],
+                "checks": raw_checks, "card": card})
+            require(all(raw_checks.values()), f"fit_ae_raw checks failed: {raw_checks}")
+            fit_ae_raw_launches = raw_launches
+            del raw_trainer, raw_params, raw_batches
         finally:
             os.chdir(cwd)
             shutil.rmtree(ae_dir, ignore_errors=True)
@@ -4022,14 +4158,15 @@ def main(argv=None) -> int:
         # weights, codes, rays and draws, untimed
         phase = "sweep"
 
-        def sweep_line(seed, art, shapes, interval):
+        def sweep_line(seed, art, shapes, occ8, interval):
             """What one seed's checks read: per gradient check the two
             measures and the worst tensor, and the deformation's direction and
             size; the interval first step's errors and cosines."""
             grad_recs = {**{f"{k}/{m or 'cotangent'}/{n}": r for (k, m, n), r in art.items()
                             if k != "art_mlp_fwd"},
-                         **{f"{k}/bench/{n}": r for (k, n), r in shapes.items()
-                            if k != "resample_union"}}
+                         **{f"{k}/{label}/{n}": r
+                            for label, recs in (("bench", shapes), ("occ8", occ8))
+                            for (k, n), r in recs.items() if k != "resample_union"}}
             return {
                 "phase": "sweep", "seed": seed,
                 "grads": {name: {"max": r["max_abs_err"], "mean": r["mean_rel_err"],
@@ -4042,8 +4179,9 @@ def main(argv=None) -> int:
                           for name, r in grad_recs.items()},
                 "art_mlp_fwd_max_abs_err": max(r["max_abs_err"] for (k, *_), r in art.items()
                                                if k == "art_mlp_fwd"),
-                "resample_max_abs_err": max(r["max_abs_err"] for (k, _), r in shapes.items()
-                                            if k == "resample_union"),
+                "resample_max_abs_err": max(r["max_abs_err"]
+                                            for r in (*shapes.values(), *occ8.values())
+                                            if r["name"] == "resample_union"),
                 "interval": {
                     name: {r: {k: cmp[k] for k in ("loss_rel", "grad_max_rel", "grad_mean_rel",
                                                      "cos", "cos_by_code_table") if k in cmp}
@@ -4053,15 +4191,20 @@ def main(argv=None) -> int:
 
         sweep, failed = [], []
         if args.seeds > 1:
-            sweep.append(sweep_line(args.seed, art_train0, bench_shape_rows, interval_first))
+            sweep.append(sweep_line(args.seed, art_train0, bench_shape_rows, occ8_rows,
+                                    interval_first))
         for seed in range(args.seed + 1, args.seed + args.seeds):
-            art, shapes = (art_train_checks(seed, timed=False, strict=False),
-                           bench_shape_checks(seed, timed=False, strict=False))
+            art, shapes, occ8 = (art_train_checks(seed, timed=False, strict=False),
+                                 bench_shape_checks(seed, timed=False, strict=False),
+                                 bench_shape_checks(seed, timed=False, strict=False,
+                                                    contracts=(occ8_contract,),
+                                                    label="occ8 config"))
             interval = interval_first_step(seed)
-            sweep.append(sweep_line(seed, art, shapes, interval))
+            sweep.append(sweep_line(seed, art, shapes, occ8, interval))
             emit(sweep[-1])
             failed += [f"seed {seed}: {r['name']} {r.get('arguments', {}).get('mode', '')} "
-                       f"{r['shape']}" for r in (*art.values(), *shapes.values())
+                       f"{r.get('contract', '')} {r['shape']}"
+                       for r in (*art.values(), *shapes.values(), *occ8.values())
                        if not r.get("ok", True)]
             failed += [f"seed {seed}: interval first step, {name}"
                        for name, r in interval.items() if not r["ok"]]
@@ -4472,11 +4615,13 @@ def main(argv=None) -> int:
             e = by_name[kname]
             e["launches"] += fit_art_path_launches[kname]
             e["launches_by_path"]["fit_art"] = fit_art_path_launches[kname]
-        # the fit_ae phase's CLI runs and extraction
+        # the fit_ae phase's CLI runs and extraction, and the fit_ae_raw fit
         for kname in ("fused_level_train_art_grads", "resample_union", "art_mlp_fwd"):
             e = by_name[kname]
-            e["launches"] += fit_ae_path_launches[kname]
-            e["launches_by_path"]["fit_ae"] = fit_ae_path_launches[kname]
+            for path, launched in (("fit_ae", fit_ae_path_launches),
+                                   ("fit_ae_raw", fit_ae_raw_launches)):
+                e["launches"] += launched[kname]
+                e["launches_by_path"][path] = launched[kname]
         # the optim phase's CLI fit and the dp phase's one-process steps and frame
         for path, launched in (("optim", optim_launches), ("dp", dp_launches),
                                ("scripts", scripts_launches)):
@@ -4486,12 +4631,16 @@ def main(argv=None) -> int:
                     e.setdefault("launches_by_path", {"train": e["launches"]})
                     e["launches"] += n
                     e["launches_by_path"][path] = n
-        # and their checks at the bench's shapes
+        # and their checks at the bench's shapes and at the occ8 config's
         for kname in ("resample_union", "fused_level_train_grads", "fused_level_train_art_grads"):
-            by_name[kname]["bench_shapes"] = [
-                {k: r[k] for k in ("contract", "shape") + keys
-                 + (device_keys + ("fused_resample",) if kname == "resample_union" else ())}
-                for (n, _), r in bench_shape_rows.items() if n == kname]
+            for key, rows in (("bench_shapes", bench_shape_rows), ("occ8", occ8_rows)):
+                recs = [{k: r[k] for k in ("contract", "shape") + keys
+                         + (device_keys + ("fused_resample",) if kname == "resample_union" else ())}
+                        for (n, _), r in rows.items() if n == kname]
+                if recs:
+                    by_name[kname][key] = recs
+        by_name["fused_nerf_mlp_xyz_eval"]["occ8"] = [
+            {k: r[k] for k in ("shape",) + keys} for r in occ8_mlp_rows.values()]
 
         def variant_entry(kname):
             rec = variant_rows[kname]
@@ -4523,6 +4672,7 @@ def main(argv=None) -> int:
                    "fit": fit_path_launches["threefry_uniform"],
                    "fit_art": fit_art_path_launches["threefry_uniform"],
                    "fit_ae": fit_ae_path_launches["threefry_uniform"],
+                   "fit_ae_raw": fit_ae_raw_launches["threefry_uniform"],
                    "optim": optim_launches["threefry_uniform"],
                    "scripts": scripts_launches.get("threefry_uniform", 0)}
         big = max(prng_rows, key=lambda r: r["shape"][0] * r["shape"][1])

@@ -28,6 +28,10 @@ activations.  Cases: a zeroed entry past the max, or a live or zeroed mean
 past its bound, fails; one live entry that moves the live forward by 3x the
 tolerance fails in both activations; the last-interval flip passes there too.
 
+The occ8 config's coarse level (9 samples on occupancy intervals, white
+background) passes the flip case too, and chip_smoke's occ8 checks read
+their shapes from the config (``config_contract``).
+
 No JAX here: the check is the port's own arithmetic, and its compositing is
 held to the levels' twins (whose compositing the JAX suite holds to the
 Pallas kernels in tests/test_torch_train_kernels.py and
@@ -79,12 +83,19 @@ MODES = {
 }
 
 
-def _rays(seed, n=B):
+def _rays(seed, n=B, s=S, occ=False):
+    """``n`` rays of ``s`` sorted samples in [2, 6] or, with ``occ``, in
+    per-ray occupancy-like intervals (scripts/bench.py's "occ" ladder)."""
     g = np.random.default_rng(seed)
     rays_d = g.normal(size=(n, 3)).astype(np.float32)
     rays_d /= np.linalg.norm(rays_d, axis=-1, keepdims=True)
     rays_o = (-4.0 * rays_d + 0.3 * g.normal(size=(n, 3))).astype(np.float32)
-    t = np.sort(2.0 + 4.0 * g.random((n, S)), axis=-1).astype(np.float32)
+    if occ:
+        near = g.normal(3.73, 0.4, size=(n, 1)).clip(3.0, 4.5)
+        span = g.lognormal(np.log(0.13), 0.9, size=(n, 1)).clip(0.03, 1.37)
+        t = np.sort(near + span * g.random((n, s)), axis=-1).astype(np.float32)
+    else:
+        t = np.sort(2.0 + 4.0 * g.random((n, s)), axis=-1).astype(np.float32)
     target = g.random((n, 3)).astype(np.float32)
     loss_w = (g.random(n) + 0.5).astype(np.float32) / (3.0 * n)
     return {k: torch.from_numpy(v) for k, v in dict(
@@ -119,17 +130,18 @@ def _check(got, twin, r, mode, zeroed=None):
         tol_forward=tol_raw[0], zeroed=zeroed, **kw, **extra)
 
 
-def _flip_case(n=B):
-    """Twin and kernel raw outputs 1e-4 apart over ``n`` rays, an empty ray 0
-    and its last raw sigma -0.0003 (twin) against +0.0002 (kernel)."""
-    r = _rays(3, n)
+def _flip_case(n=B, s=S, occ=False):
+    """Twin and kernel raw outputs 1e-4 apart over ``n`` rays of ``s``
+    samples, an empty ray 0 and its last raw sigma -0.0003 (twin) against
+    +0.0002 (kernel)."""
+    r = _rays(3, n, s, occ)
     g = torch.Generator().manual_seed(5)
-    twin_rgb = torch.randn(n, S, 3, generator=g)
-    twin_sigma = torch.randn(n, S, generator=g) * 2.0
+    twin_rgb = torch.randn(n, s, 3, generator=g)
+    twin_sigma = torch.randn(n, s, generator=g) * 2.0
     twin_sigma[0] = -1.0
     twin_sigma[0, -1] = -0.0003
-    noise = lambda *s: (torch.rand(*s, generator=g) * 2.0 - 1.0) * 1e-4  # noqa: E731
-    k_rgb, k_sigma = twin_rgb + noise(n, S, 3), twin_sigma + noise(n, S)
+    noise = lambda *shape: (torch.rand(*shape, generator=g) * 2.0 - 1.0) * 1e-4  # noqa: E731
+    k_rgb, k_sigma = twin_rgb + noise(n, s, 3), twin_sigma + noise(n, s)
     k_sigma[0, -1] = 0.0002
     return r, {"raw_rgb": twin_rgb, "raw_sigma": twin_sigma}, k_rgb, k_sigma
 
@@ -149,6 +161,33 @@ def test_last_interval_flip_passes(mode):
     if mode == "autoencoder":  # and the live part, after the relu, does not see it
         rec = _check(got, want, r, mode, zeroed=({"raw_rgb": k_rgb, "raw_sigma": k_sigma}, twin))
         assert rec["ok"] and rec["live_forward_max_err"] < 1e-3, rec
+
+
+def test_the_occ8_shapes_are_the_configs():
+    """chip_smoke's occ8 checks take the config's shapes: 2,048 rays of 8 +
+    16 samples (9 and 25 a level) on occupancy intervals."""
+    contract = chip_smoke.config_contract(chip_smoke.OCC8_CONFIG)
+    assert contract == ("vanilla", 2048, "occ", 0, (8, 16))
+    kinds = [chip_smoke.config_contract(f"configs/quality_laptop_vanilla_refsched{c}.json")[2]
+             for c in ("", "_aabb16", "_occ16")]
+    assert kinds == [None, "aabb", "occ"]
+
+
+def test_last_interval_flip_passes_at_the_occ8_configs_9_samples():
+    """The occ8 config's coarse level on chip_smoke's occupancy intervals,
+    white background: 9 samples, the last raw sigma straddling 0 (the
+    twin's -0.0003, the kernel's +0.0002) on the empty ray 0.  The check
+    passes, though the last weight there parts by the ray's transmittance."""
+    n_samples = chip_smoke.config_contract(chip_smoke.OCC8_CONFIG)[-1][0] + 1
+    r, twin, k_rgb, k_sigma = _flip_case(s=n_samples, occ=True)
+    assert twin["raw_sigma"].shape == (B, 9)
+    got = _composite(k_rgb, k_sigma, r, "vanilla")
+    rec = _check(got, twin, r, "vanilla")
+    assert rec["ok"], rec
+    assert rec["weights_max_abs_err"] <= 1e-6 and rec["loss_rel_err"] <= 1e-6, rec
+    want = _composite(twin["raw_rgb"], twin["raw_sigma"], r, "vanilla")
+    assert want["weights"][0, -1].item() == 0.0
+    assert (got["weights"] - want["weights"]).abs().max().item() > 0.9 > TWIN_TOL_MAX
 
 
 @pytest.mark.parametrize("mode", list(MODES))

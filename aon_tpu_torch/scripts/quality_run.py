@@ -38,7 +38,13 @@ JSON line per part (``fit``, ``test``, ``test_split``, ``per_instance``,
 ``sweep``, ``geometry``, ``curve``, and ``gaps``: the mean gap over the
 shared vals, over the last five and at the last, of val/psnr and, where both
 files log them, val/psnr_obj and val/state_error_rad) and returns them.
-``PORT_METRICS_JSONL --gaps`` prints those gaps alone.
+``PORT_METRICS_JSONL --gaps`` prints those gaps alone; ``--gaps --split
+STEP`` prints them for the vals up to STEP (``"to"``) and after it
+(``"after"``) apart, as for a run cut from a longer one whose lr is constant
+past STEP:
+
+    python -m aon_tpu_torch.scripts.quality_run PORT_METRICS_JSONL --gaps --split 24000 \
+        --reference results/laptop_ae_aabb24_100k_lrfix/metrics.jsonl
 
 ``--sweep FILE ...`` prints the 19-frame sweeps' PSNR split into the
 learned codes' (even) frames and the interpolated codes' (odd) frames, from
@@ -94,6 +100,13 @@ def gaps(rows) -> dict:
             "last_gap": last[3]}
 
 
+def split_gaps(rows, step: int) -> dict:
+    """gaps() of a compare() curve's steps up to ``step`` (``"to"``) and of
+    those after it (``"after"``); a side with no step is left out."""
+    parts = {"to": [r for r in rows if r[0] <= step], "after": [r for r in rows if r[0] > step]}
+    return {name: gaps(part) for name, part in parts.items() if part}
+
+
 def sweep_split(path) -> dict:
     """The 19-frame sweep's PSNR split by code: the mean of its even frames
     (the learned articulation codes) and of its odd ones (the interpolated
@@ -110,6 +123,22 @@ def sweep_split(path) -> dict:
     return {"sweep": split(rec["PSNR"]["each"])}
 
 
+def run_config(config, out, overrides=()) -> dict:
+    """The config ``run()`` writes: ``config`` with ``lr_max_steps`` pinned at
+    its own horizon (its ``lr_max_steps``, else its ``run_max_steps``) before
+    ``overrides`` (KEY=JSON strings) apply, so a ``run_max_steps`` override
+    cuts the run and keeps the config's lr schedule; ``root_dir`` absolute,
+    ``output_path`` = ``out/results``."""
+    c = json.loads(Path(config).read_text())
+    c["lr_max_steps"] = c.get("lr_max_steps") or c["run_max_steps"]
+    for item in overrides:
+        key, value = item.split("=", 1)
+        c[key] = json.loads(value)
+    c["root_dir"] = os.path.abspath(c["root_dir"])
+    c["output_path"] = str(Path(out) / "results")
+    return c
+
+
 def run(config, out, overrides=(), reference=None, evals: bool = True,
         device="cuda") -> dict:
     """Train ``config`` (with ``overrides``, KEY=JSON strings) into ``out`` and
@@ -120,13 +149,7 @@ def run(config, out, overrides=(), reference=None, evals: bool = True,
 
     out = Path(out).resolve()
     out.mkdir(parents=True, exist_ok=True)
-    c = json.loads(Path(config).read_text())
-    c["lr_max_steps"] = c.get("lr_max_steps") or c["run_max_steps"]
-    for item in overrides:
-        key, value = item.split("=", 1)
-        c[key] = json.loads(value)
-    c["root_dir"] = os.path.abspath(c["root_dir"])
-    c["output_path"] = str(out / "results")
+    c = run_config(config, out, overrides)
     cfg_path = out / "config.json"
     cfg_path.write_text(json.dumps(c, indent=1))
     run_dir = out / "results" / c["exp_name"]
@@ -187,6 +210,8 @@ def main(argv=None):
     ap.add_argument("--no_eval", action="store_true", help="train only (with --run)")
     ap.add_argument("--gaps", action="store_true",
                     help="print gaps() of each of CURVE_KEYS both files log, not the curve")
+    ap.add_argument("--split", type=int, default=None, metavar="STEP",
+                    help="with --gaps: the gaps of the vals up to STEP and after it apart")
     ap.add_argument("--sweep", nargs="+", default=None, metavar="JSON",
                     help="results.json or per_instance.json files: print each sweep's "
                          "learned- and interpolated-code means")
@@ -202,8 +227,11 @@ def main(argv=None):
     if not args.port:
         ap.error("give a metrics.jsonl or --run")
     reference = args.reference or REFERENCE
+    if args.split is not None and not args.gaps:
+        ap.error("--split goes with --gaps")
     if args.gaps:
-        out = {key: gaps(rows) for key, rows in curves(args.port, reference).items()}
+        sum_up = gaps if args.split is None else lambda rows: split_gaps(rows, args.split)
+        out = {key: sum_up(rows) for key, rows in curves(args.port, reference).items()}
         print(json.dumps(out), flush=True)
         return out
     rows = compare(args.port, reference)

@@ -27,7 +27,14 @@ float32 plain routes on both sides):
   (e) one vanilla fit step at the occ8 config's 8 + 16 samples on occupancy
       intervals, held at ``tests/test_torch_trainer.py::
       test_fit_one_step_matches_jax``'s tolerances;
-  (f) ``quality_run``'s curves of the object PSNR and the joint-state error.
+  (f) ``quality_run``'s curves of the object PSNR and the joint-state error,
+      and its gaps split at a step;
+  (g) the two 100,000-step auto-encoder configs: their lr schedules at every
+      lr JAX's runs log (also as ``quality_run`` cuts them), the 100k
+      horizon's interval anneal, both packages' sentinels on JAX's committed
+      val curves;
+  (h) ``quality_laptop_ae.json`` at seed 1: the committed logs of both
+      packages on the CPU and of the port on the card.
 
 The fit steps start from one init (the port's Trainer draws the JAX
 trainer's init, checked bit for bit) with the JAX trainer's draws, and are
@@ -94,7 +101,8 @@ CONFIGS = ("quality_scissors_autodec", "quality_scissors_autodec_objover",
            "quality_laptop_vanilla_refsched", "quality_laptop_vanilla_refsched_aabb24",
            "quality_scissors_vanilla", "quality_laptop_ae",
            "quality_laptop_vanilla_refsched_aabb", "quality_laptop_vanilla_refsched_aabb16",
-           "quality_laptop_vanilla_refsched_occ8")
+           "quality_laptop_vanilla_refsched_occ8", "quality_laptop_ae_aabb24_100k_lrfix",
+           "quality_laptop_ae_aabb24_100k")
 
 torch.set_num_threads(1)
 
@@ -574,6 +582,293 @@ def test_quality_run_curves_read_object_psnr_and_state_error():
     assert gaps["val/state_error_rad"]["last_port"] == pytest.approx(0.005456, abs=1e-6)
     assert all(g["mean_gap"] == g["mean_gap_last5"] == g["last_gap"] == 0.0
                and g["steps"] == 16 and g["last_step"] == 24000 for g in gaps.values())
+
+
+def _write_jsonl(path, recs):
+    path.write_text("".join(json.dumps(r) + "\n" for r in recs))
+    return path
+
+
+def test_quality_run_gaps_split_at_a_step(tmp_path, capsys):
+    """``--gaps --split STEP`` sums the vals up to STEP and those after it
+    apart, on two hand-made curves; ``--gaps`` alone prints what it did."""
+    steps = [1500 * i for i in range(1, 9)]  # 1,500 ... 12,000
+    ref = _write_jsonl(tmp_path / "ref.jsonl",
+                       [{"step": 100, "train/loss": 1.0}]
+                       + [{"step": s, "val/psnr": 20.0 + i, "val/psnr_obj": 15.0}
+                          for i, s in enumerate(steps)])
+    # the port: 1 dB under to 6,000, 0.5 over after it; it logs no object PSNR
+    port = _write_jsonl(tmp_path / "port.jsonl",
+                        [{"step": s, "val/psnr": 20.0 + i + (-1.0 if s <= 6000 else 0.5)}
+                         for i, s in enumerate(steps)])
+    whole = quality_run.main([str(port), "--reference", str(ref), "--gaps"])
+    assert json.loads(capsys.readouterr().out) == whole
+    assert list(whole) == ["val/psnr"]
+    assert whole["val/psnr"]["mean_gap"] == pytest.approx((4 * -1.0 + 4 * 0.5) / 8)
+    assert whole["val/psnr"]["mean_gap_last5"] == pytest.approx((-1.0 + 4 * 0.5) / 5)
+    split = quality_run.main([str(port), "--reference", str(ref), "--gaps", "--split", "6000"])
+    assert json.loads(capsys.readouterr().out) == split
+    to, after = split["val/psnr"]["to"], split["val/psnr"]["after"]
+    assert (to["steps"], to["last_step"], after["steps"], after["last_step"]) == (4, 6000, 4, 12000)
+    assert to["mean_gap"] == to["mean_gap_last5"] == to["last_gap"] == pytest.approx(-1.0)
+    assert after["mean_gap"] == after["mean_gap_last5"] == after["last_gap"] == pytest.approx(0.5)
+    assert after == quality_run.gaps(quality_run.compare(port, ref)[4:])
+    # a split past the last val leaves "after" out
+    assert list(quality_run.split_gaps(quality_run.compare(port, ref), 12000)) == ["to"]
+    with pytest.raises(SystemExit):
+        quality_run.main([str(port), "--reference", str(ref), "--split", "6000"])
+
+
+# ------------------------------------- the two 100,000-step AE configs
+
+AE_100K = ("quality_laptop_ae_aabb24_100k_lrfix", "quality_laptop_ae_aabb24_100k")
+
+
+def _logged(exp, key):
+    """{step: ``key``} of ``results/{exp}/metrics.jsonl``."""
+    return quality_run.val_curve(REPO / "results" / exp / "metrics.jsonl", key)
+
+
+def _jax_logged_lr(name):
+    return _logged(json.loads((REPO / "configs" / f"{name}.json").read_text())["exp_name"],
+                   "train/lr")
+
+
+@pytest.mark.parametrize("name", AE_100K)
+def test_100k_ae_schedules_match_jax_logged_lr(name, tmp_path):
+    """Each config's lr schedule, built by ``make_optimizer`` as the
+    ``Trainer`` builds it, at every step where JAX's committed run logs
+    ``train/lr`` (500 steps to 100,000): within 1e-6 relative of JAX's own
+    schedule (``aon_tpu.train.systems.make_optimizer``, on the CPU), and
+    within 5e-6 of the logged values, the distance JAX's own schedule on
+    the CPU keeps from them (up to 4.1e-6: the TPU's float32 ``exp`` and
+    ``sin``, not the schedule, set it).  lrfix's tail from its pinned 24,000
+    is constant, as the logged 4.999987e-6 is (the CPU's ``exp`` gives
+    4.9999994e-6 there, 2.5e-6 apart), and the 100k horizon's lr at 24,000
+    is the logged 1.6556555e-4 within 1e-6.  The config ``quality_run
+    --run`` writes for a run cut at 30,000 keeps the schedule: it pins
+    ``lr_max_steps`` before the cut."""
+    from aon_tpu.train.systems import make_optimizer as jax_make_optimizer
+    from aon_tpu_torch.train.optim import make_optimizer
+
+    logged = _jax_logged_lr(name)
+    assert len(logged) == 500 and max(logged) == 100000
+    path = REPO / "configs" / f"{name}.json"
+    _, jax_schedule = jax_make_optimizer(jax_get_config(["--config", str(path)]))
+    want = {step: float(jax_schedule(step)) for step in logged}
+    cut = tmp_path / "cut.json"
+    cut.write_text(json.dumps(quality_run.run_config(path, tmp_path, ["run_max_steps=30000"])))
+    cut_cfg = get_config(["--config", str(cut)])
+    assert cut_cfg.run_max_steps == 30000
+    for cfg in (get_config(["--config", str(path)]), cut_cfg):
+        _, schedule = make_optimizer(cfg)
+        for step, lr in logged.items():
+            got = schedule(step)
+            assert abs(got - want[step]) <= 1e-6 * want[step], (name, step, got, want[step])
+            assert abs(got - lr) <= 5e-6 * lr, (name, step, got, lr)
+            assert abs(want[step] - lr) <= 5e-6 * lr, (name, step, want[step], lr)
+    pinned = {"quality_laptop_ae_aabb24_100k_lrfix": 24000,
+              "quality_laptop_ae_aabb24_100k": 100000}[name]
+    assert cut_cfg.lr_max_steps == pinned
+    if pinned == 24000:
+        tail = [step for step in logged if step >= 24000]
+        assert {logged[step] for step in tail} == {4.999987140763551e-06}
+        assert {schedule(step) for step in tail} == {schedule(24000)}  # constant
+    else:
+        assert logged[24000] == JAX_LR_24000
+        assert abs(schedule(24000) - JAX_LR_24000) <= 1e-6 * JAX_LR_24000
+
+
+def test_100k_ae_interval_ramp_matches_jax():
+    """The 100k config's interval anneal (``aabb_warmup_steps`` 33,000): the
+    port's ``inject_ramps`` + ``effective_intervals`` against JAX's ramp (the
+    closure in ``aon_tpu/train/trainer.py::Trainer.fit``, one line here) fed
+    to JAX's ``effective_intervals``, on one AABB batch at steps 0 to past
+    the ramp's end, at atol 0 (both run the same float32 operations op by
+    op)."""
+    from aon_tpu.core import rays as jrays
+    from aon_tpu_torch.core import rays as trays
+
+    cfg = get_config(["--config", str(REPO / "configs" / "quality_laptop_ae_aabb24_100k.json")])
+    assert cfg.use_aabb and cfg.aabb_warmup_steps == 33000
+    rng = np.random.default_rng(0)
+    rays_o = (rng.standard_normal((512, 3)) * 4.0).astype(np.float32)
+    rays_d = (-rays_o + rng.standard_normal((512, 3))).astype(np.float32)
+    rays_d /= np.linalg.norm(rays_d, axis=-1, keepdims=True)
+    bounds = np.array([[-0.6, -0.5, -0.7], [0.6, 0.5, 0.4]], np.float32)
+    hit, t_near, t_far = trays.ray_box_intersection(bounds, rays_o, rays_d)
+    assert 0 < hit.sum() < len(hit)
+    near, far = tmulti.NEAR, tmulti.FAR
+    for step in (0, 8000, 16500, 33000, 60000):
+        item = {"t_near": t_near.astype(np.float32), "t_far": t_far.astype(np.float32)}
+        ttrainer.inject_ramps(cfg, item, step)
+        ramp = np.float32(min(1.0, step / cfg.aabb_warmup_steps))  # JAX's _inject_ramps
+        assert item["interval_ramp"] == ramp
+        got = trays.effective_intervals({k: torch.as_tensor(v) for k, v in item.items()},
+                                        near, far)
+        want = jrays.effective_intervals(
+            {"t_near": jnp.asarray(item["t_near"]), "t_far": jnp.asarray(item["t_far"]),
+             "interval_ramp": jnp.asarray(ramp)}, near, far)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+        if step >= 33000:  # fully tightened
+            np.testing.assert_array_equal(got[0].numpy(), item["t_near"])
+
+
+def _bce_exit(run, plateau):
+    """The first logged step where ``run``'s opacity BCE leaves ``plateau``'s
+    by over 1e-3 relative (None: it never does), and the largest relative
+    distance before it.  On the plateau the field is opaque on every ray, so
+    the BCE is the batch's masks' alone (``softplus(1) - mask`` a ray), the
+    same for every run on the plateau at that step: the loader's rays are
+    fixed by the seed and the step."""
+    got, ref = _logged(run, "train/opacity_loss"), _logged(plateau, "train/opacity_loss")
+    rel = [(s, abs(got[s] - ref[s]) / ref[s]) for s in sorted(got) if s in ref]
+    exit_step = next((s for s, d in rel if d > 1e-3), None)
+    return exit_step, max(d for s, d in rel if exit_step is None or s < exit_step)
+
+
+def test_100k_ae_card_runs_against_jax():
+    """The committed card runs of the two 100,000-step configs (cut at
+    27,000-32,204 steps) against JAX's runs: the logged lr within 5e-6 of
+    JAX's at every shared step (the schedule test's bound), and each run's
+    exit from the background plateau, read from its opacity BCE against
+    JAX's 100k run, which never left it: the port's BCE sits on that run's
+    to 3e-6 relative (the TPU's float32 transcendentals, as for the lr)
+    until it leaves.  JAX's lrfix run left at 17,204; the port's lrfix runs
+    did not by 27,000 (its sentinel aborted there) and left at 14,804; the
+    port's 100k horizon left at 13,804."""
+    runs = {"torch_laptop_ae_aabb24_100k_lrfix": "laptop_ae_aabb24_100k_lrfix",
+            "torch_laptop_ae_aabb24_100k_lrfix_repeat": "laptop_ae_aabb24_100k_lrfix",
+            "torch_laptop_ae_aabb24_100k": "laptop_ae_aabb24_100k"}
+    for run, ref in runs.items():
+        port, want = _logged(run, "train/lr"), _logged(ref, "train/lr")
+        assert len([s for s in port if s in want]) >= 135, run
+        for step, lr in port.items():
+            if step in want:
+                assert abs(lr - want[step]) <= 5e-6 * want[step], (run, step)
+    plateau = "laptop_ae_aabb24_100k"
+    exits = {run: _bce_exit(run, plateau) for run in list(runs) + ["laptop_ae_aabb24_100k_lrfix"]}
+    assert {run: e[0] for run, e in exits.items()} == {
+        "torch_laptop_ae_aabb24_100k_lrfix": None, "torch_laptop_ae_aabb24_100k_lrfix_repeat": 14804,
+        "torch_laptop_ae_aabb24_100k": 13804, "laptop_ae_aabb24_100k_lrfix": 17204}
+    assert all(e[1] <= 3e-6 for run, e in exits.items() if run.startswith("torch_")), exits
+    last_val = max(quality_run.val_curve(
+        REPO / "results" / "torch_laptop_ae_aabb24_100k_lrfix" / "metrics.jsonl"))
+    assert last_val == 27000  # TrainingPlateaued, as the sentinel test decides on JAX's 100k curve
+
+
+def _sentinel_decisions(module, curve, settings):
+    """[(step, "warn" | "abort", which)] of a package's two sentinels fed a
+    val curve through its trainer's order (collapse, then plateau); an abort
+    ends the run."""
+    import warnings
+
+    collapse = module.CollapseSentinel(settings["collapse_abort_vals"])
+    plateau = module.PlateauSentinel(
+        settings["plateau_abort_epochs"], settings["plateau_eps_db"],
+        settings["plateau_floor_psnr"], settings["plateau_start_step"], settings["plateau_abort"])
+    out = []
+    for step in sorted(curve):
+        try:
+            with warnings.catch_warnings(record=True) as seen:
+                warnings.simplefilter("always")
+                collapse.update(curve[step], step)
+                plateau.update(curve[step], step)
+        except (module.TrainingCollapsed, module.TrainingPlateaued) as e:
+            out.append((step, "abort", type(e).__name__))
+            break
+        out += [(step, "warn", "plateau") for w in seen if "plateaued" in str(w.message)]
+    return out
+
+
+def test_sentinels_decide_as_jax_on_its_committed_curves():
+    """Every committed JAX auto-encoder val curve through both packages'
+    sentinels, with lrfix's settings (abort on and off) and with the
+    defaults: the same decisions at the same steps.  lrfix's settings abort
+    the 100k horizon's plateau at 27,000 (eight vals past 15,000 without
+    0.3 dB) and never lrfix's own curve, whose transition came at 18,000."""
+    lrfix = json.loads((REPO / "configs" / "quality_laptop_ae_aabb24_100k_lrfix.json").read_text())
+    keys = ("collapse_abort_vals", "plateau_abort_epochs", "plateau_eps_db",
+            "plateau_floor_psnr", "plateau_start_step", "plateau_abort")
+    defaults = {k: getattr(Config(), k) for k in keys}
+    assert defaults == {k: getattr(JaxConfig(), k) for k in keys}
+    lrfix_settings = {k: lrfix.get(k, defaults[k]) for k in keys}
+    assert lrfix_settings["plateau_abort"] and lrfix_settings["plateau_start_step"] == 15000
+    settings = {"defaults": defaults, "lrfix": lrfix_settings,
+                "lrfix_warn": dict(lrfix_settings, plateau_abort=False)}
+    decided = {}
+    for exp in ("laptop_ae", "laptop_ae_aabb24", "laptop_ae_aabb24_100k_lrfix",
+                "laptop_ae_aabb24_100k"):
+        curve = quality_run.val_curve(REPO / "results" / exp / "metrics.jsonl")
+        for name, each in settings.items():
+            got = _sentinel_decisions(ttrainer, curve, each)
+            assert got == _sentinel_decisions(jtrainer, curve, each), (exp, name)
+            decided[exp, name] = got
+    assert all(not decided[exp, "defaults"] for exp, _ in decided)
+    assert decided["laptop_ae_aabb24_100k", "lrfix"] == [(27000, "abort", "TrainingPlateaued")]
+    # with the abort off it warns at every val from 27,000 to the run's end
+    curve = quality_run.val_curve(REPO / "results" / "laptop_ae_aabb24_100k" / "metrics.jsonl")
+    assert decided["laptop_ae_aabb24_100k", "lrfix_warn"] == [
+        (step, "warn", "plateau") for step in sorted(curve) if step >= 27000]
+    for exp in ("laptop_ae", "laptop_ae_aabb24", "laptop_ae_aabb24_100k_lrfix"):
+        assert decided[exp, "lrfix"] == decided[exp, "lrfix_warn"] == [], exp
+
+
+# ------------------------- quality_laptop_ae.json at seed 1, both packages
+
+SEED1_PAIR = REPO / "results" / "torch_laptop_ae_seed1_pair"
+# per-key bounds of the port's CPU log against JAX's at steps 8, 16, 24:
+# relative, but the PSNRs in dB (AE_PSNR_TOL, the one-step fit test's)
+SEED1_TOLS = {"train/opacity_loss": 1e-6, "train/lr": 1e-6, "train/loss": 1e-3,
+              "train/loss_last": 1e-3, "train/loss_state": 2e-3,
+              "train/psnr0": AE_PSNR_TOL, "train/psnr1": AE_PSNR_TOL}
+
+
+def _train_lines(path):
+    recs = map(json.loads, Path(path).read_text().splitlines())
+    return {int(r["step"]): r for r in recs if "train/loss" in r}
+
+
+def test_ae_config_seed1_pair_sits_on_the_plateau_in_both_packages():
+    """The committed logs of ``quality_laptop_ae.json`` at seed 1 on the
+    float32 plain routes, a line every 8 steps: JAX on the CPU (its own
+    CLI), the port on the CPU (``aon_tpu_torch.run.main(device="cpu")``)
+    and the port on the card (``quality_run --run``).
+
+    The port's CPU lines meet JAX's at steps 8, 16 and 24 within
+    ``SEED1_TOLS``.  The opacity BCE is equal: on a field opaque on every ray
+    acc is 1 in float32 and the BCE is the masks' alone.  The joint-state
+    loss parts fastest (1.1e-4, 2.4e-4, 1.1e-3 relative at 8 / 16 / 24):
+    the encoders' float32 convolutions differ in their last bits and eight
+    Adam steps a line amplify that, as between any two float32 runs.
+
+    On the card the opacity BCE is JAX's within 1e-6 relative at every
+    shared step (50, to 400; 9.7e-8 seen) and above 1.2
+    (JAX at seed 0: 0.737 at 200), and the card repeats the committed seed-1
+    run's 1.2557 / 1.2515 at 200 / 400: seed 1 of this config sits on the
+    background plateau in both packages, its field opaque on every ray."""
+    jax_cpu = _train_lines(SEED1_PAIR / "jax_cpu" / "metrics.jsonl")
+    port_cpu = _train_lines(SEED1_PAIR / "port_cpu" / "metrics.jsonl")
+    card = _train_lines(SEED1_PAIR / "port_card" / "metrics.jsonl")
+    assert sorted(port_cpu) == [8, 16, 24] and sorted(card) == list(range(8, 401, 8))
+    assert sorted(jax_cpu) == sorted(card)
+    for step in (8, 16, 24):
+        for key, tol in SEED1_TOLS.items():
+            got, want = port_cpu[step][key], jax_cpu[step][key]
+            err = abs(got - want) if "psnr" in key else abs(got - want) / abs(want)
+            assert err <= tol, (step, key, got, want)
+    for step in sorted(set(jax_cpu) & set(card)):
+        bce = jax_cpu[step]["train/opacity_loss"]
+        assert bce > 1.2, step
+        assert abs(card[step]["train/opacity_loss"] - bce) <= 1e-6 * bce, step
+    assert all(r["train/opacity_loss"] > 1.2 for r in card.values())
+    seed0 = _train_lines(REPO / "results" / "laptop_ae" / "metrics.jsonl")
+    assert seed0[200]["train/opacity_loss"] < 0.75
+    committed = _train_lines(REPO / "results" / "torch_laptop_ae_seed1_f32_1500" / "metrics.jsonl")
+    for step in (200, 400):
+        want = committed[step]["train/opacity_loss"]
+        assert abs(card[step]["train/opacity_loss"] - want) <= 1e-6 * want, step
 
 
 # ------------------------------------ the auto-encoder's init field by seed
